@@ -19,27 +19,47 @@ Phases:
                 launch per layer per decode step, and every token is the
                 argmax of a no-cache forward over its prefix wherever that
                 forward's top-1/top-2 margin exceeds 0.05 (bf16 near-ties
-                excused);
+                excused), and no step_begin makes a synchronizing CUDA
+                call (CUDA's sync debug mode watches each one, here and
+                in (d'));
+  (d') fused  — the same 12 requests through LLMEngine(scheduler="fused"),
+                driven with step_begin/step_finish pipelined at depth 2:
+                every request finishes with its 64 tokens, one append launch
+                per layer per mixed step and one decode launch per layer per
+                all-decode step, the same greedy check, every block free at
+                the end; tokens/s, step times, TTFT, the real-row share of
+                the mixed steps, agreement with phase (d), and for each
+                mixed step_begin dispatched behind another mixed step its
+                host ms, the step's device ms and whether the step in
+                flight still ran when it returned (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work; then four decode steps of
-                a fresh engine traced with torch.profiler: device time by
-                kernel class and the device's idle share;
+                a fresh legacy engine traced with torch.profiler (device
+                time by kernel class, the device's idle share), and fused
+                mixed and all-decode windows at depth 1 and depth 2, untraced
+                and traced: no CUDA runtime or driver call that waits on the
+                device may run inside a traced step_begin (a second witness
+                beside the sync debug mode), and how many launches the host
+                can enqueue ahead of a stalled card;
   (f) result  — the kernels line, the card's name and power limit, and the
                 ok line, in that order, last.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -47,6 +67,7 @@ from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention_append, paged_attention_append_plain,
     paged_attention_decode, paged_attention_decode_plain)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
@@ -55,10 +76,14 @@ PEAK_BYTES = 3.35e12
 
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 PAGED_SRC = "paddle_tpu_torch/csrc/paged_attention_decode.cu"
+APPEND_SRC = "paddle_tpu_torch/csrc/paged_attention_append.cu"
 FLASH_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:87"
 PAGED_REPLACES = "paddle_tpu/ops/kernels/paged_attention.py:370"
+APPEND_REPLACES = "paddle_tpu/ops/kernels/paged_attention.py:662"
+KERNELS = ["flash_attention_fwd", "paged_attention_decode",
+           "paged_attention_append"]
 
-FLASH_TOL, LSE_TOL, PAGED_TOL = 2e-2, 1e-2, 1e-2
+FLASH_TOL, LSE_TOL, PAGED_TOL, APPEND_TOL = 2e-2, 1e-2, 1e-2, 2e-2
 MARGIN = 0.05
 
 
@@ -180,8 +205,91 @@ def check_paged(dev):
     return worst
 
 
+# (lens, q_lens) per slot: a first chunk, a window starting mid-block and
+# crossing five blocks, a short final chunk, a long history, decode rows on
+# either side of a block boundary, a long decode, an idle slot (table all -1)
+APPEND_SPECS = [(0, 256), (100, 256), (512, 37), (1024, 256), (63, 1),
+                (64, 1), (1999, 1), (700, 0)]
+# slot 1's window (positions 100-355) runs into a -1 entry at block 4: its
+# rows at positions 256-319 land in the scratch block
+APPEND_MINUS_ONE = (1, 4)
+
+
+def append_case(rng, dev, Hkv, specs=APPEND_SPECS, minus_one=None, Hq=32,
+                D=128, bs=64, S=256, MB=32):
+    """Pools and tables covering each window ``[lens, lens + q_lens)``;
+    idle slots (q_lens 0) have an all -1 table row. ``minus_one = (b, j)``
+    wipes one table entry of an active slot."""
+    B = len(specs)
+    need = [0 if q == 0 else (L + q - 1) // bs + 1 for L, q in specs]
+    NB = sum(need) + 2                  # one spare + the scratch block
+    order = rng.permutation(NB - 1)
+    tables = np.full((B, MB), -1, np.int32)
+    it = iter(order)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = next(it)
+    if minus_one is not None:
+        tables[minus_one] = -1
+    i32 = torch.int32
+    return dict(q=randn(rng, (B, S, Hq, D), dev),
+                k=randn(rng, (NB, Hkv, bs, D), dev),
+                v=randn(rng, (NB, Hkv, bs, D), dev),
+                tables=torch.from_numpy(tables).to(dev),
+                lens=torch.tensor([L for L, _ in specs], dtype=i32, device=dev),
+                qlens=torch.tensor([q for _, q in specs], dtype=i32,
+                                   device=dev),
+                nk=randn(rng, (B, S, Hkv, D), dev),
+                nv=randn(rng, (B, S, Hkv, D), dev))
+
+
+def append_args(c, k, v):
+    return (c["q"], k, v, c["tables"], c["lens"], c["qlens"], c["nk"],
+            c["nv"])
+
+
+def check_append(dev):
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for name, Hkv, minus_one in (("Hkv32", 32, None), ("Hkv8", 8, None),
+                                 ("minus_one_target", 32, APPEND_MINUS_ONE)):
+        c = append_case(rng, dev, Hkv, minus_one=minus_one)
+        kk, vk = c["k"].clone(), c["v"].clone()
+        kp, vp = c["k"].clone(), c["v"].clone()
+        out = paged_attention_append(*append_args(c, kk, vk))
+        ref = paged_attention_append_plain(*append_args(c, kp, vp))
+        err, padding_zero = 0.0, True
+        for b, (_, n) in enumerate(APPEND_SPECS):
+            if n:
+                err = max(err, (out[b, :n].float() - ref[b, :n].float())
+                          .abs().max().item())
+            padding_zero &= not bool(out[b, n:].any().item())
+        nb = kk.shape[0]
+        pools_exact = bool(torch.equal(kk[:nb - 1], kp[:nb - 1]) and
+                           torch.equal(vk[:nb - 1], vp[:nb - 1]))
+        written = not torch.equal(kk[:nb - 1], c["k"][:nb - 1])
+        line = {"phase": "parity", "kernel": "paged_attention_append",
+                "case": name, "B": len(APPEND_SPECS), "S": 256, "Hq": 32,
+                "Hkv": Hkv, "D": 128, "block_size": 64, "MB": 32,
+                "lens_qlens": APPEND_SPECS, "max_abs_err": err,
+                "tol": APPEND_TOL, "pools_exact_except_scratch": pools_exact,
+                "new_rows_written": written, "padding_rows_zero": padding_zero}
+        ok = err <= APPEND_TOL and pools_exact and written and padding_zero
+        if minus_one is not None:
+            # rows 156-219 of slot 1 (positions 256-319) sit in scratch
+            b = minus_one[0]
+            landed = bool(torch.equal(kk[nb - 1, :, :64],
+                                      c["nk"][b, 156:220].transpose(0, 1)))
+            line["minus_one_rows_in_scratch"] = landed
+            ok = ok and landed
+        emit(line)
+        require(ok, f"append {name}: {line}")
+        worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# (c) forward, (d) serving
+# (c) forward, (d) serving, (d') fused serving
 # ---------------------------------------------------------------------------
 
 def build_model(dev):
@@ -250,8 +358,9 @@ def serving_prompts(vocab):
 def device_breakdown(prof, wall_s, n_steps):
     """Sum the device events (kernels, copies, sets) of a finished
     profile per step: total busy time (union of intervals), the
-    paged-decode kernel, matrix products, everything else, and the
-    device's idle share of the traced wall. None when the trace holds no
+    paged-decode kernel, the paged-append kernel's two launches, matrix
+    products, everything else, and the device's idle share of the traced
+    wall. None when the trace holds no
     device event."""
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -265,12 +374,15 @@ def device_breakdown(prof, wall_s, n_steps):
            e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
         return None
-    by = {"paged_decode_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    by = {"paged_decode_kernel": 0.0, "append_kernels": 0.0, "gemm": 0.0,
+          "other": 0.0}
     spans = []
     for e in dev:
         name = e.get("name", "")
         if "paged_decode_kernel" in name:
             key = "paged_decode_kernel"
+        elif "append_attn_kernel" in name or "append_write_kernel" in name:
+            key = "append_kernels"
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
                                              "nvjet")):
             key = "gemm"
@@ -303,12 +415,15 @@ def run_serving(model, dev):
     rids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
     flash_attention_fwd.launches = 0
     paged_attention_decode.launches = 0
-    step_walls, decode_walls, admit_chunks = [], [], []
+    step_walls, decode_walls, admit_chunks, syncs = [], [], [], []
     t_all = time.perf_counter()
     while eng.has_unfinished():
         c0 = eng.stats["prefill_chunks"]
         t0 = time.perf_counter()
-        eng.step()                     # ends in the step's token readback
+        with sync_watch(syncs):
+            pending = eng.step_begin()
+        if pending is not None:
+            eng.step_finish(pending)   # waits on the step's own event
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         step_walls.append(dt)
@@ -330,7 +445,37 @@ def run_serving(model, dev):
                     zip(step_walls, admit_chunks) if n)
     n_chunks = eng.stats["prefill_chunks"]
 
-    # greedy check: each token against a no-cache forward over its prefix
+    checked, excused, mismatched = greedy_check(model, dev, prompts, outs)
+    emit({"phase": "serving", "requests": len(outs),
+          "prompt_lens": [int(n) for n in lens], "new_tokens": 64,
+          "finished": sum(o.finished for o in outs),
+          "finish_reasons": sorted({o.finish_reason for o in outs}),
+          "tokens": n_tok, "steps": steps,
+          "paged_decode_launches": paged_launches,
+          "expected_launches": steps * L,
+          "flash_launches": flash_launches, "prefill_chunks": n_chunks,
+          "preemptions": eng.stats["preemptions"],
+          "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "decode_step_ms_median": decode_ms,
+          "prefill_ms_per_chunk": prefill_s * 1e3 / max(n_chunks, 1),
+          "step_begin_syncs": len(syncs),
+          "step_begin_sync_messages": sorted(set(syncs))[:5],
+          "greedy_checked": checked, "greedy_excused_near_ties": excused,
+          "greedy_mismatched": mismatched, "margin": MARGIN})
+    require(not syncs, f"step_begin made {len(syncs)} synchronizing calls")
+    require(all(o.finished and o.finish_reason == "length" and
+                len(o.token_ids) == 64 for o in outs),
+            "a request did not finish with its 64 tokens")
+    require(paged_launches == steps * L and paged_launches > 0,
+            f"decode launches {paged_launches} != steps {steps} x {L}")
+    require(mismatched == 0, f"{mismatched} greedy tokens disagree with the "
+            f"no-cache forward beyond the {MARGIN} margin")
+    return paged_launches, [list(o.token_ids) for o in outs]
+
+
+def greedy_check(model, dev, prompts, outs):
+    """Each token against a no-cache forward over its prefix: returns
+    (checked, excused near-ties, mismatched)."""
     checked = excused = mismatched = 0
     with torch.no_grad():
         for p, o in zip(prompts, outs):
@@ -346,28 +491,320 @@ def run_serving(model, dev):
                     mismatched += int(arg[i] != tok)
                 else:
                     excused += 1
-    emit({"phase": "serving", "requests": len(outs),
-          "prompt_lens": [int(n) for n in lens], "new_tokens": 64,
-          "finished": sum(o.finished for o in outs),
+    return checked, excused, mismatched
+
+
+def make_fused_engine(model, dev, **kw):
+    return LLMEngine(model, cache_impl="paged", scheduler="fused",
+                     max_batch=8, block_size=64, chunk_size=256,
+                     max_seq_len=2048, device=dev, **kw)
+
+
+@contextlib.contextmanager
+def sync_watch(seen):
+    """CUDA's sync debug mode around a dispatch: the message of every
+    synchronizing call inside it (a blocking copy, ``.item()``, a stream
+    sync) is appended to ``seen``."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    seen.extend(str(w.message) for w in caught
+                if "synchroniz" in str(w.message))
+
+
+def begin_step(eng, syncs, inflight=None):
+    """``step_begin`` (its synchronizing calls appended to ``syncs``) plus
+    what kind of step it dispatched: (pending, kind, real rows, probe), kind
+    "mixed", "decode" or None (nothing dispatched). ``inflight`` is the
+    entry of the step still in flight, if any. The probe holds the host ms
+    of ``step_begin``, CUDA events around the step's device work, and
+    whether the in-flight step was still running on the device when
+    ``step_begin`` returned (it is not when ``step_begin`` waited on the
+    device, by a sync or by launches that found CUDA's launch queue
+    full)."""
+    f0, p0 = eng.stats["fused_steps"], eng.stats["prefill_tokens"]
+    on_card = eng.device.type == "cuda"
+    start = end = None
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    with sync_watch(syncs):
+        pending = eng.step_begin()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    prev = inflight[0] if inflight is not None else None
+    prev_running = (on_card and prev is not None and prev.event is not None
+                    and not prev.event.query())
+    if on_card:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+    if pending is None:
+        return None
+    probe = {"host_ms": host_ms, "start": start, "end": end,
+             "inflight_kind": inflight[1] if inflight is not None else None,
+             "inflight_running": prev_running}
+    if pending.toks is None:
+        return pending, None, 0, probe
+    mixed = eng.stats["fused_steps"] > f0
+    rows = eng.stats["prefill_tokens"] - p0 + sum(pending.sched.values())
+    return pending, "mixed" if mixed else "decode", rows, probe
+
+
+def overlap_summary(probes):
+    """The mixed steps dispatched while another mixed step was in flight
+    (read after a synchronize): ``step_begin``'s host ms against the
+    step's device ms, and how many found the in-flight step still running
+    on the device when they returned."""
+    steady = [p for p in probes if p["kind"] == "mixed"
+              and p["inflight_kind"] == "mixed"]
+    host = [p["host_ms"] for p in steady]
+    device = [p["start"].elapsed_time(p["end"]) for p in steady
+              if p["start"] is not None]
+    return {"steady_mixed_steps": len(steady),
+            "mixed_begin_host_ms_median":
+                float(np.median(host)) if host else None,
+            "mixed_begin_host_ms_max": max(host) if host else None,
+            "mixed_device_ms_median":
+                float(np.median(device)) if device else None,
+            "mixed_begins_with_inflight_running":
+                sum(p["inflight_running"] for p in steady)}
+
+
+def run_fused_serving(model, dev, legacy_tokens):
+    """The 12 requests through the fused scheduler, pipelined at depth 2
+    (step_begin of step N+1 before step_finish of step N)."""
+    prompts = serving_prompts(model.config.vocab_size)
+    first_token_s = {}
+    clock = {"start": 0.0, "prev": 0.0}
+
+    def on_token(rid, _tok):
+        first_token_s.setdefault(rid, time.perf_counter() - clock["start"])
+
+    eng = make_fused_engine(model, dev, stream_callback=on_token)
+    rids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
+    step_ms = {"mixed": [], "decode": []}
+    mixed_rows = []
+    probes = []
+
+    def finish(entry):
+        pending, kind, rows, probe = entry
+        eng.step_finish(pending)
+        now = time.perf_counter()
+        if kind is not None:
+            step_ms[kind].append((now - clock["prev"]) * 1e3)
+            probes.append(dict(probe, kind=kind))
+            if kind == "mixed":
+                mixed_rows.append(rows)
+        clock["prev"] = now
+
+    syncs = []
+    flash_attention_fwd.launches = 0
+    paged_attention_decode.launches = 0
+    paged_attention_append.launches = 0
+    clock["start"] = clock["prev"] = time.perf_counter()
+    entry = begin_step(eng, syncs)
+    while eng.has_unfinished():
+        nxt = begin_step(eng, syncs, entry) if entry is not None else None
+        if entry is not None:
+            finish(entry)
+        entry = nxt
+        if entry is None and eng.has_unfinished():
+            entry = begin_step(eng, syncs)
+    if entry is not None:
+        finish(entry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - clock["start"]
+    overlap = overlap_summary(probes)
+    append_launches = paged_attention_append.launches
+    decode_launches = paged_attention_decode.launches
+    flash_launches = flash_attention_fwd.launches
+    L = model.config.num_hidden_layers
+    n_mixed = eng.stats["fused_steps"]
+    n_decode = eng.stats["steps"] - n_mixed
+    outs = [eng.finished_outputs.pop(r) for r in rids]
+    n_tok = sum(len(o.token_ids) for o in outs)
+    all_free = len(eng._free_blocks) == eng.n_blocks
+    same = sum(int(a == b) for o, ref in zip(outs, legacy_tokens)
+               for a, b in zip(o.token_ids, ref))
+    rows_capacity = eng.B * eng.chunk
+    real_share = sum(mixed_rows) / max(len(mixed_rows) * rows_capacity, 1)
+    del eng
+    torch.cuda.empty_cache()
+    checked, excused, mismatched = greedy_check(model, dev, prompts, outs)
+    ttft = [first_token_s.get(r) for r in rids]
+    emit({"phase": "fused_serving", "requests": len(outs),
+          "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+          "pipeline_depth": 2, "finished": sum(o.finished for o in outs),
           "finish_reasons": sorted({o.finish_reason for o in outs}),
-          "tokens": n_tok, "steps": steps,
-          "paged_decode_launches": paged_launches,
-          "expected_launches": steps * L,
-          "flash_launches": flash_launches, "prefill_chunks": n_chunks,
-          "preemptions": eng.stats["preemptions"],
+          "tokens": n_tok, "mixed_steps": n_mixed,
+          "all_decode_steps": n_decode,
+          "append_launches": append_launches,
+          "expected_append_launches": n_mixed * L,
+          "decode_launches": decode_launches,
+          "expected_decode_launches": n_decode * L,
+          "flash_launches": flash_launches,
           "wall_s": wall, "tokens_per_s": n_tok / wall,
-          "decode_step_ms_median": decode_ms,
-          "prefill_ms_per_chunk": prefill_s * 1e3 / max(n_chunks, 1),
+          "decode_step_ms_median": float(np.median(step_ms["decode"])),
+          "mixed_step_ms_median": float(np.median(step_ms["mixed"])),
+          "ttft_s": ttft, "ttft_s_median": float(np.median(ttft)),
+          "mixed_real_rows": int(sum(mixed_rows)),
+          "mixed_row_slots": len(mixed_rows) * rows_capacity,
+          "mixed_real_row_share": real_share,
+          "tokens_equal_to_legacy_phase": same,
+          "blocks_all_free": all_free,
+          "step_begin_syncs": len(syncs),
+          "step_begin_sync_messages": sorted(set(syncs))[:5],
+          "overlap": overlap,
           "greedy_checked": checked, "greedy_excused_near_ties": excused,
           "greedy_mismatched": mismatched, "margin": MARGIN})
+    require(not syncs, f"fused: step_begin made {len(syncs)} synchronizing "
+            f"calls")
     require(all(o.finished and o.finish_reason == "length" and
                 len(o.token_ids) == 64 for o in outs),
-            "a request did not finish with its 64 tokens")
-    require(paged_launches == steps * L and paged_launches > 0,
-            f"decode launches {paged_launches} != steps {steps} x {L}")
-    require(mismatched == 0, f"{mismatched} greedy tokens disagree with the "
-            f"no-cache forward beyond the {MARGIN} margin")
-    return paged_launches
+            "fused: a request did not finish with its 64 tokens")
+    require(append_launches == n_mixed * L and append_launches > 0,
+            f"fused: append launches {append_launches} != mixed steps "
+            f"{n_mixed} x {L}")
+    require(decode_launches == n_decode * L and decode_launches > 0,
+            f"fused: decode launches {decode_launches} != all-decode steps "
+            f"{n_decode} x {L}")
+    require(mismatched == 0, f"fused: {mismatched} greedy tokens disagree "
+            f"with the no-cache forward beyond the {MARGIN} margin")
+    require(all_free, "fused: blocks still allocated after the drain")
+    return append_launches, decode_launches
+
+
+BEGIN_SPAN = "chip_smoke::step_begin"
+# runtime and driver calls that make the host wait on the device
+SYNC_CALLS = ("Synchronize", "cudaMemcpy", "cudaMemcpy2D", "cudaFree",
+              "cudaFreeHost", "cuMemFree", "cuMemFreeHost", "cuMemcpyDtoH",
+              "cuMemcpyHtoD")
+
+
+def is_sync_call(name):
+    return "Synchronize" in name or (name in SYNC_CALLS) or \
+        any(name.startswith(c + "_v") for c in SYNC_CALLS)
+
+
+def run_window(eng, n, depth):
+    """Dispatch ``n`` steps keeping up to ``depth`` in flight, each
+    ``step_begin`` inside a ``BEGIN_SPAN`` profiler range; returns the wall
+    ms per step (ending in a synchronize), how many were mixed, and the
+    host ms of each ``step_begin``."""
+    f0 = eng.stats["fused_steps"]
+    pend = collections.deque()
+    begin_ms = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if len(pend) == depth:
+            eng.step_finish(pend.popleft())
+        tb = time.perf_counter()
+        with record_function(BEGIN_SPAN):
+            pending = eng.step_begin()
+        begin_ms.append((time.perf_counter() - tb) * 1e3)
+        require(pending is not None and pending.toks is not None,
+                "profile window: a step dispatched nothing")
+        pend.append(pending)
+    while pend:
+        eng.step_finish(pend.popleft())
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / n,
+            eng.stats["fused_steps"] - f0, begin_ms)
+
+
+def runtime_in_begin(prof):
+    """The CUDA runtime and driver calls the trace saw inside each
+    ``BEGIN_SPAN`` (CUPTI sees every one, whoever issues it): how many,
+    and the names of those that make the host wait on the device."""
+    host = torch.autograd.DeviceType.CPU        # not the device-track copies
+    evs = [e for e in prof.events() if e.device_type == host]
+    spans = [(e.time_range.start, e.time_range.end) for e in evs
+             if e.name == BEGIN_SPAN]
+    calls, syncs = 0, []
+    for e in evs:
+        if not e.name.startswith("cu"):
+            continue
+        t = e.time_range.start
+        if any(a <= t <= b for a, b in spans):
+            calls += 1
+            if is_sync_call(e.name):
+                syncs.append(e.name)
+    return {"begin_spans": len(spans), "runtime_calls": calls,
+            "sync_calls": syncs}
+
+
+def launch_queue_depth(dev, limit=20000, blocked_ms=5.0):
+    """How many one-kernel launches the host can enqueue behind a stalled
+    device before a launch blocks: the most a ``step_begin`` can run ahead
+    of the card, whatever the pipeline depth."""
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))                  # ~0.5 s of device time
+    n = 0
+    while n < limit:
+        t0 = time.perf_counter()
+        x.add_(1)
+        if (time.perf_counter() - t0) * 1e3 > blocked_ms:
+            break
+        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def profile_fused(model, dev, n_steps=4):
+    """Whether pipelining overlaps: the serving run's first eight requests
+    in a fresh fused engine; windows of ``n_steps`` mixed steps (during the
+    ramp-in) and then all-decode steps. Untraced windows run at depths 1,
+    2, 2, 1 (wall per step and host ms per step_begin; the alternation
+    cancels drift), then one traced window at each depth (device busy, idle
+    share, and the runtime calls inside each step_begin: none may wait on
+    the device)."""
+    eng = make_fused_engine(model, dev)
+    for p in serving_prompts(model.config.vocab_size)[:8]:
+        eng.add_request(p, max_new_tokens=64)
+    run_window(eng, 2, 1)                         # warm
+    res = {}
+    for kind in ("mixed", "decode"):
+        if kind == "decode":
+            while any(s is not None and s.ramping for s in eng.slots):
+                eng.step()
+        want = n_steps if kind == "mixed" else 0
+        untraced = {1: [], 2: []}
+        begin_ms = {1: [], 2: []}
+        for depth in (1, 2, 2, 1):
+            wall_ms, n_mixed, b_ms = run_window(eng, n_steps, depth)
+            require(n_mixed == want, f"profile {kind} depth {depth}: "
+                    f"{n_mixed} mixed steps of {n_steps}")
+            untraced[depth].append(wall_ms)
+            begin_ms[depth].extend(b_ms)
+        for depth in (1, 2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, n_mixed, _ = run_window(eng, n_steps, depth)
+                wall = time.perf_counter() - t0
+            require(n_mixed == want, f"traced profile {kind} depth "
+                    f"{depth}: {n_mixed} mixed steps of {n_steps}")
+            rt = runtime_in_begin(prof)
+            res[f"{kind}_depth{depth}"] = {
+                "untraced_wall_ms_per_step": untraced[depth],
+                "untraced_step_begin_ms_median":
+                    float(np.median(begin_ms[depth])),
+                "traced": device_breakdown(prof, wall, n_steps),
+                "step_begin_runtime": rt}
+            require(rt["begin_spans"] == n_steps and rt["runtime_calls"] > 0,
+                    f"profile {kind} depth {depth}: the trace holds "
+                    f"{rt['begin_spans']} step_begin spans with "
+                    f"{rt['runtime_calls']} runtime calls")
+            require(not rt["sync_calls"],
+                    f"profile {kind} depth {depth}: step_begin made "
+                    f"synchronizing runtime calls {sorted(set(rt['sync_calls']))}")
+    res["launch_queue_depth"] = launch_queue_depth(dev)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +850,34 @@ def time_paged(dev):
                            lens=PAGED_LENS), ops=ops, bytes=nbytes)
 
 
+def time_append(dev):
+    c = append_case(np.random.default_rng(8), dev, 32)
+    args = append_args(c, c["k"], c["v"])
+    ms = cuda_ms(lambda: paged_attention_append(*args), 50)
+    plain_ms = cuda_ms(lambda: paged_attention_append_plain(*args), 5)
+    B, S, Hq, D = c["q"].shape
+    Hkv = c["k"].shape[1]
+    # what this data needs: each live slot's cached history read once, the
+    # chunk's new K/V read once and written once (the kernel's second read
+    # of them, out of the pool, is its design's cost, not the function's),
+    # q read and out written for the real rows; operations over the
+    # visible (query, key) pairs of the real rows
+    real = sum(q for _, q in APPEND_SPECS)
+    history = sum(L for L, q in APPEND_SPECS if q)
+    pairs = sum(q * L + q * (q + 1) // 2 for L, q in APPEND_SPECS)
+    nbytes = 2 * (2 * history * Hkv * D + 4 * real * Hkv * D
+                  + 2 * real * Hq * D)
+    ops = 4 * Hq * D * pairs
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
+                           lens_qlens=APPEND_SPECS),
+                real_rows=real, visible_pairs_per_head=pairs, ops=ops,
+                bytes=nbytes)
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -433,7 +898,7 @@ def main():
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["flash_attention_fwd", "paged_attention_decode"])
+    logs = _build.build_all(KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
@@ -441,18 +906,25 @@ def main():
 
     flash_err = check_flash(dev)
     paged_err = check_paged(dev)
+    append_err = check_append(dev)
     torch.cuda.empty_cache()
 
     model = build_model(dev)
     flash_launches = run_forward(model, dev)
     torch.cuda.empty_cache()
-    paged_launches = run_serving(model, dev)
+    paged_launches, legacy_tokens = run_serving(model, dev)
+    torch.cuda.empty_cache()
+    append_launches, fused_decode_launches = run_fused_serving(
+        model, dev, legacy_tokens)
     torch.cuda.empty_cache()
 
-    ft, pt = time_flash(dev), time_paged(dev)
+    ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     emit({"phase": "timing", "flash_attention_fwd": ft,
-          "paged_attention_decode": pt})
+          "paged_attention_decode": pt, "paged_attention_append": at})
+    torch.cuda.empty_cache()
     emit({"phase": "decode_profile", "breakdown": profile_decode(model, dev)})
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_profile", "windows": profile_fused(model, dev)})
     del model
     torch.cuda.empty_cache()
     kernels = [
@@ -463,9 +935,16 @@ def main():
          "library_ms": ft["library_ms"]},
         {"name": "paged_attention_decode", "route": "cuda",
          "source": PAGED_SRC, "replaces": PAGED_REPLACES,
-         "launches": paged_launches, "max_abs_err": paged_err, "ms": pt["ms"],
+         "launches": paged_launches + fused_decode_launches,
+         "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
+        {"name": "paged_attention_append", "route": "cuda",
+         "source": APPEND_SRC, "replaces": APPEND_REPLACES,
+         "launches": append_launches, "max_abs_err": append_err,
+         "ms": at["ms"], "plain_ms": at["plain_ms"],
+         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+         "library_ms": at["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,36 +1,51 @@
 """LLM serving engine over a paged KV pool (counterpart:
-``paddle_tpu/inference/llm_engine.py``), legacy admit-then-decode scheduler.
+``paddle_tpu/inference/llm_engine.py``): the legacy admit-then-decode
+scheduler and the fused token-budget scheduler.
 
-What this port serves — ``LLMEngine(cache_impl="paged",
-scheduler="legacy")``, the reference's "parity reference for the fused
-path":
+What this port serves — ``LLMEngine(cache_impl="paged")`` with
 
-* ``max_batch`` slots; a request ADMITS into a free slot by prefilling its
-  whole prompt as a train of block-aligned ``chunk_size`` windows (each
-  window gathers the slot's blocks, runs the masked plain attention of the
-  static-cache path, and scatters its new K/V back into the blocks), then
-  the chunk over-allocation is released;
-* every ``step`` decodes one token for every active slot, ``horizon``
-  times, through the paged-decode kernel (``block_multihead_attention``),
-  greedy (``temperature <= 0``) from the carried logits; eos, budget and
-  capacity deactivate a slot, and the host retires it at readout;
-* the block allocator lives on the host (min-heap of free blocks, one
-  reference per block); when the pool runs dry mid-decode the newest slot
-  is PREEMPTED back to the waiting queue and re-prefills on re-admission,
-  so greedy output is unchanged.
+* ``scheduler="legacy"`` (the reference's "parity reference for the fused
+  path"): a request ADMITS into a free slot by prefilling its whole prompt
+  as a train of block-aligned ``chunk_size`` windows (each window gathers
+  the slot's blocks, runs the masked plain attention of the static-cache
+  path, and scatters its new K/V back into the blocks), then the chunk
+  over-allocation is released; every ``step`` decodes one token for every
+  active slot, ``horizon`` times, through the paged-decode kernel;
+* ``scheduler="fused"`` (Sarathi-style chunked-prefill + decode fusion,
+  how the reference serves): admission is slot ASSIGNMENT only. A step
+  with a ramping slot is ONE mixed dispatch: per slot either one bounded
+  prefill chunk (``_Slot.prefill_pos`` tracks progress) or one decode
+  token, under the per-step token budget ``max_step_tokens``, all through
+  the paged-append kernel. All-decode steps fall through to the legacy
+  decode path (with ``horizon``). Blocks allocate chunk by chunk inside
+  the scheduler, exactly (not chunk-rounded).
+
+Both are greedy (``temperature <= 0``) from the carried logits; eos,
+budget and capacity deactivate a slot, and the host retires it at
+readout. The block allocator lives on the host (min-heap of free blocks,
+one reference per block); when the pool runs dry the newest slot is
+PREEMPTED back to the waiting queue and re-prefills on re-admission, so
+greedy output is unchanged.
+
+Pipelining: ``step_begin`` enqueues its work and returns without waiting
+on the device. Host arrays go up through pinned staging buffers owned by
+the dispatch, the step's token and activity rows come back into pinned
+host memory, and a CUDA event marks the step's end; ``step_finish`` waits
+on that event only. The fused engine keeps a host mirror of each slot's
+scheduled length (``_Slot.sched_len``), so it may dispatch up to
+``max_pipeline_depth()`` steps before reading the first back; the
+in-flight WRITE FENCE parks a block freed while a dispatch may still
+write it in quarantine until that dispatch lands.
 
 The K/V pools ``[n_blocks + 1, Hkv, block_size, D]`` per layer live on the
-engine's device and are updated IN PLACE by the prefill scatter and the
-decode kernel (the reference is functional and donates its buffers). The
-trailing block is scratch: the decode kernel parks there the writes of
-slots whose target table entry is -1 (freed slots keep stale lens with
-wiped tables). Without JAX's jit there are no compiled programs: PyTorch
-runs eagerly, and the host syncs once per step, at ``step_finish``.
+engine's device and are updated IN PLACE (the reference is functional and
+donates its buffers). The trailing block is scratch: the kernels park
+there the writes of slots whose target table entry is -1.
 
 Not in this port yet (each raises ``NotImplementedError``): the dense
-cache, the fused scheduler, speculation, multi-step readout, quantized
-KV, LoRA adapters, the host KV tier, meshes and the prefix cache; sampling
-with ``temperature > 0`` waits for the threefry port (ROADMAP A7).
+cache, speculation, multi-step readout, quantized KV, LoRA adapters, the
+host KV tier, meshes and the prefix cache; sampling with
+``temperature > 0`` waits for the threefry port (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -55,7 +70,7 @@ def default_engine_stats():
     """Fresh engine ``stats`` dict: the reference's keys that this
     engine's paths touch."""
     return {"steps": 0, "prefill_chunks": 0, "tokens_generated": 0,
-            "preemptions": 0, "prefill_tokens": 0,
+            "preemptions": 0, "prefill_tokens": 0, "fused_steps": 0,
             "decode_time_s": 0.0, "admit_time_s": 0.0,
             "dispatch_time_s": 0.0, "host_sync_time_s": 0.0,
             "emit_time_s": 0.0}
@@ -85,26 +100,52 @@ class RequestOutput:
 
 
 class _Slot:
-    __slots__ = ("req", "generated", "prompt_len")
+    __slots__ = ("req", "generated", "prompt_len", "prefill_pos", "inflight")
 
-    def __init__(self, req, prompt_len):
+    def __init__(self, req, prompt_len, prefill_pos=None):
         self.req = req
         self.generated = []
         self.prompt_len = prompt_len
+        #: prompt tokens whose prefill has been DISPATCHED (== prompt_len
+        #: once ramp-in completes; legacy admission prefills everything up
+        #: front). The fused scheduler advances it one chunk grant at a time
+        self.prefill_pos = prompt_len if prefill_pos is None else prefill_pos
+        #: decode tokens dispatched but not yet read back — the fused
+        #: engine's host mirror of the device lens under pipelining
+        self.inflight = 0
+
+    @property
+    def ramping(self):
+        return self.prefill_pos < self.prompt_len
+
+    def sched_len(self):
+        """Scheduled sequence length: what the device lens will be once
+        every dispatched step lands."""
+        return self.prefill_pos + len(self.generated) + self.inflight
 
 
 class PendingStep:
-    """One dispatched decode step: device ``[horizon, B]`` token and
-    activity histories, read back by :meth:`LLMEngine.step_finish`.
-    ``slots`` snapshots the slot objects at dispatch time."""
+    """One dispatched step: ``[rows, B]`` token and activity histories in
+    host memory (pinned on the card, filled by copies that complete before
+    ``event``), read back by :meth:`LLMEngine.step_finish`. ``slots``
+    snapshots the slot objects at dispatch time; ``sched`` is the per-slot
+    decode growth the dispatch scheduled (the fused engine pays it back off
+    ``_Slot.inflight``); ``fenced`` lists the blocks it may write;
+    ``event`` is the CUDA event recorded after its work (None on the
+    CPU, where the work has run by the time ``step_begin`` returns)."""
 
-    __slots__ = ("toks", "was_active", "slots", "pool_done")
+    __slots__ = ("toks", "was_active", "slots", "pool_done", "sched",
+                 "fenced", "event")
 
-    def __init__(self, toks, was_active, slots, pool_done):
+    def __init__(self, toks, was_active, slots, pool_done, sched=None,
+                 fenced=None, event=None):
         self.toks = toks
         self.was_active = was_active
         self.slots = slots
         self.pool_done = pool_done
+        self.sched = sched or {}
+        self.fenced = fenced or []
+        self.event = event
 
 
 def _unported(what, item):
@@ -116,7 +157,12 @@ class LLMEngine:
     ``paddle_tpu_torch`` ``LlamaForCausalLM``. The signature and defaults
     are the reference's; values outside this port raise
     ``NotImplementedError`` (``cache_impl`` must be ``"paged"``).
-    ``device`` defaults to the card and must hold the model."""
+    ``device`` defaults to the card and must hold the model.
+
+    ``scheduler="fused"``: per-step token budget ``max_step_tokens``
+    (default ``chunk_size + max_batch - 1``: one full chunk plus a decode
+    token for every other slot; decode tokens are always granted, the
+    budget bounds prefill interference)."""
 
     def __init__(self, model, max_batch=4, max_seq_len=None, chunk_size=64,
                  top_k=0, stream_callback=None, horizon=1, speculative_k=1,
@@ -131,9 +177,7 @@ class LLMEngine:
             _unported("cache_impl='dense' (the SlotKVCache engine)", "A8(a)")
         if cache_impl != "paged":
             raise ValueError(f"unknown cache_impl {cache_impl!r}")
-        if scheduler == "fused":
-            _unported("scheduler='fused'", "A8(b) and kernel B3")
-        if scheduler != "legacy":
+        if scheduler not in ("legacy", "fused"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if int(speculative_k) > 1:
             _unported("speculative_k > 1", "A8(e)")
@@ -154,6 +198,7 @@ class LLMEngine:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {self.device}")
         self.model = model
+        self.scheduler = scheduler
         c = model.config
         self.B = int(max_batch)
         self.horizon = max(1, int(horizon))
@@ -164,6 +209,13 @@ class LLMEngine:
                 f"max_seq_len {self.capacity} exceeds rope table "
                 f"({c.max_position_embeddings})")
         self.chunk = min(int(chunk_size), self.capacity)
+        #: fused-scheduler per-step token cap: sum over slots of (prefill
+        #: chunk grant | 1 decode token)
+        self.max_step_tokens = int(max_step_tokens) if max_step_tokens \
+            else self.chunk + self.B - 1
+        if self.max_step_tokens < 1:
+            raise ValueError(f"max_step_tokens must be >= 1, got "
+                             f"{self.max_step_tokens}")
         self.stream_callback = stream_callback
         self.block_size = int(block_size)
         if self.chunk % self.block_size:
@@ -193,8 +245,7 @@ class LLMEngine:
         #: tokens a preempted request committed before eviction, stitched
         #: back in front of its post-readmission stream at finish
         self._preempted_prefix = {}
-        #: dispatched steps not yet finished: the paged engine runs at
-        #: depth 1 (its allocator needs each step's post-readout lens)
+        #: dispatched steps not yet finished (<= max_pipeline_depth())
         self._inflight = 0
         self.stats = default_engine_stats()
 
@@ -217,13 +268,25 @@ class LLMEngine:
         self._free_blocks = list(range(self.n_blocks))
         self._slot_blocks = [[] for _ in range(self.B)]
         self._block_ref = [0] * self.n_blocks
+        #: in-flight write fence: physical block -> dispatches that may
+        #: still write it; a block freed while fenced waits in quarantine
+        self._write_fence = {}
+        self._quarantine = set()
         self._logits = torch.zeros((self.B, self.model.config.vocab_size),
                                    dtype=torch.float32, device=dev)
         self._lens = torch.zeros((self.B,), dtype=torch.int32, device=dev)
 
     def max_pipeline_depth(self):
-        """Legacy paged engines run one step in flight: the allocator and
-        the admission prefill need each step's post-readout lens."""
+        """How many ``step_begin()`` dispatches may be in flight at once
+        (the reference's contract, paged rows): fused on a full pool 3 —
+        allocation cannot fail in steady state and every grant reads the
+        host lens mirror; fused on an oversubscribed pool 2 — the write
+        fence makes mid-flight eviction memory-safe, but each stale step
+        a preemption decision lags costs re-prefill churn; legacy 1 — its
+        slots have no lens mirror, so the allocator and the admission
+        prefill need each step's post-readout lens."""
+        if self.scheduler == "fused":
+            return 3 if self.n_blocks >= self.B * self._max_blocks else 2
         return 1
 
     # ------------------------------------------------------------------
@@ -276,24 +339,72 @@ class LLMEngine:
         return True
 
     def _release_block(self, phys):
+        """Drop one reference. At refcount 0 the FENCE is authoritative: a
+        block an in-flight dispatch may still write parks in quarantine
+        (never in the free heap) until that dispatch lands."""
         self._block_ref[phys] -= 1
-        if self._block_ref[phys] == 0:
+        if self._block_ref[phys] > 0:
+            return
+        if self._write_fence.get(phys):
+            self._quarantine.add(phys)
+        else:
             heapq.heappush(self._free_blocks, phys)
 
+    def _fence_blocks(self, b, lo, hi, fenced):
+        """Fence every block of slot ``b`` covering positions [lo, hi]:
+        the dispatch being built may write them, so until its step_finish
+        they must not be handed to a new owner. ``lo`` is the slot's
+        committed length (not its scheduled one), so the fence is
+        conservative."""
+        bs = self.block_size
+        blocks = self._slot_blocks[b]
+        for blk in range(lo // bs, min(hi // bs + 1, len(blocks))):
+            phys = blocks[blk]
+            self._write_fence[phys] = self._write_fence.get(phys, 0) + 1
+            fenced.append(phys)
+
+    def _unfence(self, fenced):
+        """Drop one fence per listed block (its dispatch's device work has
+        landed). A quarantined block whose last fence drops returns to the
+        free heap."""
+        for phys in fenced:
+            n = self._write_fence.get(phys, 0) - 1
+            if n > 0:
+                self._write_fence[phys] = n
+            else:
+                self._write_fence.pop(phys, None)
+                if phys in self._quarantine:
+                    self._quarantine.discard(phys)
+                    heapq.heappush(self._free_blocks, phys)
+        if fenced:
+            self._check_pool_invariants()
+
     def _check_pool_invariants(self):
-        """Allocator audit (``PADDLE_TPU_POOL_CHECKS=1``): every block is
-        either free or referenced by exactly the slots whose table rows
-        hold it; table rows mirror ``_slot_blocks`` with a -1 tail; the
-        scratch block never circulates."""
+        """Allocator audit (``PADDLE_TPU_POOL_CHECKS=1``): every block sits
+        in exactly one of {free heap, live-referenced, quarantined}; a
+        quarantined block is fenced and a free one is not; refcounts equal
+        table references; table rows mirror ``_slot_blocks`` with a -1
+        tail; the scratch block never circulates."""
         if not self._debug_pool:
             return
         free = set(self._free_blocks)
+        quarantined = set(self._quarantine)
         live = [p for blocks in self._slot_blocks for p in blocks]
+        live_set = set(live)
         assert len(free) == len(self._free_blocks), "free heap duplicates"
-        assert not (free & set(live)), "block both free and live"
-        assert free | set(live) == set(range(self.n_blocks)), (
-            f"pool leak: free({len(free)}) + live({len(set(live))}) != "
-            f"n_blocks({self.n_blocks})")
+        pools = (free, live_set, quarantined)
+        for i, a in enumerate(pools):
+            for bset in pools[i + 1:]:
+                assert not (a & bset), "block in two pools"
+        assert free | live_set | quarantined == set(range(self.n_blocks)), (
+            f"pool leak: free({len(free)}) + live({len(live_set)}) + "
+            f"quarantined({len(quarantined)}) != n_blocks({self.n_blocks})")
+        for phys in quarantined:
+            assert self._write_fence.get(phys), \
+                f"unfenced block {phys} stuck in quarantine"
+        for phys in free:
+            assert not self._write_fence.get(phys), \
+                f"fenced block {phys} in the free heap"
         refs = collections.Counter(live)
         for phys in range(self.n_blocks):
             assert self._block_ref[phys] == refs.get(phys, 0), (
@@ -313,9 +424,13 @@ class LLMEngine:
         return need <= have or self._alloc_blocks(slot_idx, need - have)
 
     def prefill_blocks_needed(self, prompt_len):
-        """Pool blocks the prefill of a ``prompt_len``-token prompt covers:
-        legacy admission writes whole chunk windows (chunk-rounded, then
-        block-quantized)."""
+        """Pool blocks the prefill of a ``prompt_len``-token prompt covers.
+        Legacy admission writes whole chunk windows (chunk-rounded, then
+        block-quantized); the fused scheduler writes exact positions, so it
+        needs the prompt's own blocks plus the one the first decode token
+        grows into (position ``prompt_len``)."""
+        if self.scheduler == "fused":
+            return -(-(prompt_len + 1) // self.block_size)
         pad_end = min(-(-prompt_len // self.chunk) * self.chunk,
                       self.capacity)
         return -(-pad_end // self.block_size)
@@ -387,22 +502,44 @@ class LLMEngine:
         return list(prefix) + list(generated)
 
     # ------------------------------------------------------------------
-    # admission: chunked prefill into the slot's blocks
+    # host <-> device copies that never block the host
+    # ------------------------------------------------------------------
+    def _upload(self, arr, dtype=None):
+        """A copy of numpy ``arr`` on the engine's device. On the card it
+        goes up from a fresh pinned buffer without blocking the host:
+        PyTorch's pinned allocator hands that buffer to no one else until
+        the copy has landed, so each dispatch owns its staging buffers and
+        the host never rewrites one that a copy still reads."""
+        t = torch.from_numpy(np.array(arr))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _download(self, t):
+        """Enqueue ``t``'s copy into a fresh pinned host buffer, valid once
+        the dispatch's event has completed."""
+        if self.device.type != "cuda":
+            return t
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    # ------------------------------------------------------------------
+    # admission
     # ------------------------------------------------------------------
     def _prefill_chunk(self, ids, table_row, off, last):
-        """Run prompt window ``ids [1, chunk]`` at position ``off``: gather
-        the slot's blocks up to the window's end, attend through the static
-        cache (masked plain attention — never the flash kernel, whose
-        top-left causal mask would be wrong here), scatter the window's
-        K/V back into its blocks. Returns the logits of in-window row
-        ``last``."""
+        """Legacy admission: run prompt window ``ids [1, chunk]`` at
+        position ``off``: gather the slot's blocks up to the window's end,
+        attend through the static cache (masked plain attention — never
+        the flash kernel, whose top-left causal mask would be wrong here),
+        scatter the window's K/V back into its blocks. Returns the logits
+        of in-window row ``last``."""
         bs, chunk = self.block_size, self.chunk
         end = off + chunk
-        dev = self.device
-        safe = torch.from_numpy(np.maximum(table_row[:end // bs], 0)).to(
-            device=dev, dtype=torch.long)
-        phys = torch.from_numpy(
-            table_row[off // bs:end // bs].astype(np.int64)).to(dev)
+        safe = self._upload(np.maximum(table_row[:end // bs], 0), torch.long)
+        phys = self._upload(table_row[off // bs:end // bs], torch.long)
 
         def gather(pool):
             blks = pool[safe]                         # [n, Hkv, bs, D]
@@ -411,8 +548,8 @@ class LLMEngine:
 
         caches = [StaticKVCache(gather(k), gather(v))
                   for k, v in zip(self._k, self._v)]
-        ids_t = torch.from_numpy(ids).to(dev)
-        hidden, new_caches = self.model.llama(ids_t, kv_caches=caches,
+        hidden, new_caches = self.model.llama(self._upload(ids),
+                                              kv_caches=caches,
                                               position_offset=off)
         logits_row = self.model._logits(hidden[:, last:last + 1])[0, 0] \
             .float()
@@ -429,8 +566,9 @@ class LLMEngine:
         return logits_row
 
     def _admit(self, slot_idx, req):
-        """Chunked prefill of ``req`` into slot ``slot_idx``. Returns False
-        when the pool cannot cover the prompt's chunk windows."""
+        """Legacy admission: chunked prefill of ``req`` into slot
+        ``slot_idx``. Returns False when the pool cannot cover the prompt's
+        chunk windows."""
         t0 = time.perf_counter()
         P = len(req.prompt_ids)
         # prefill writes whole chunks: cover round_up(P, chunk), then
@@ -464,13 +602,28 @@ class LLMEngine:
         self._admit_order[slot_idx] = self._admit_seq
         self._admit_seq += 1
         self._logits[slot_idx] = logits_row
-        self._lens[slot_idx] = P
+        # fill_, not item assignment: assigning a Python number copies it
+        # from pageable host memory, a blocking copy
+        self._lens[slot_idx].fill_(P)
         self.slots[slot_idx] = _Slot(req, P)
         self._check_pool_invariants()
         self.stats["admit_time_s"] += time.perf_counter() - t0
         return True
 
+    def _admit_fused(self, slot_idx, req):
+        """Fused admission: slot ASSIGNMENT only (device lens set to 0). No
+        prefill dispatch and no block allocation: both happen chunk by
+        chunk inside the step scheduler, so admission never stalls the
+        running decodes."""
+        t0 = time.perf_counter()
+        self._lens[slot_idx].fill_(0)
+        self.slots[slot_idx] = _Slot(req, len(req.prompt_ids), prefill_pos=0)
+        self._admit_order[slot_idx] = self._admit_seq
+        self._admit_seq += 1
+        self.stats["admit_time_s"] += time.perf_counter() - t0
+
     def _admit_waiting(self):
+        fused = self.scheduler == "fused"
         for b in range(self.B):
             if not self.waiting:
                 break
@@ -484,8 +637,31 @@ class LLMEngine:
                         f"{req.max_new_tokens} -> {room} (engine capacity "
                         f"{self.capacity})", RuntimeWarning, stacklevel=3)
                     req.max_new_tokens = room
+                if fused:
+                    need = self.prefill_blocks_needed(len(req.prompt_ids))
+                    if need > self.n_blocks:
+                        # can never ramp in: leave it at the head;
+                        # step_begin raises the too-small-pool error
+                        break
+                    # progress guarantee (the fused-ramp livelock fix): no
+                    # new ramp while the pool cannot cover it AND the
+                    # outstanding ramp demand of resident ramping slots —
+                    # two ramps over a pool barely larger than one prompt
+                    # would otherwise trade blocks through the preempt
+                    # ladder forever. The resident ramp can always finish
+                    # alone, and its retirement re-opens admission.
+                    ramp_deficit = sum(
+                        max(self.prefill_blocks_needed(s.prompt_len)
+                            - len(self._slot_blocks[i]), 0)
+                        for i, s in enumerate(self.slots)
+                        if s is not None and s.ramping)
+                    if ramp_deficit and \
+                            need + ramp_deficit > len(self._free_blocks):
+                        break
                 self.waiting.popleft()
-                if not self._admit(b, req):
+                if fused:
+                    self._admit_fused(b, req)
+                elif not self._admit(b, req):
                     # pool dry: requeue and wait for a retirement
                     self.waiting.appendleft(req)
                     break
@@ -494,13 +670,25 @@ class LLMEngine:
     # the engine loop
     # ------------------------------------------------------------------
     def step(self):
-        """Admit waiting requests into free slots, run ONE decode step for
-        all active slots, retire finished requests. Returns the list of
+        """Admit waiting requests into free slots, run ONE step for all
+        active slots, retire finished requests. Returns the list of
         RequestOutput finished by this step."""
         pending = self.step_begin()
         if pending is None:
             return []
         return self.step_finish(pending)
+
+    def _dispatched(self, toks, was_active, pool_done, sched, fenced):
+        """Close a dispatch: enqueue its token/activity readback into
+        pinned host memory and record its event. Nothing waits here."""
+        toks, was_active = self._download(toks), self._download(was_active)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._inflight += 1
+        return PendingStep(toks, was_active, list(self.slots), pool_done,
+                           sched=sched, fenced=fenced, event=event)
 
     def _decode(self, active, eos_ids, budgets):
         """``horizon`` greedy decode iterations for every slot, all on the
@@ -508,11 +696,10 @@ class LLMEngine:
         the paged pools, carry logits and lens. Inactive slots decode token
         0 and keep their carried logits (a slot deactivated by the pool
         budget clamp samples from them next step)."""
-        dev = self.device
-        tables = torch.from_numpy(self._tables.copy()).to(dev)
-        act = torch.from_numpy(active).to(dev)
-        eos = torch.from_numpy(eos_ids).to(dev)
-        buds = torch.from_numpy(budgets).to(dev)
+        tables = self._upload(self._tables)
+        act = self._upload(active)
+        eos = self._upload(eos_ids)
+        buds = self._upload(budgets)
         logits, lens = self._logits, self._lens
         emitted = torch.zeros_like(lens)
         toks, was_active = [], []
@@ -536,16 +723,52 @@ class LLMEngine:
         self._logits, self._lens = logits, lens
         return torch.stack(toks), torch.stack(was_active)
 
+    def _fused_step(self, ids, q_lens, is_decode, active):
+        """ONE mixed prefill+decode dispatch: slot b processes rows
+        ``[0, q_lens[b])`` of ``ids`` — a prefill chunk (host-provided
+        prompt rows) or one decode token (row 0, sampled on the device from
+        the carried logits). Every slot's rows sit at its own absolute
+        positions (``lens``); padding rows write nothing. The LM head runs
+        over each slot's last valid row only; inactive slots keep their
+        carried logits. Returns ``[1, B]`` token and activity rows."""
+        tables = self._upload(self._tables)
+        ids_t = self._upload(ids)
+        ql = self._upload(q_lens)
+        is_dec = self._upload(is_decode)
+        act = self._upload(active)
+        logits, lens = self._logits, self._lens
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        # capacity guard for pipelined over-dispatch: a window that would
+        # cross the buffer end deactivates on the device
+        act = act & (lens + ql <= self.capacity)
+        dec = act & is_dec
+        nxt = torch.where(dec, nxt, torch.zeros_like(nxt))
+        q_eff = torch.where(act, ql, torch.zeros_like(ql))
+        ids_t[:, 0] = torch.where(dec, nxt, ids_t[:, 0])
+        caches = [PagedKVCache(k, v, tables, lens, q_eff)
+                  for k, v in zip(self._k, self._v)]
+        hidden, _ = self.model.llama(ids_t, kv_caches=caches,
+                                     position_offset=lens)
+        last = (q_eff - 1).clamp(min=0).long()
+        rows = hidden.gather(1, last[:, None, None].expand(
+            -1, 1, hidden.shape[-1]))                  # [B, 1, H]
+        new_logits = self.model._logits(rows)[:, 0].float()
+        self._logits = torch.where(act[:, None], new_logits, logits)
+        self._lens = lens + q_eff
+        return nxt[None], dec[None]
+
     def step_begin(self):
-        """Admit waiting requests into free slots and DISPATCH one decode
-        step for the active slots without reading anything back. Returns a
+        """Admit waiting requests into free slots and DISPATCH one step for
+        the active slots without waiting on the device. Returns a
         :class:`PendingStep` for :meth:`step_finish`, or None when there is
-        nothing to run. Depth 1: finish the outstanding step first."""
+        nothing to run. Up to :meth:`max_pipeline_depth` steps may be in
+        flight."""
         if self._inflight >= self.max_pipeline_depth():
             raise RuntimeError(
-                "paged engine cannot pipeline step_begin() calls: its block "
-                "allocator needs the previous step's lens (step_finish the "
-                "outstanding PendingStep first)")
+                "paged engine cannot pipeline step_begin() calls this deep: "
+                "its block allocator needs the previous step's lens "
+                "(step_finish the outstanding PendingStep first; see "
+                "max_pipeline_depth())")
         with torch.no_grad():
             return self._step_begin()
 
@@ -563,8 +786,14 @@ class LLMEngine:
                         f"pool has {self.n_blocks} total (kv_pool_blocks "
                         f"too small)")
             return None
+        pool_done = []
+        fused = self.scheduler == "fused"
+        if fused and any(s is not None and s.ramping for s in self.slots):
+            # a slot is ramping in: ONE mixed dispatch covers its prefill
+            # chunk AND every decode slot's token
+            return self._begin_mixed_step(pool_done)
         stride = self.horizon
-        pool_budget, pool_done = {}, []
+        pool_budget = {}
         # block coverage for the stride's growth; pool pressure first grabs
         # whatever blocks remain (partial coverage + a budget clamp), then
         # evicts newer slots, and retires only at the pool edge
@@ -574,7 +803,10 @@ class LLMEngine:
             slot = self.slots[b]
             if slot is None:
                 continue  # evicted below while ensuring an older slot
-            cur = slot.prompt_len + len(slot.generated)
+            # the scheduled length counts in-flight growth (fused
+            # pipelining); legacy engines run depth 1, where it is the
+            # current length
+            cur = slot.sched_len()
             last_pos = min(cur + stride - 1, self.capacity - 1)
             while not self._ensure_blocks(b, last_pos):
                 avail = len(self._free_blocks)
@@ -608,28 +840,191 @@ class LLMEngine:
                             if s else 0 for s in self.slots], np.int32)
         for b, cap_left in pool_budget.items():
             budgets[b] = min(budgets[b], cap_left)
+        # the in-flight write fence (fused): every block this dispatch may
+        # write, from each slot's committed length through its scheduled
+        # stride
+        fenced = []
+        if fused:
+            for b, slot in enumerate(self.slots):
+                if slot is not None:
+                    lo = slot.prefill_pos + len(slot.generated)
+                    hi = min(slot.sched_len() + stride - 1,
+                             self.capacity - 1)
+                    self._fence_blocks(b, lo, hi, fenced)
         t0 = time.perf_counter()
         toks, was_active = self._decode(active, eos_ids, budgets)
+        sched = {}
+        if fused:
+            # host lens mirror: a surviving slot grows exactly `stride`
+            # tokens per dispatch
+            for b, slot in enumerate(self.slots):
+                if slot is not None:
+                    slot.inflight += stride
+                    sched[b] = stride
+        pending = self._dispatched(toks, was_active, pool_done, sched,
+                                   fenced)
         dt = time.perf_counter() - t0
         self.stats["dispatch_time_s"] += dt
         self.stats["decode_time_s"] += dt
-        self._inflight += 1
-        return PendingStep(toks, was_active, list(self.slots), pool_done)
+        return pending
+
+    # ------------------------------------------------------------------
+    # fused scheduler: the mixed step
+    # ------------------------------------------------------------------
+    def _ensure_pos_covered(self, b, pos, retired):
+        """Cover decode position ``pos`` for slot ``b``, preempting NEWER
+        slots under pool pressure. Returns False when slot ``b`` itself had
+        to be preempted (parked) or retired at the pool edge."""
+        while not self._ensure_blocks(b, pos):
+            victim = self._preempt_newest(
+                exclude=b, newer_than=self._admit_order[b], retired=retired)
+            if victim is not None:
+                continue
+            if any(s is not None and i != b
+                   for i, s in enumerate(self.slots)):
+                self._preempt_slot(b, retired=retired)
+            else:
+                # sole active slot at the pool edge: parking it would
+                # readmit into the same dry pool and spin
+                self._retire_pool_edge(b, retired)
+            return False
+        return True
+
+    def _schedule_mixed(self, pool_done):
+        """One token-budget scheduling pass: per slot, either one decode
+        token (always granted — the budget bounds prefill interference, not
+        decode progress) or a prefill chunk grant of up to ``min(chunk,
+        remaining prompt, budget left)`` tokens, walked in admission order
+        so older requests ramp first. Blocks allocate here; a ramping slot
+        that cannot cover its grant shrinks it to the blocks it could grab
+        and otherwise waits for a retirement."""
+        B, S = self.B, self.chunk
+        ids = np.zeros((B, S), np.int32)
+        q_lens = np.zeros((B,), np.int32)
+        is_dec = np.zeros((B,), bool)
+        active = np.zeros((B,), bool)
+        sched = {}
+        budget = self.max_step_tokens
+        order = sorted((b for b, s in enumerate(self.slots)
+                        if s is not None),
+                       key=lambda i: self._admit_order[i])
+        for b in order:                      # decode slots first
+            slot = self.slots[b]
+            if slot is None or slot.ramping:
+                continue
+            cur = slot.sched_len()
+            if cur >= self.capacity:
+                continue  # pipelined overshoot; readout retires it
+            if not self._ensure_pos_covered(b, cur, pool_done):
+                continue
+            q_lens[b] = 1
+            is_dec[b] = True
+            active[b] = True
+            sched[b] = 1
+            budget -= 1
+        first_ramp = True
+        for b in order:                      # then prefill grants
+            slot = self.slots[b]
+            if slot is None or not slot.ramping:
+                continue
+            # progress guarantee: even when decode tokens alone exhaust the
+            # budget, the OLDEST ramping slot still gets one token
+            grant_cap = budget if budget > 0 else (1 if first_ramp else 0)
+            if grant_cap <= 0:
+                continue
+            pos = slot.prefill_pos
+            take = min(S, slot.prompt_len - pos, grant_cap)
+            if take > 0 and not self._ensure_blocks(b, pos + take - 1):
+                avail = len(self._free_blocks)
+                if avail:
+                    self._alloc_blocks(b, avail)
+                covered = len(self._slot_blocks[b]) * self.block_size
+                take = min(take, covered - pos)
+            if take <= 0:
+                continue
+            # the guaranteed token is spent only on a grant that landed
+            first_ramp = False
+            ids[b, :take] = slot.req.prompt_ids[pos:pos + take]
+            q_lens[b] = take
+            active[b] = True
+            budget -= take
+        return ids, q_lens, is_dec, active, sched
+
+    def _begin_mixed_step(self, pool_done):
+        """Schedule and DISPATCH one fused mixed step (>= 1 slot is
+        ramping)."""
+        for _ in range(self.B + 1):
+            ids, q_lens, is_dec, active, sched = \
+                self._schedule_mixed(pool_done)
+            if active.any():
+                break
+            # nothing schedulable: every assigned slot is ramping into a
+            # dry pool — park the newest (frees blocks for an older ramp)
+            if self._preempt_newest(retired=pool_done) is None:
+                break
+        if not active.any():
+            if pool_done:
+                return PendingStep(None, None, list(self.slots), pool_done)
+            return None
+        # write fence over this dispatch's spans: the decode token per
+        # decode slot, the granted chunk span per ramping slot
+        fenced = []
+        for b in np.nonzero(active)[0]:
+            slot = self.slots[b]
+            lo = slot.prefill_pos + len(slot.generated)
+            hi = slot.sched_len() + int(q_lens[b]) - 1 if is_dec[b] \
+                else slot.prefill_pos + int(q_lens[b]) - 1
+            self._fence_blocks(int(b), lo, min(hi, self.capacity - 1),
+                               fenced)
+        t0 = time.perf_counter()
+        toks, was_active = self._fused_step(ids, q_lens, is_dec, active)
+        self.stats["fused_steps"] += 1
+        # host mirrors of the scheduled growth (dispatch-time, so the next
+        # step — possibly dispatched before this one's readout — schedules
+        # from the post-step state)
+        for b in np.nonzero(active)[0]:
+            slot = self.slots[b]
+            if is_dec[b]:
+                slot.inflight += int(q_lens[b])
+            else:
+                slot.prefill_pos += int(q_lens[b])
+                self.stats["prefill_chunks"] += 1
+                self.stats["prefill_tokens"] += int(q_lens[b])
+        pending = self._dispatched(toks, was_active, pool_done, sched,
+                                   fenced)
+        dt = time.perf_counter() - t0
+        self.stats["dispatch_time_s"] += dt
+        self.stats["decode_time_s"] += dt
+        return pending
 
     def step_finish(self, pending):
-        """Read ``pending``'s tokens back (the step's one host sync),
-        attribute them to the slots captured at dispatch, retire finished
-        requests. Returns the RequestOutputs finished by this step."""
+        """Wait for ``pending``'s own event (never for younger dispatches),
+        attribute its tokens to the slots captured at dispatch, retire
+        finished requests. Returns the RequestOutputs finished by this
+        step. Tokens of a slot whose occupant changed since dispatch are
+        dropped: they were decoded for the old occupant's state."""
         if pending.toks is None:
             return list(pending.pool_done)
         self._inflight -= 1
+        # pay the dispatch's scheduled decode growth back off the host lens
+        # mirror (fused scheduler; {} otherwise)
+        for b, n in pending.sched.items():
+            slot = pending.slots[b]
+            if slot is not None and self.slots[b] is slot:
+                slot.inflight = max(0, slot.inflight - n)
         t0 = time.perf_counter()
-        toks_np = pending.toks.cpu().numpy()          # [K, B]
-        act_np = pending.was_active.cpu().numpy()     # [K, B]
+        if pending.event is not None:
+            pending.event.synchronize()
+        toks_np = pending.toks.numpy()                 # [K, B]
+        act_np = pending.was_active.numpy()            # [K, B]
         dt = time.perf_counter() - t0
         self.stats["host_sync_time_s"] += dt
         self.stats["decode_time_s"] += dt
         self.stats["steps"] += 1
+        # the dispatch's device work (every KV write included) has landed,
+        # so its write fences drop BEFORE the readout can free blocks
+        if pending.fenced:
+            self._unfence(pending.fenced)
         t0 = time.perf_counter()
         done = list(pending.pool_done)
         for b, slot in enumerate(pending.slots):
@@ -638,7 +1033,7 @@ class LLMEngine:
             finish_reason = None
             for k in range(toks_np.shape[0]):
                 if not act_np[k, b]:
-                    break  # deactivated in-graph at an earlier iteration
+                    break  # deactivated on the device at an earlier row
                 tok = int(toks_np[k, b])
                 slot.generated.append(tok)
                 self.stats["tokens_generated"] += 1

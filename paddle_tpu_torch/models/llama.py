@@ -5,11 +5,12 @@ weights ``[in, out]``), so :func:`paddle_tpu_torch.bridge.load_reference_params`
 copies a reference model's weights name for name. Attention goes through
 ``F.scaled_dot_product_attention`` (the flash kernel for the causal
 no-cache forward) or, with a :class:`PagedKVCache`, through
-``block_multihead_attention`` (the paged-decode kernel).
+``block_multihead_attention`` (the paged-decode kernel for one token per
+slot, the paged-append kernel for the fused scheduler's mixed step).
 
 Not in this port yet, each raising where reached: LoRA scopes,
 ``fuse_attention_qkv``/``fuse_swiglu``, recompute, the slot and chunk
-caches of the dense engine, the paged append step, quantized pools and
+caches of the dense engine, quantized pools and
 ``LlamaForCausalLM.generate``.
 """
 from __future__ import annotations
@@ -109,9 +110,10 @@ class StaticKVCache:
 class PagedKVCache:
     """Paged KV cache: physical pools ``k``/``v [num_blocks, Hkv,
     block_size, D]``, ``block_tables [B, max_blocks]`` (-1 = unallocated)
-    and ``seq_lens [B]`` tokens already cached. The decode step updates
-    the pools in place. ``q_lens`` and the quantized fields exist for the
-    reference's call shape; this port serves neither yet."""
+    and ``seq_lens [B]`` tokens already cached. ``q_lens [B]`` marks a
+    mixed step (seq len > 1): how many of each slot's rows are real. Both
+    steps update the pools in place. The quantized fields exist for the
+    reference's call shape; this port does not serve them yet."""
 
     __slots__ = ("k", "v", "block_tables", "seq_lens", "q_lens",
                  "k_scale", "v_scale", "quant")
@@ -155,13 +157,26 @@ class LlamaAttention(nn.Module):
         cos, sin = rope_cache
         q, k = apply_rope(q, k, cos, sin, position_offset)
         if isinstance(kv_cache, PagedKVCache):
-            if s != 1:
-                raise NotImplementedError(
-                    "the paged append step (seq len > 1, the fused "
-                    "scheduler) is not ported yet: ROADMAP B3")
             if kv_cache.quant:
                 raise NotImplementedError(
                     "quantized KV pools are not ported yet: ROADMAP B4")
+            if s != 1:
+                # fused mixed step: S rows per slot, q_lens of them real —
+                # the append form of the op (the paged-append kernel)
+                if kv_cache.q_lens is None:
+                    raise ValueError(
+                        "PagedKVCache with seq len > 1 is the fused append "
+                        "step and needs per-slot q_lens")
+                qkv = torch.cat([q.reshape(b, s, H * D),
+                                 k.reshape(b, s, Hkv * D),
+                                 v.reshape(b, s, Hkv * D)], dim=-1)
+                out, kc, vc = IF.block_multihead_attention(
+                    qkv, kv_cache.k, kv_cache.v, None, kv_cache.seq_lens,
+                    kv_cache.q_lens, block_tables=kv_cache.block_tables)
+                out = self.o_proj(out.view(b, s, H * D))
+                return out, PagedKVCache(
+                    kc, vc, kv_cache.block_tables,
+                    kv_cache.seq_lens + kv_cache.q_lens, kv_cache.q_lens)
             qkv = torch.cat([q.reshape(b, H * D), k.reshape(b, Hkv * D),
                              v.reshape(b, Hkv * D)], dim=-1)
             out, kc, vc = IF.block_multihead_attention(

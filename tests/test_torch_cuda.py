@@ -13,6 +13,7 @@ import torch
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention_append, paged_attention_append_plain,
     paged_attention_decode, paged_attention_decode_plain)
 
 pytestmark = pytest.mark.cuda
@@ -74,5 +75,51 @@ def test_paged_decode_kernel_matches_plain(cuda, Hq, Hkv, D, bs):
     torch.cuda.synchronize()
     ref = paged_attention_decode_plain(q, kp2, vp2, t, ln, nk, nv)
     assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert torch.equal(kp[:NB - 1], kp2[:NB - 1])
+    assert torch.equal(vp[:NB - 1], vp2[:NB - 1])
+
+
+@pytest.mark.parametrize("Hq,Hkv,D,bs,S", [(4, 4, 128, 64, 80),
+                                           (8, 2, 128, 16, 40),
+                                           (4, 1, 64, 32, 33)])
+def test_paged_append_kernel_matches_plain(cuda, Hq, Hkv, D, bs, S):
+    """Per-slot (lens, q_lens): a first chunk, a mid-block window crossing
+    blocks, a short chunk, decode rows on either side of a block boundary,
+    an idle slot with a wiped table, and a window running into a -1 entry
+    (its rows land in the scratch block). Real rows within 2e-2; pools
+    bit-identical outside the scratch block; padding rows zero."""
+    rng = np.random.default_rng(2)
+    specs = [(0, S), (bs + 5, S), (3 * bs, S // 3), (bs - 1, 1), (bs, 1),
+             (2 * bs + 7, 0), (bs // 2, S)]
+    B = len(specs)
+    need = [(L + max(q, 1) - 1) // bs + 1 for L, q in specs]
+    MB = max(need) + 1
+    NB = sum(need) + 2
+    it = iter(rng.permutation(NB - 1))
+    tables = np.full((B, MB), -1, np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = next(it)
+    tables[5, :] = -1                    # idle slot, wiped row
+    tables[6, need[6] - 1] = -1          # the window's last block is -1
+    kp = _randn(rng, (NB, Hkv, bs, D), cuda)
+    vp = _randn(rng, (NB, Hkv, bs, D), cuda)
+    q = _randn(rng, (B, S, Hq, D), cuda)
+    nk = _randn(rng, (B, S, Hkv, D), cuda)
+    nv = _randn(rng, (B, S, Hkv, D), cuda)
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.tensor([L for L, _ in specs], dtype=torch.int32, device=cuda)
+    ql = torch.tensor([n for _, n in specs], dtype=torch.int32, device=cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    n0 = paged_attention_append.launches
+    out = paged_attention_append(q, kp, vp, t, ln, ql, nk, nv)
+    torch.cuda.synchronize()
+    assert paged_attention_append.launches == n0 + 1
+    ref = paged_attention_append_plain(q, kp2, vp2, t, ln, ql, nk, nv)
+    for b, (_, n) in enumerate(specs):
+        if n:
+            err = (out[b, :n].float() - ref[b, :n].float()).abs().max()
+            assert err.item() <= 2e-2
+        assert not out[b, n:].any()
     assert torch.equal(kp[:NB - 1], kp2[:NB - 1])
     assert torch.equal(vp[:NB - 1], vp2[:NB - 1])

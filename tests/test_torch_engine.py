@@ -151,13 +151,17 @@ def test_pool_capacity_error_and_pool_edge(gqa):
 
 def test_unported_options_raise(gqa):
     _, tm = gqa
-    for kw in (dict(cache_impl="dense"), dict(scheduler="fused"),
-               dict(speculative_k=2), dict(readout_stride=2),
-               dict(kv_cache_dtype="int8"), dict(adapter_store=object()),
-               dict(kv_host_swap=True), dict(mesh=object()),
-               dict(enable_prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            LLMEngine(tm, device="cpu", **{**_kw(), **kw})
+    for scheduler in ("legacy", "fused"):
+        for kw in (dict(cache_impl="dense"),
+                   dict(speculative_k=2), dict(readout_stride=2),
+                   dict(kv_cache_dtype="int8"), dict(adapter_store=object()),
+                   dict(kv_host_swap=True), dict(mesh=object()),
+                   dict(enable_prefix_cache=True)):
+            with pytest.raises(NotImplementedError):
+                LLMEngine(tm, device="cpu",
+                          **{**_kw(scheduler=scheduler), **kw})
+    with pytest.raises(ValueError, match="scheduler"):
+        LLMEngine(tm, device="cpu", **_kw(scheduler="warp"))
     with pytest.raises(NotImplementedError):
         LLMEngine(tm)                      # the reference default: dense
     eng = LLMEngine(tm, device="cpu", **_kw())

@@ -15,11 +15,13 @@ from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.ops.kernels.flash_attention import (
     _flash_fwd_res, flash_attention_fwd as jax_flash)
 from paddle_tpu.ops.kernels.paged_attention import (
+    paged_attention_append as jax_paged_append,
     paged_attention_decode as jax_paged_decode)
 
 from paddle_tpu_torch.incubate.nn import functional as TIF
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
-from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention_decode
+from paddle_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention_append, paged_attention_decode)
 
 torch.set_num_threads(1)
 ATOL = 1e-5
@@ -36,6 +38,12 @@ def pallas_decode(monkeypatch):
         monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
                             raising=False)
     return jax_paged_decode
+
+
+@pytest.fixture
+def pallas_append(pallas_decode):
+    """The reference append kernel, in interpret mode (same alias)."""
+    return jax_paged_append
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -155,7 +163,8 @@ def test_paged_minus_one_write_target_parks_in_scratch(pallas_decode):
 
 def test_block_multihead_attention_decode_matches_reference():
     """The port's op (qkv split + kernel wrapper) against the reference op
-    on the same fused qkv rows; its unported forms raise."""
+    on the same fused qkv rows; the 3-D form needs q_lens; quantized pools
+    raise."""
     rng = np.random.default_rng(9)
     c = _paged_case(rng, [8, 13, 1], Hq=4, Hkv=2)
     B, Hq, D = c["q"].shape
@@ -173,13 +182,179 @@ def test_block_multihead_attention_decode_matches_reference():
                                atol=ATOL, rtol=0)
     np.testing.assert_array_equal(kc.numpy(), d_kc)
     np.testing.assert_array_equal(vc.numpy(), d_vc)
-    with pytest.raises(NotImplementedError, match="B3"):
+    # the append form with one row per slot is the same decode step (on
+    # fresh copies of the pools): same output, same pools
+    kc3, vc3 = torch.from_numpy(c["kc"].copy()), torch.from_numpy(c["vc"].copy())
+    out3, _, _ = TIF.block_multihead_attention(
+        torch.from_numpy(qkv)[:, None], kc3, vc3, None,
+        torch.from_numpy(c["lens"]), torch.ones(B, dtype=torch.int32),
+        block_tables=torch.from_numpy(c["tables"]))
+    np.testing.assert_allclose(out3.numpy().reshape(B, Hq, D), d_out,
+                               atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(kc3.numpy(), d_kc)
+    np.testing.assert_array_equal(vc3.numpy(), d_vc)
+    with pytest.raises(ValueError, match="seq_lens_this_time"):
         TIF.block_multihead_attention(
-            torch.from_numpy(qkv)[:, None], kc, vc, None,
-            torch.from_numpy(c["lens"]), torch.ones(B, dtype=torch.int32),
+            torch.from_numpy(qkv)[:, None], kc3, vc3, None,
+            torch.from_numpy(c["lens"]), None,
             block_tables=torch.from_numpy(c["tables"]))
     with pytest.raises(NotImplementedError, match="B4"):
         TIF.block_multihead_attention(
             torch.from_numpy(qkv), kc, vc, None, torch.from_numpy(c["lens"]),
             None, block_tables=torch.from_numpy(c["tables"]),
             cache_quant_type="int8")
+
+
+# ---------------------------------------------------------------------------
+# append form (the fused scheduler's mixed step)
+# ---------------------------------------------------------------------------
+
+APPEND_S, APPEND_BS = 12, 8
+# (lens, q_lens): a first chunk, a window starting mid-block and crossing
+# two block boundaries, decode rows on either side of a boundary, a short
+# ragged chunk, an idle slot
+APPEND_SPECS = [(0, 12), (5, 12), (15, 1), (16, 1), (9, 3), (20, 0)]
+
+
+def _append_case(rng, specs, Hq, Hkv, D=16, S=APPEND_S, BS=APPEND_BS):
+    """Pools + tables covering each window ``[lens, lens + q_lens)`` with a
+    trailing scratch block; physical blocks shuffled, tails -1."""
+    B = len(specs)
+    need = [(L + max(q, 1) - 1) // BS + 1 for L, q in specs]
+    MB = max(need) + 1
+    NB = sum(need) + 3                     # 2 spare + the scratch block
+    it = iter(rng.permutation(NB - 1))
+    tables = np.full((B, MB), -1, np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = next(it)
+    f = np.float32
+    return dict(q=rng.standard_normal((B, S, Hq, D)).astype(f),
+                kc=rng.standard_normal((NB, Hkv, BS, D)).astype(f),
+                vc=rng.standard_normal((NB, Hkv, BS, D)).astype(f),
+                tables=tables,
+                lens=np.array([L for L, _ in specs], np.int32),
+                qlens=np.array([q for _, q in specs], np.int32),
+                knew=rng.standard_normal((B, S, Hkv, D)).astype(f),
+                vnew=rng.standard_normal((B, S, Hkv, D)).astype(f))
+
+
+def _port_append(c):
+    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()}
+    n0 = paged_attention_append.launches
+    out = paged_attention_append(t["q"], t["kc"], t["vc"], t["tables"],
+                                 t["lens"], t["qlens"], t["knew"], t["vnew"])
+    assert paged_attention_append.launches == n0  # CPU: plain, no launch
+    return out.numpy(), t["kc"].numpy(), t["vc"].numpy()
+
+
+def _pallas_append_run(fn, c):
+    out, kc, vc = fn(*(jnp.asarray(c[k]) for k in (
+        "q", "kc", "vc", "tables", "lens", "qlens", "knew", "vnew")))
+    return np.asarray(out), np.asarray(kc), np.asarray(vc)
+
+
+def _dense_append(c):
+    B, S, Hq, D = c["q"].shape
+    Hkv = c["kc"].shape[1]
+    qkv = np.concatenate([c["q"].reshape(B, S, Hq * D),
+                          c["knew"].reshape(B, S, Hkv * D),
+                          c["vnew"].reshape(B, S, Hkv * D)], axis=-1)
+    out, kc, vc = JIF.block_multihead_attention(
+        paddle.to_tensor(qkv), paddle.to_tensor(c["kc"]),
+        paddle.to_tensor(c["vc"]), None, paddle.to_tensor(c["lens"]),
+        paddle.to_tensor(c["qlens"]),
+        block_tables=paddle.to_tensor(c["tables"]))
+    return (np.asarray(out._value).reshape(B, S, Hq, D),
+            np.asarray(kc._value), np.asarray(vc._value))
+
+
+def _assert_real_rows(out, ref, qlens):
+    for b, n in enumerate(qlens):
+        np.testing.assert_allclose(out[b, :n], ref[b, :n], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (4, 2), (8, 2)])
+def test_append_plain_matches_pallas_and_dense(Hq, Hkv, pallas_append):
+    """MHA and GQA; a chunk from 0, a window starting mid-block and
+    crossing blocks, q_lens of 0, 1 and S. Real rows agree at atol 1e-5;
+    pools are bit-identical outside the scratch block; padding rows and
+    the idle slot are zeros."""
+    rng = np.random.default_rng(20 + Hq)
+    c = _append_case(rng, APPEND_SPECS, Hq, Hkv)
+    NB = c["kc"].shape[0]
+    out, kc, vc = _port_append(c)
+    r_out, r_kc, r_vc = _pallas_append_run(pallas_append, c)
+    _assert_real_rows(out, r_out, c["qlens"])
+    np.testing.assert_array_equal(kc[:NB - 1], r_kc[:NB - 1])
+    np.testing.assert_array_equal(vc[:NB - 1], r_vc[:NB - 1])
+    assert not np.array_equal(kc[:NB - 1], c["kc"][:NB - 1])   # rows written
+    d_out, d_kc, d_vc = _dense_append(c)
+    _assert_real_rows(out, d_out, c["qlens"])
+    np.testing.assert_array_equal(kc[:NB - 1], d_kc[:NB - 1])
+    np.testing.assert_array_equal(vc[:NB - 1], d_vc[:NB - 1])
+    for b, n in enumerate(c["qlens"]):
+        assert not out[b, n:].any()
+
+
+def test_append_minus_one_target_parks_in_scratch(pallas_append):
+    """A window that runs into a -1 table entry: the rows it would write
+    there land in the scratch block (never a real block) and are not
+    attended, as in the reference kernel; an idle slot with a wiped table
+    writes nothing real. Held against the Pallas kernel only: the dense
+    fallback drops the write but reads block 0 in its place."""
+    rng = np.random.default_rng(27)
+    c = _append_case(rng, [(6, 12), (0, 9), (4, 0)], Hq=4, Hkv=2)
+    c["tables"][0, 2] = -1          # positions 16, 17 of slot 0
+    c["tables"][2, :] = -1          # idle slot, wiped row
+    NB = c["kc"].shape[0]
+    out, kc, vc = _port_append(c)
+    r_out, r_kc, r_vc = _pallas_append_run(pallas_append, c)
+    _assert_real_rows(out, r_out, c["qlens"])
+    np.testing.assert_array_equal(kc[:NB - 1], r_kc[:NB - 1])
+    np.testing.assert_array_equal(vc[:NB - 1], r_vc[:NB - 1])
+    np.testing.assert_array_equal(kc[NB - 1, :, 0:2],
+                                  c["knew"][0, 10:12].transpose(1, 0, 2))
+
+
+# ---------------------------------------------------------------------------
+# what the paged kernels take: the wrappers refuse the rest before a launch
+# ---------------------------------------------------------------------------
+
+def _bf(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(), None),
+    (dict(q=torch.zeros(2, 3, 4, 64)), "bfloat16 q"),
+    (dict(block_tables=torch.zeros(2, 4, dtype=torch.int64)), "int32"),
+    (dict(D=96), "head_dim"),
+    (dict(G=3), "query heads"),
+    (dict(bs=256), "block_size"),
+    (dict(k_pool=_bf(5, 2, 64, 16).transpose(2, 3)),
+     "pools must be contiguous"),
+    (dict(q=_bf(2, 3, 4, 65)[..., :64]), "q rows"),
+])
+def test_paged_kernel_args_refused(bad, match):
+    """The checks both paged wrappers run on a CUDA tensor before any
+    launch (bf16 only, int32 tables, D in {64, 128}, G in {1, 2, 4, 8},
+    block size <= 128, contiguous pools, aligned [H, D] rows)."""
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        _check_kernel_args
+    a = dict(q=_bf(2, 3, 4, 64), new_k=_bf(2, 3, 2, 64),
+             new_v=_bf(2, 3, 2, 64), k_pool=_bf(5, 2, 16, 64),
+             v_pool=_bf(5, 2, 16, 64),
+             block_tables=torch.zeros(2, 4, dtype=torch.int32),
+             seq_lens=torch.zeros(2, dtype=torch.int32), D=64, G=2, bs=16)
+    a.update(bad)
+    args = ("paged_attention_append",
+            {k: a[k] for k in ("q", "new_k", "new_v")},
+            {k: a[k] for k in ("k_pool", "v_pool")},
+            {k: a[k] for k in ("block_tables", "seq_lens")},
+            a["D"], a["G"], a["bs"])
+    if match is None:
+        _check_kernel_args(*args)
+        return
+    with pytest.raises((TypeError, ValueError), match=match):
+        _check_kernel_args(*args)
