@@ -42,7 +42,18 @@ Phases:
                 device may run inside a traced step_begin (a second witness
                 beside the sync debug mode), and how many launches the host
                 can enqueue ahead of a stalled card;
-  (f) result  — the kernels line, the card's name and power limit, and the
+  (f) train   — TrainStep over LlamaForCausalLM(labels=...) at Llama-2-7B
+                widths cut to 4 layers (bf16, seeded random weights), AdamW
+                with float32 masters and moments, 8 steps on one [4, 2048]
+                batch: finite losses, the first within 0.5 of ln(vocab),
+                the last below the first, every parameter with a grad after
+                each backward, exactly 4 flash forward, 4 dK/dV, 4 dQ and
+                39 AdamW launches per step and no AdamW plain-chain update;
+                step ms, tokens/s, MFU, peak memory and one traced step's
+                device time by kernel class (information); then the AdamW
+                kernel timed over a whole step's parameters and the flash
+                backward kernels at the training shape;
+  (g) result  — the kernels line, the card's name and power limit, and the
                 ok line, in that order, last.
 """
 from __future__ import annotations
@@ -62,13 +73,20 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from paddle_tpu_torch.inference import LLMEngine
+from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_fwd, flash_attention_fwd_plain)
+    attention_delta, flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
+from paddle_tpu_torch.ops.kernels.fused_adamw import (
+    fused_adamw_update, fused_adamw_update_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_append, paged_attention_append_plain,
     paged_attention_decode, paged_attention_decode_plain)
+from paddle_tpu_torch.optimizer import AdamW, Optimizer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -77,13 +95,20 @@ PEAK_BYTES = 3.35e12
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 PAGED_SRC = "paddle_tpu_torch/csrc/paged_attention_decode.cu"
 APPEND_SRC = "paddle_tpu_torch/csrc/paged_attention_append.cu"
+BWD_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+ADAMW_SRC = "paddle_tpu_torch/csrc/fused_adamw.cu"
 FLASH_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:87"
 PAGED_REPLACES = "paddle_tpu/ops/kernels/paged_attention.py:370"
 APPEND_REPLACES = "paddle_tpu/ops/kernels/paged_attention.py:662"
+DKV_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:174"
+DQ_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:229"
+ADAMW_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:40"
 KERNELS = ["flash_attention_fwd", "paged_attention_decode",
-           "paged_attention_append"]
+           "paged_attention_append", "flash_attention_bwd", "fused_adamw"]
 
 FLASH_TOL, LSE_TOL, PAGED_TOL, APPEND_TOL = 2e-2, 1e-2, 1e-2, 2e-2
+# flash backward: max |kernel - plain| over max |plain|, per gradient
+BWD_REL_TOL = 2e-2
 MARGIN = 0.05
 
 
@@ -288,6 +313,120 @@ def check_append(dev):
     return worst
 
 
+def rel_err(a, b):
+    """max |a - b| over max |b|, in float32."""
+    return ((a.float() - b.float()).abs().max() /
+            b.float().abs().max()).item()
+
+
+def check_flash_bwd(dev):
+    """The dK/dV and dQ kernels against their plain versions on one lse and
+    delta from the forward kernel: the training shape (causal MHA), a GQA
+    case, and a dropout case whose forward is checked too (same seed)."""
+    rng = np.random.default_rng(11)
+    worst = {"flash_attention_bwd_dkv": 0.0, "flash_attention_bwd_dq": 0.0}
+    for name, B, S, Hq, Hkv, causal, p in (
+            ("train_causal", 4, 2048, 32, 32, True, 0.0),
+            ("gqa_causal", 2, 2048, 32, 8, True, 0.0),
+            ("dropout_causal", 1, 512, 8, 8, True, 0.1)):
+        q, k, v = flash_case(rng, dev, B, S, Hq, Hkv)
+        do = randn(rng, (B, S, Hq, 128), dev)
+        seed = 20261016
+        out, lse = flash_attention_fwd(q, k, v, causal, None, p, seed)
+        line = {"phase": "parity", "kernel": "flash_attention_bwd",
+                "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": 128,
+                "causal": causal, "dropout_p": p, "tol_rel": BWD_REL_TOL}
+        if p > 0.0:
+            ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal, None, p,
+                                                     seed)
+            line["fwd_max_abs_err"] = (out.float() - ref.float()).abs() \
+                .max().item()
+            line["fwd_lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+            require(line["fwd_max_abs_err"] <= FLASH_TOL and
+                    line["fwd_lse_max_abs_err"] <= LSE_TOL,
+                    f"flash dropout forward {name}: {line}")
+            del ref, ref_lse
+        delta = attention_delta(out, do)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                         None, p, seed)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, None, p,
+                                    seed)
+        torch.cuda.synchronize()
+        rk, rv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               causal, None, p, seed)
+        torch.cuda.empty_cache()
+        rq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                          None, p, seed)
+        errs = {"dq": rel_err(dq, rq), "dk": rel_err(dk, rk),
+                "dv": rel_err(dv, rv)}
+        line["rel_err"] = errs
+        line["max_abs_err"] = {"dq": (dq.float() - rq.float()).abs().max()
+                               .item(),
+                               "dk": (dk.float() - rk.float()).abs().max()
+                               .item(),
+                               "dv": (dv.float() - rv.float()).abs().max()
+                               .item()}
+        emit(line)
+        require(all(e <= BWD_REL_TOL for e in errs.values()),
+                f"flash backward {name}: {errs}")
+        worst["flash_attention_bwd_dkv"] = max(
+            worst["flash_attention_bwd_dkv"], line["max_abs_err"]["dk"],
+            line["max_abs_err"]["dv"])
+        worst["flash_attention_bwd_dq"] = max(
+            worst["flash_attention_bwd_dq"], line["max_abs_err"]["dq"])
+        del q, k, v, do, out, lse, delta, dk, dv, dq, rk, rv, rq
+        torch.cuda.empty_cache()
+    return worst
+
+
+def adamw_state(rng, shape, dev, step):
+    """A bf16 param, its bf16 grad and float32 moments and master at a
+    mid-run state (zero moments at step 1)."""
+    f = np.float32
+    mw = torch.from_numpy(rng.standard_normal(shape).astype(f) * f(0.02)) \
+        .to(dev)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(f) * f(1e-3)) \
+        .to(dev).to(torch.bfloat16)
+    m = torch.from_numpy(rng.standard_normal(shape).astype(f) * f(1e-4)) \
+        .to(dev) * (step > 1)
+    v = torch.from_numpy(rng.random(shape).astype(f) * f(1e-7)).to(dev) \
+        * (step > 1)
+    return mw.to(torch.bfloat16), g, m, v, mw
+
+
+ADAMW_SHAPE = (4096, 11008)
+
+
+def check_adamw(dev):
+    """The AdamW kernel against its plain version on a [4096, 11008]
+    tensor at steps 1 and 7, decay on and off: m, v, master and the bf16
+    param bit-identical."""
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for step, decay in ((1, True), (1, False), (7, True), (7, False)):
+        a = adamw_state(rng, ADAMW_SHAPE, dev, step)
+        b = tuple(t.clone() for t in a)
+        before = a[4].clone()
+        fused_adamw_update(*a, 3e-4, step, weight_decay=0.01,
+                           apply_decay=decay)
+        fused_adamw_update_plain(*b, 3e-4, step, weight_decay=0.01,
+                                 apply_decay=decay)
+        same = {n: bool(torch.equal(x, y))
+                for n, x, y in zip(("p", "g", "m", "v", "master"), a, b)}
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(a, b))
+        moved = not torch.equal(a[4], before)
+        emit({"phase": "parity", "kernel": "fused_adamw", "shape":
+              list(ADAMW_SHAPE), "step": step, "apply_decay": decay,
+              "bit_identical": same, "max_abs_err": err})
+        require(all(same.values()) and moved,
+                f"adamw step {step} decay {decay}: {same}")
+        worst = max(worst, err)
+        del a, b
+    torch.cuda.empty_cache()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # (c) forward, (d) serving, (d') fused serving
 # ---------------------------------------------------------------------------
@@ -355,13 +494,22 @@ def serving_prompts(vocab):
             for n in lens]
 
 
-def device_breakdown(prof, wall_s, n_steps):
+SERVING_CLASSES = (("paged_decode_kernel", ("paged_decode_kernel",)),
+                   ("append_kernels", ("append_attn_kernel",
+                                       "append_write_kernel")))
+TRAIN_CLASSES = (("flash_forward", ("flash_fwd_kernel",)),
+                 ("flash_backward", ("flash_bwd_dkv_kernel",
+                                     "flash_bwd_dq_kernel")),
+                 ("adamw", ("adamw_kernel",)))
+
+
+def device_breakdown(prof, wall_s, n_steps, classes=SERVING_CLASSES):
     """Sum the device events (kernels, copies, sets) of a finished
-    profile per step: total busy time (union of intervals), the
-    paged-decode kernel, the paged-append kernel's two launches, matrix
-    products, everything else, and the device's idle share of the traced
-    wall. None when the trace holds no
-    device event."""
+    profile per step: total busy time (union of intervals), each named
+    class of kernels (by substrings of the kernel's name; the serving
+    phases' default: the paged-decode kernel and the paged-append kernel's
+    two launches), matrix products, everything else, and the device's idle
+    share of the traced wall. None when the trace holds no device event."""
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -374,20 +522,16 @@ def device_breakdown(prof, wall_s, n_steps):
            e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
         return None
-    by = {"paged_decode_kernel": 0.0, "append_kernels": 0.0, "gemm": 0.0,
-          "other": 0.0}
+    by = {key: 0.0 for key, _ in classes}
+    by.update(gemm=0.0, other=0.0)
     spans = []
     for e in dev:
         name = e.get("name", "")
-        if "paged_decode_kernel" in name:
-            key = "paged_decode_kernel"
-        elif "append_attn_kernel" in name or "append_write_kernel" in name:
-            key = "append_kernels"
-        elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
-                                             "nvjet")):
-            key = "gemm"
-        else:
-            key = "other"
+        key = next((k for k, subs in classes
+                    if any(t in name for t in subs)), None)
+        if key is None:
+            key = "gemm" if any(t in name.lower() for t in (
+                "gemm", "xmma", "cutlass", "nvjet")) else "other"
         by[key] += e["dur"]
         spans.append((e["ts"], e["ts"] + e["dur"]))
     spans.sort()
@@ -815,6 +959,8 @@ def time_flash(dev):
     B, S, H, D = 2, 2048, 32, 128
     q, k, v = flash_case(np.random.default_rng(5), dev, B, S, H, H, D)
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, True), 20)
+    dropout_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, True, None, 0.1,
+                                                     7), 20)
     plain_ms = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, True), 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -826,7 +972,8 @@ def time_flash(dev):
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                shape=[B, S, H, D], causal=True, ops=ops, bytes=nbytes)
+                shape=[B, S, H, D], causal=True, ops=ops, bytes=nbytes,
+                dropout_0_1_ms=dropout_ms)
 
 
 def time_paged(dev):
@@ -878,6 +1025,185 @@ def time_append(dev):
                 bytes=nbytes)
 
 
+# ---------------------------------------------------------------------------
+# (f) training
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LAYERS = 4, 2048, 8, 4
+TRAIN_COUNTERS = {"flash_attention_fwd": flash_attention_fwd,
+                  "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+                  "flash_attention_bwd_dq": flash_attention_bwd_dq,
+                  "fused_adamw": fused_adamw_update}
+
+
+def train_loss(m, ids, labels):
+    loss, _ = m(ids, labels=labels)
+    return loss
+
+
+def run_training(dev):
+    """TrainStep at Llama-2-7B widths cut to 4 layers (full depth is 6.74 B
+    params x 16 B of bf16 param and grad, float32 master and moments ~ 108
+    GB, above the card's 80 GB) on one [4, 2048] batch made as the
+    reference's llama bench line makes it (bench.py:2827-2831). Returns
+    the model, its optimizer and the kernel launches of the 8 steps."""
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16",
+                                num_hidden_layers=TRAIN_LAYERS,
+                                max_position_embeddings=TRAIN_S)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.train()
+    params = list(model.parameters())
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+                parameters=model.named_parameters())
+    step = TrainStep(model, train_loss, opt)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(TRAIN_B, TRAIN_S))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=(TRAIN_B, TRAIN_S))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in TRAIN_COUNTERS.values():
+        c.launches = 0
+    chain0 = Optimizer.chain_updates
+    losses, walls, per_step, missing = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        losses.append(float(loss))            # waits for the step
+        walls.append(time.perf_counter() - t0)
+        per_step.append({n: c.launches - before[n]
+                         for n, c in TRAIN_COUNTERS.items()})
+        missing.extend(step.missing_grads)
+    launches = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
+    chain = Optimizer.chain_updates - chain0
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    breakdown = device_breakdown(prof, wall, 1, TRAIN_CLASSES)
+    L = cfg.num_hidden_layers
+    expect = {"flash_attention_fwd": L, "flash_attention_bwd_dkv": L,
+              "flash_attention_bwd_dq": L, "fused_adamw": len(params)}
+    step_ms = float(np.median(walls[2:])) * 1e3
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    flops_tok = model.flops_per_token(TRAIN_S)
+    ln_vocab = float(np.log(cfg.vocab_size))
+    emit({"phase": "train", "layers": L, "hidden": cfg.hidden_size,
+          "heads": cfg.num_attention_heads, "ff": cfg.intermediate_size,
+          "vocab": cfg.vocab_size, "params": sum(p.numel() for p in params),
+          "param_tensors": len(params), "batch": [TRAIN_B, TRAIN_S],
+          "steps": TRAIN_STEPS, "losses": losses, "ln_vocab": ln_vocab,
+          "launches": launches, "launches_per_step": per_step,
+          "expected_per_step": expect, "adamw_chain_updates": chain,
+          "params_without_grad": sorted(set(missing)),
+          "step_ms_each": [w * 1e3 for w in walls],
+          "step_ms_median_steps_3_8": step_ms, "tokens_per_s": tok_s,
+          "flops_per_token": flops_tok,
+          "mfu": flops_tok * tok_s / PEAK_BF16_FLOPS,
+          "peak_memory_gb": peak / 1e9, "traced_step": breakdown})
+    require(all(np.isfinite(x) for x in losses), f"losses {losses}")
+    require(abs(losses[0] - ln_vocab) <= 0.5,
+            f"first loss {losses[0]} is not within 0.5 of ln(vocab)")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(not missing, f"parameters without a grad: {sorted(set(missing))}")
+    require(all(ps == expect for ps in per_step),
+            f"launches per step {per_step} != {expect}")
+    require(chain == 0, f"{chain} AdamW updates took the plain chain")
+    return model, opt, launches
+
+
+def time_adamw(model, opt, dev):
+    """The AdamW kernel over every parameter of a step (one launch each,
+    as TrainStep makes them) and on one [4096, 11008] tensor, against the
+    plain version; bytes bound: 28 B per parameter."""
+    params = [p for p in model.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    grads = [(torch.randn(p.shape, device=dev, generator=gen) * 1e-3)
+             .to(torch.bfloat16) for p in params]
+    slots = [opt._slots[id(p)] for p in params]
+
+    def run(fn):
+        def go():
+            for p, g, s in zip(params, grads, slots):
+                fn(p, g, s["moment1"], s["moment2"], s["master_weight"],
+                   3e-4, 9, weight_decay=0.01)
+        return go
+    ms = cuda_ms(run(fused_adamw_update), 5)
+    plain_ms = cuda_ms(run(fused_adamw_update_plain), 2)
+    one = next(i for i, p in enumerate(params)
+               if tuple(p.shape) == ADAMW_SHAPE)
+    p1, g1, s1 = params[one], grads[one], slots[one]
+    one_args = (p1, g1, s1["moment1"], s1["moment2"], s1["master_weight"],
+                3e-4, 9)
+    one_ms = cuda_ms(lambda: fused_adamw_update(*one_args), 20)
+    one_plain = cuda_ms(lambda: fused_adamw_update_plain(*one_args), 5)
+    n = sum(p.numel() for p in params)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=28 * n / PEAK_BYTES * 1e3, bound_by="bytes",
+                params=n, launches_per_step=len(params),
+                one_tensor=dict(shape=list(ADAMW_SHAPE), ms=one_ms,
+                                plain_ms=one_plain,
+                                bound_ms=28 * p1.numel() / PEAK_BYTES * 1e3))
+
+
+def time_flash_bwd(dev):
+    """The dK/dV and dQ kernels at the training shape [4, 2048, 32, 128]
+    causal, their plain versions, the whole backward (delta, then both
+    kernels) and PyTorch's flash-attention backward on the same inputs
+    (the autograd backward of F.scaled_dot_product_attention under the
+    flash backend). Bounds count what the function needs: the dK/dV
+    function four products (S, dP, dV, dK), the dQ function three, the
+    whole backward five; each input read once, each output written once."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, S, H, D = TRAIN_B, TRAIN_S, 32, 128
+    rng = np.random.default_rng(13)
+    q, k, v = flash_case(rng, dev, B, S, H, H, D)
+    do = randn(rng, (B, S, H, D), dev)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    delta = attention_delta(out, do)
+    args = (q, k, v, do, lse, delta, True)
+    dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(*args), 10)
+    dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(*args), 10)
+    total_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                   True), 10)
+    dkv_plain = cuda_ms(lambda: flash_attention_bwd_dkv_plain(*args), 2)
+    torch.cuda.empty_cache()
+    dq_plain = cuda_ms(lambda: flash_attention_bwd_dq_plain(*args), 2)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), 10)
+    product = 2 * D * (B * H * S * (S + 1) // 2)   # one product, causal
+    elem = 2 * B * S * H * D                       # one bf16 [B, S, H, D]
+    stat = 4 * B * H * S                           # lse or delta
+
+    def bound(products, nbytes):
+        t_ops = products * product / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    ops=products * product, bytes=nbytes)
+    return {"shape": [B, S, H, D], "causal": True,
+            "flash_attention_bwd_dkv": dict(
+                ms=dkv_ms, plain_ms=dkv_plain, library_ms=None,
+                **bound(4, 6 * elem + 2 * stat)),
+            "flash_attention_bwd_dq": dict(
+                ms=dq_ms, plain_ms=dq_plain, library_ms=None,
+                **bound(3, 5 * elem + 2 * stat)),
+            "whole_backward": dict(ms=total_ms, library_ms=lib_ms,
+                                   **bound(5, 8 * elem + stat))}
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -907,6 +1233,8 @@ def main():
     flash_err = check_flash(dev)
     paged_err = check_paged(dev)
     append_err = check_append(dev)
+    bwd_err = check_flash_bwd(dev)
+    adamw_err = check_adamw(dev)
     torch.cuda.empty_cache()
 
     model = build_model(dev)
@@ -927,9 +1255,20 @@ def main():
     emit({"phase": "fused_profile", "windows": profile_fused(model, dev)})
     del model
     torch.cuda.empty_cache()
+
+    model, opt, train_launches = run_training(dev)
+    torch.cuda.empty_cache()
+    wt = time_adamw(model, opt, dev)
+    del model, opt
+    torch.cuda.empty_cache()
+    bt = time_flash_bwd(dev)
+    emit({"phase": "timing", "fused_adamw": wt, "flash_attention_bwd": bt})
+    torch.cuda.empty_cache()
+    dkv, dq = bt["flash_attention_bwd_dkv"], bt["flash_attention_bwd_dq"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
-         "replaces": FLASH_REPLACES, "launches": flash_launches,
+         "replaces": FLASH_REPLACES,
+         "launches": flash_launches + train_launches["flash_attention_fwd"],
          "max_abs_err": flash_err, "ms": ft["ms"], "plain_ms": ft["plain_ms"],
          "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
          "library_ms": ft["library_ms"]},
@@ -945,6 +1284,24 @@ def main():
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
          "library_ms": at["library_ms"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": BWD_SRC, "replaces": DKV_REPLACES,
+         "launches": train_launches["flash_attention_bwd_dkv"],
+         "max_abs_err": bwd_err["flash_attention_bwd_dkv"], "ms": dkv["ms"],
+         "plain_ms": dkv["plain_ms"], "bound_ms": dkv["bound_ms"],
+         "bound_by": dkv["bound_by"], "library_ms": dkv["library_ms"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": BWD_SRC, "replaces": DQ_REPLACES,
+         "launches": train_launches["flash_attention_bwd_dq"],
+         "max_abs_err": bwd_err["flash_attention_bwd_dq"], "ms": dq["ms"],
+         "plain_ms": dq["plain_ms"], "bound_ms": dq["bound_ms"],
+         "bound_by": dq["bound_by"], "library_ms": dq["library_ms"]},
+        {"name": "fused_adamw", "route": "cuda", "source": ADAMW_SRC,
+         "replaces": ADAMW_REPLACES,
+         "launches": train_launches["fused_adamw"],
+         "max_abs_err": adamw_err, "ms": wt["ms"],
+         "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
+         "bound_by": wt["bound_by"], "library_ms": wt["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -10,6 +10,13 @@
 // (the ragged edge is masked here, the reference needed block multiples).
 // Writes out [B, Sq, Hq, D] bf16 and lse [B, Hq, Sq] fp32 with
 // lse = m + log(max(l, 1e-30)) and out = acc / max(l, 1e-30).
+// Optional dropout p, in the kernel as in the reference: l sums the
+// unmasked probabilities (lse stays dropout-free for the backward), and P
+// is masked and scaled by 1/(1-p) before P V. The mask is the reference's
+// murmur position hash `_keep_mask` (:48) of (q-head, row, col) and an
+// int32 seed, bit for bit (`keep_elem` in flash_common.cuh, shared with
+// flash_attention_bwd.cu, which rebuilds the mask); the
+// dropout-free form is a separate instantiation, untouched by it.
 //
 // Bound on the H100: operations. At the smoke shape (B=2, S=2048, H=32,
 // D=128, causal) the work is 4*B*H*S^2*D/2 ~ 68.7 GFLOP against ~0.1 GB of
@@ -26,69 +33,20 @@
 // - S = Q K^T and O += P V both run as mma.sync.m16n8k16 bf16 -> fp32; the
 //   S accumulator maps register-for-register onto the P A-fragment, so P
 //   never leaves registers; m and l stay in fp32 registers per row.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per CTA (4 warps x 16)
-constexpr int BK = 64;       // key rows per K/V tile
-constexpr int NTHREADS = 128;
-constexpr int PAD = 8;       // bf16 elements of padding per shared row
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  uint16_t l = *reinterpret_cast<uint16_t*>(&lo);
-  uint16_t h = *reinterpret_cast<uint16_t*>(&hi);
-  return (uint32_t)l | ((uint32_t)h << 16);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copy rows [r0, r0 + 64) of a [rows, D] matrix (row stride `stride`
-// elements) into shared memory, zero-filling rows past `nrows`.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long stride, int r0, int nrows) {
-  constexpr int LD = D + PAD;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BK * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-template <int D>
+template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int Sq, int Sk, int Hq, int Hkv, float scale_log2,
-                 int causal) {
+                 int causal, uint32_t thr, float inv_keep, uint32_t seed) {
   constexpr int LD = D + PAD;
   constexpr int KD = D / 16;   // k-steps over the head dim
   constexpr int ND = D / 8;    // n8 tiles of the output row
@@ -185,6 +143,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         s[n][e] = exp2f(s[n][e] - msub[e >> 1]);
         l[e >> 1] += s[n][e];
+        if constexpr (DROPOUT) {
+          const bool keep = keep_elem(seed, bh, row0 + (e >> 1) * 8,
+                                      k0 + n * 8 + t * 2 + (e & 1), Sq, Sk,
+                                      thr);
+          s[n][e] = keep ? s[n][e] * inv_keep : 0.f;
+        }
       }
     }
 #pragma unroll
@@ -235,13 +199,34 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int D>
+cudaError_t launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q,
+                   const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   __nv_bfloat16* out, float* lse, int Sq, int Sk, int Hq,
+                   int Hkv, float scale_log2, int causal, int dropout,
+                   uint32_t thr, float inv_keep, uint32_t seed) {
+  if (dropout)
+    flash_fwd_kernel<D, true><<<grid, NTHREADS, 0, s>>>(
+        q, k, v, out, lse, Sq, Sk, Hq, Hkv, scale_log2, causal, thr,
+        inv_keep, seed);
+  else
+    flash_fwd_kernel<D, false><<<grid, NTHREADS, 0, s>>>(
+        q, k, v, out, lse, Sq, Sk, Hq, Hkv, scale_log2, causal, thr,
+        inv_keep, seed);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// `dropout` selects the masked form; `thr` is int(p * 2^31), `inv_keep` is
+// float32(1 / (1 - p)) and `seed` carries the reference's seed bits.
 extern "C" int pt_flash_attention_fwd_bf16(const void* q, const void* k,
                                            const void* v, void* out,
                                            void* lse, int B, int Sq, int Sk,
                                            int Hq, int Hkv, int D, float scale,
-                                           int causal, void* stream) {
+                                           int causal, int dropout,
+                                           unsigned thr, float inv_keep,
+                                           int seed, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
@@ -253,16 +238,14 @@ extern "C" int pt_flash_attention_fwd_bf16(const void* q, const void* k,
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* lp = static_cast<float*>(lse);
   if (D == 128)
-    flash_fwd_kernel<128><<<grid, NTHREADS, 0, s>>>(qp, kp, vp, op, lp, Sq, Sk,
-                                                    Hq, Hkv, scale_log2,
-                                                    causal);
-  else if (D == 64)
-    flash_fwd_kernel<64><<<grid, NTHREADS, 0, s>>>(qp, kp, vp, op, lp, Sq, Sk,
-                                                   Hq, Hkv, scale_log2,
-                                                   causal);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch<128>(grid, s, qp, kp, vp, op, lp, Sq, Sk, Hq, Hkv,
+                            scale_log2, causal, dropout, thr, inv_keep,
+                            (uint32_t)seed);
+  if (D == 64)
+    return (int)launch<64>(grid, s, qp, kp, vp, op, lp, Sq, Sk, Hq, Hkv,
+                           scale_log2, causal, dropout, thr, inv_keep,
+                           (uint32_t)seed);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pt_cuda_error_string(int code) {

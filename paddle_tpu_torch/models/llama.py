@@ -8,6 +8,10 @@ no-cache forward) or, with a :class:`PagedKVCache`, through
 ``block_multihead_attention`` (the paged-decode kernel for one token per
 slot, the paged-append kernel for the fused scheduler's mixed step).
 
+``forward(labels=...)`` returns ``(loss, logits)`` with the loss from the
+port's ``F.cross_entropy`` (the fused CE on hard labels), so training runs
+the flash backward kernels through ``F.scaled_dot_product_attention``.
+
 Not in this port yet, each raising where reached: LoRA scopes,
 ``fuse_attention_qkv``/``fuse_swiglu``, recompute, the slot and chunk
 caches of the dense engine, quantized pools and
@@ -294,7 +298,8 @@ class LlamaModel(nn.Module):
                 position_offset=0):
         if self.config.use_recompute and self.training:
             raise NotImplementedError(
-                "recompute comes with the training slice (ROADMAP A12)")
+                "use_recompute (per-layer activation recompute, "
+                "distributed/fleet/recompute) is not ported yet: ROADMAP A12")
         x = self.embed_tokens(input_ids.long())
         rope = (self.rope_cos, self.rope_sin)
         if kv_caches is not None:
@@ -339,10 +344,25 @@ class LlamaForCausalLM(nn.Module):
         logits = self._logits(hidden)
         if labels is None:
             return logits
-        loss = torch.nn.functional.cross_entropy(
-            logits.reshape(-1, self.config.vocab_size).float(),
-            labels.reshape(-1).long(), ignore_index=-100)
+        # no float32 pre-cast: the fused CE accumulates its lse in float32
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1), ignore_index=-100)
         return loss, logits
+
+    def flops_per_token(self, seq_len):
+        """Model FLOPs per token (forward + backward = 3x forward) for MFU
+        accounting, as the reference counts them (``llama.py:848-859``)."""
+        c = self.config
+        d, L = c.hidden_size, c.num_hidden_layers
+        ff = c.intermediate_size
+        per_layer = (
+            2 * d * d * (1 + 2 * c.num_key_value_heads / c.num_attention_heads
+                         + 1)
+            + 2 * 2 * d * seq_len / 2   # attention scores + values, causal half
+            + 2 * 3 * d * ff
+        )
+        embed = 2 * d * c.vocab_size
+        return 3 * (L * per_layer + embed)
 
     def generate(self, *args, **kwargs):
         raise NotImplementedError(

@@ -2,17 +2,20 @@
 ``paddle_tpu/nn/functional/attention.py``).
 
 Paddle's ``[batch, seq, heads, head_dim]`` layout at the public API. The
-routing rule is the reference's (``attention.py:78-83``): the flash kernel
-takes a call only when there is no mask, no dropout, and — causal —
-``sq == sk``, because the kernel masks top-left and Paddle's causal mask is
-bottom-right; the two agree only for equal lengths. Every other call takes
-the plain ``_sdpa_reference`` math.
+routing rule is the reference's on its accelerator (``attention.py:68-102``):
+flash attention takes a call when there is no mask, ``dropout_p < 1``, and —
+causal — ``sq == sk``, because the kernels mask top-left and Paddle's causal
+mask is bottom-right; the two agree only for equal lengths. It goes through
+the differentiable :class:`FlashAttention`, so training reaches the
+backward kernels; dropout runs inside the kernels from an int32 seed drawn
+from the caller's generator. Every other call takes the plain
+``_sdpa_reference`` math.
 """
 from __future__ import annotations
 
 import torch
 
-from ...ops.kernels.flash_attention import flash_attention_fwd
+from ...ops.kernels.flash_attention import flash_attention
 
 
 def _sdpa_reference(q, k, v, mask, causal, dropout_p=0.0, generator=None,
@@ -53,8 +56,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """paddle.nn.functional.scaled_dot_product_attention, ``[B, S, H, D]``."""
     if not training:
         dropout_p = 0.0
-    if (attn_mask is None and dropout_p == 0.0
+    if (attn_mask is None and dropout_p < 1.0
             and (not is_causal or query.shape[1] == key.shape[1])):
-        return flash_attention_fwd(query, key, value, causal=is_causal)[0]
+        seed = 0
+        if dropout_p > 0.0:
+            dev = generator.device if generator is not None else "cpu"
+            seed = int(torch.randint(-2 ** 31, 2 ** 31, (1,), device=dev,
+                                     generator=generator))
+        return flash_attention(query, key, value, causal=is_causal,
+                               dropout_p=dropout_p, seed=seed)
     return _sdpa_reference(query, key, value, attn_mask, is_causal, dropout_p,
                            generator)

@@ -3,7 +3,8 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles on its own with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, at first
 use, under ``build/kernels/`` at the repository root, keyed by a hash of
-the source and the flags. The sources include no PyTorch header, so a
+the source, the shared ``csrc/*.cuh`` headers it may include, and the
+flags. The sources include no PyTorch header, so a
 build takes seconds. The library is loaded with ``ctypes``: wrappers pass
 every pointer and the stream as ``c_void_p`` and ints as ``c_int``; each C
 entry point returns ``cudaGetLastError()`` and :func:`check` raises on a
@@ -50,8 +51,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed by the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

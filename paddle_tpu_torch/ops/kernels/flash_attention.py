@@ -1,19 +1,22 @@
-"""Flash attention forward (counterpart:
+"""Flash attention, forward and backward (counterpart:
 ``paddle_tpu/ops/kernels/flash_attention.py``).
 
-Replaces the Pallas kernel ``_fwd_kernel`` (``flash_attention.py:87``,
-launched at ``:148`` through ``flash_attention_fwd`` ``:376``) with the
-hand-written CUDA kernel ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``.
-The source note there gives the design and its bound on the H100.
+Replaces the Pallas kernels ``_fwd_kernel`` (``flash_attention.py:87``),
+``_bwd_dkv_kernel`` (``:174``) and ``_bwd_dq_kernel`` (``:229``) with the
+hand-written CUDA kernels ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``
+and ``flash_attention_bwd.cu``; the source notes there give the designs
+and their bounds on the H100. :class:`FlashAttention` is the counterpart of
+the reference's ``_flash_core`` custom VJP (``:370-426``).
 
 Layout contract, as in the reference: Paddle's ``[B, S, H, D]`` at the
-public function, GQA by mapping q head ``h`` onto kv head ``h // (Hq /
+public functions, GQA by mapping q head ``h`` onto kv head ``h // (Hq /
 Hkv)``, causal masking TOP-LEFT (row >= col) — which equals Paddle's
 bottom-right causal only when ``Sq == Sk``, so causal calls with unequal
-lengths are refused. The kernel returns ``out`` in q's dtype and the
+lengths are refused. The forward returns ``out`` in q's dtype and the
 dropout-free ``lse = m + log(max(l, 1e-30))`` in float32, ``[B, Hq, Sq]``.
-No in-kernel dropout: eval calls never use it, and the training slice
-brings it together with the backward kernels.
+Dropout runs inside the kernels with the reference's position hash
+(:func:`keep_mask`) and an int32 seed, the bits the reference carries in
+its float32 ``seed_f``; forward and backward rebuild the same mask.
 """
 from __future__ import annotations
 
@@ -25,36 +28,159 @@ import torch
 from . import _build
 
 KERNEL = "flash_attention_fwd"
+BWD_KERNEL = "flash_attention_bwd"
+_M32 = 0xFFFFFFFF
 
 
-def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
-    """The plain PyTorch version of the kernel: the same function in full
-    float32 (scores, softmax statistics and the P@V accumulation), with P
-    rounded to v's dtype before the P@V product as the kernel rounds it.
-    Returns ``(out, lse)``."""
+def _mul32(a, c):
+    """``a * c mod 2**32`` for an int64 tensor ``a`` in ``[0, 2**32)`` and
+    an int ``c`` in the same range, without leaving int64's range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def keep_mask(seed, bh, rows, cols, sq, sk, dropout_p):
+    """The reference's ``_keep_mask`` (``flash_attention.py:48-64``), bit
+    for bit: a murmur3-style hash of the absolute position ``idx = (bh *
+    sq + row) * sk + col`` (``bh`` the flat q-head index ``b * Hq + h``),
+    int32 wraparound, compared on 31 bits with ``int(p * 2**31)``.
+    ``bh``, ``rows`` and ``cols`` are broadcastable integer tensors; the
+    arithmetic runs in int64 masked to 32 bits, with logical shifts."""
+    idx = _mul32(bh.long() & _M32, sq & _M32)
+    idx = _mul32((idx + rows.long()) & _M32, sk & _M32)
+    idx = (idx + cols.long()) & _M32
+    h = (_mul32(idx, 0x9E3779B9) + (int(seed) & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h & 0x7FFFFFFF) >= int(dropout_p * 2147483648.0)
+
+
+def _dropout_consts(dropout_p):
+    """(threshold, float32 1/(1-p)) as the reference computes them."""
+    p = float(dropout_p)
+    return int(p * 2147483648.0), float(torch.tensor(1.0 / (1.0 - p),
+                                                     dtype=torch.float32))
+
+
+def _positions(B, Hq, Sq, Sk, device):
+    """``bh [B, Hq, 1, 1]``, ``rows [Sq, 1]``, ``cols [1, Sk]``."""
+    bh = torch.arange(B * Hq, device=device).view(B, Hq, 1, 1)
+    rows = torch.arange(Sq, device=device)[:, None]
+    cols = torch.arange(Sk, device=device)[None, :]
+    return bh, rows, cols
+
+
+def _heads_first(q, k, v, G):
+    """float32 ``[B, H, S, D]`` views, kv heads repeated over the group."""
+    return (q.transpose(1, 2).float(),
+            k.transpose(1, 2).float().repeat_interleave(G, dim=1),
+            v.transpose(1, 2).float().repeat_interleave(G, dim=1))
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None,
+                              dropout_p=0.0, seed=0):
+    """The plain PyTorch version of the forward kernel: the same function
+    in full float32 (scores, softmax statistics and the P@V accumulation),
+    with P rounded to v's dtype before the P@V product as the kernel rounds
+    it. Returns ``(out, lse)``."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    G = Hq // Hkv
-    qf = q.transpose(1, 2).float() * scale                    # [B, Hq, Sq, D]
-    kf = k.transpose(1, 2).float().repeat_interleave(G, dim=1)
-    vf = v.transpose(1, 2).float().repeat_interleave(G, dim=1)
-    s = torch.matmul(qf, kf.transpose(-1, -2))                # [B, Hq, Sq, Sk]
+    qf, kf, vf = _heads_first(q, k, v, Hq // Hkv)
+    s = torch.matmul(qf * scale, kf.transpose(-1, -2))      # [B, Hq, Sq, Sk]
+    bh, rows, cols = _positions(B, Hq, Sq, Sk, q.device)
     if causal:
-        rows = torch.arange(Sq, device=q.device)[:, None]
-        cols = torch.arange(Sk, device=q.device)[None, :]
         s = s.masked_fill(cols > rows, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)       # unmasked p
+    if dropout_p > 0.0:
+        _, inv = _dropout_consts(dropout_p)
+        keep = keep_mask(seed, bh, rows, cols, Sq, Sk, dropout_p)
+        p = torch.where(keep, p, torch.zeros_like(p)) * inv
     o = torch.matmul(p.to(v.dtype).float(), vf) / l
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype).transpose(1, 2).contiguous(), lse
 
 
+def _bwd_plain(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
+    """dq, dk, dv in float32, ``[B, H, S, D]``: the reference's ``_bwd``
+    math (``flash_attention.py:174-330``) with P, Z and dS rounded to q's
+    dtype before their products, as the kernels round them."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf, kf, vf = _heads_first(q, k, v, G)
+    qs = qf * scale
+    dof = do.transpose(1, 2).float()
+    s = torch.matmul(qs, kf.transpose(-1, -2))
+    bh, rows, cols = _positions(B, Hq, Sq, Sk, q.device)
+    if causal:
+        s = s.masked_fill(cols > rows, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    z = p
+    if dropout_p > 0.0:
+        _, inv = _dropout_consts(dropout_p)
+        keep = keep_mask(seed, bh, rows, cols, Sq, Sk, dropout_p)
+        zero = torch.zeros_like(p)
+        z = torch.where(keep, p, zero) * inv
+        dp = torch.where(keep, dp, zero) * inv
+    low = q.dtype
+    dv = torch.matmul(z.to(low).float().transpose(-1, -2), dof)
+    ds = (p * (dp - delta[..., None])).to(low).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = torch.matmul(ds, kf) * scale
+    if G > 1:
+        dk = dk.view(B, Hkv, G, Sk, D).sum(dim=2)
+        dv = dv.view(B, Hkv, G, Sk, D).sum(dim=2)
+    return dq, dk, dv
+
+
+def _out(x, dtype):
+    return x.transpose(1, 2).to(dtype).contiguous()
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
+                                  scale=None, dropout_p=0.0, seed=0):
+    """The plain version of the dK/dV kernel: ``(dk, dv)`` in k's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    _, dk, dv = _bwd_plain(q, k, v, do, lse, delta, causal, scale, dropout_p,
+                           seed)
+    return _out(dk, k.dtype), _out(dv, v.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                 scale=None, dropout_p=0.0, seed=0):
+    """The plain version of the dQ kernel: ``dq`` in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    dq, _, _ = _bwd_plain(q, k, v, do, lse, delta, causal, scale, dropout_p,
+                          seed)
+    return _out(dq, q.dtype)
+
+
+def attention_delta(out, do):
+    """``delta = rowsum(dO * O)`` in float32, ``[B, Hq, Sq]`` (the reference
+    computes it outside its kernels too, ``flash_attention.py:276``)."""
+    return (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
+                              scale=None, dropout_p=0.0, seed=0):
+    """The plain backward: ``(dq, dk, dv)``, dq in q's dtype, dk/dv in
+    k's."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    dq, dk, dv = _bwd_plain(q, k, v, do, lse, attention_delta(out, do),
+                            causal, scale, dropout_p, seed)
+    return _out(dq, q.dtype), _out(dk, k.dtype), _out(dv, v.dtype)
+
+
 def _check(q, k, v, causal):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention_fwd takes [B, S, H, D] q, k, v")
+        raise ValueError("flash attention takes [B, S, H, D] q, k, v")
     B, Sq, Hq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
@@ -70,9 +196,42 @@ def _check(q, k, v, causal):
         raise TypeError("q, k, v of different dtypes")
 
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None):
+def _check_bwd(q, k, v, do, lse, delta, causal):
+    _check(q, k, v, causal)
+    B, Sq, Hq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dout {tuple(do.shape)} {do.dtype} must match q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, Hq, Sq) or t.dtype != torch.float32 or \
+                t.device != q.device:
+            raise ValueError(f"{name} must be float32 [B, Hq, Sq] on q's "
+                             f"device, got {tuple(t.shape)} {t.dtype}")
+
+
+def _check_kernel(what, dtype, D, tensors):
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bfloat16, got {dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
+    for name, t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+
+
+def _device(q, what):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    return q.device.type
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
+                        seed=0):
     """Flash attention forward over ``[B, S, H, D]`` tensors; returns
-    ``(out [B, Sq, Hq, D], lse [B, Hq, Sq] float32)``.
+    ``(out [B, Sq, Hq, D], lse [B, Hq, Sq] float32)``. ``0 <= dropout_p <
+    1`` drops attention weights in the kernel with the position hash and
+    the int32 ``seed``. No autograd: :class:`FlashAttention` is the
+    differentiable form.
 
     CPU tensors take :func:`flash_attention_fwd_plain`. CUDA tensors launch
     the kernel (bf16, head dim 64 or 128, contiguous, 16-byte aligned) or
@@ -81,29 +240,26 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_fwd kernel takes bfloat16, got "
-                        f"{q.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention_fwd kernel takes head_dim 64 or "
-                         f"128, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_fwd: {name} must be "
-                             f"contiguous and 16-byte aligned")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"flash attention dropout_p must be in [0, 1), got "
+                         f"{dropout_p}")
+    if _device(q, "flash_attention_fwd") == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal, scale, dropout_p,
+                                         seed)
+    _check_kernel("flash_attention_fwd", q.dtype, D,
+                  (("q", q), ("k", k), ("v", v)))
+    thr, inv = _dropout_consts(dropout_p)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
     lib = _build.load(KERNEL)
     fn = lib.pt_flash_attention_fwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D, scale, int(bool(causal)),
+              int(dropout_p > 0.0), thr, inv, _seed32(seed),
               _build.stream_of(q))
     _build.check(lib, code, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
@@ -111,3 +267,126 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
 
 flash_attention_fwd.launches = 0
+
+
+def _seed32(seed):
+    """The seed's low 32 bits as a C int."""
+    s = int(seed) & _M32
+    return s - (1 << 32) if s >= (1 << 31) else s
+
+
+def _bwd_launch(entry, q, k, v, do, lse, delta, outs, causal, scale,
+                dropout_p, seed):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    _check_kernel(entry, q.dtype, D, (("q", q), ("k", k), ("v", v),
+                                      ("dout", do), ("lse", lse),
+                                      ("delta", delta)))
+    thr, inv = _dropout_consts(dropout_p)
+    lib = _build.load(BWD_KERNEL)
+    fn = getattr(lib, f"pt_{entry}_bf16")
+    fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + \
+        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
+              B, Sq, Sk, Hq, Hkv, D, scale, int(bool(causal)),
+              int(dropout_p > 0.0), thr, inv, _seed32(seed),
+              _build.stream_of(q))
+    _build.check(lib, code, entry)
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
+                            scale=None, dropout_p=0.0, seed=0):
+    """dK and dV of flash attention from the forward's ``lse`` and
+    ``delta`` (:func:`attention_delta`): ``(dk, dv)`` in k's dtype,
+    ``[B, Sk, Hkv, D]``, GQA summed over each kv head's q heads.
+
+    CPU tensors take :func:`flash_attention_bwd_dkv_plain`; CUDA tensors
+    launch the kernel or raise."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if _device(q, "flash_attention_bwd_dkv") == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                             scale, dropout_p, seed)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_attention_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                causal, scale, dropout_p, seed)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None,
+                           dropout_p=0.0, seed=0):
+    """dQ of flash attention: ``dq`` in q's dtype, ``[B, Sq, Hq, D]``.
+
+    CPU tensors take :func:`flash_attention_bwd_dq_plain`; CUDA tensors
+    launch the kernel or raise."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if _device(q, "flash_attention_bwd_dq") == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                            scale, dropout_p, seed)
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,),
+                causal, scale, dropout_p, seed)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
+                        dropout_p=0.0, seed=0):
+    """The backward of :func:`flash_attention_fwd` (the reference's
+    ``_flash_vjp_bwd``, ``:411-423``): ``(dq, dk, dv)``, dq in q's dtype,
+    dk and dv in k's. ``delta`` is computed here with torch ops.
+
+    CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
+    the dK/dV kernel and then the dQ kernel, or raise."""
+    _check(q, k, v, causal)
+    if _device(q, "flash_attention_bwd") == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale,
+                                         dropout_p, seed)
+    delta = attention_delta(out, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                                     dropout_p, seed)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale,
+                                dropout_p, seed)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``_flash_core`` with
+    ``defvjp``, ``flash_attention.py:370-426``): the forward kernel, then
+    the backward kernels, on the card; the plain versions on the CPU.
+    Saves ``q, k, v, out, lse`` and the dropout seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None, dropout_p=0.0,
+                seed=0):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p,
+                                       seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, dropout_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None, dropout_p=0.0,
+                    seed=0):
+    """Differentiable flash attention over ``[B, S, H, D]``; returns
+    ``out``."""
+    return FlashAttention.apply(q, k, v, causal, scale, dropout_p, seed)

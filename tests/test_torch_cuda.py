@@ -5,13 +5,19 @@ import nothing of JAX, so they run on a machine without it:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
 Inputs are unit-normal bf16 made with numpy from a fixed seed. Tolerances:
 bf16 rounding of the output (~4e-3 relative) plus a different fp32
-summation order, against values of magnitude ~1."""
+summation order, against values of magnitude ~1; the flash backward's
+grads within 2e-2 of their largest magnitude; the AdamW kernel bit for
+bit."""
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels.flash_attention import (
+    attention_delta, flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
+from paddle_tpu_torch.ops.kernels.fused_adamw import (
+    fused_adamw_update, fused_adamw_update_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_append, paged_attention_append_plain,
     paged_attention_decode, paged_attention_decode_plain)
@@ -123,3 +129,71 @@ def test_paged_append_kernel_matches_plain(cuda, Hq, Hkv, D, bs, S):
         assert not out[b, n:].any()
     assert torch.equal(kp[:NB - 1], kp2[:NB - 1])
     assert torch.equal(vp[:NB - 1], vp2[:NB - 1])
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() /
+            b.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,p", [
+    (1, 128, 2, 2, 128, True, 0.0), (2, 200, 4, 2, 128, False, 0.0),
+    (1, 77, 8, 2, 64, True, 0.0), (2, 256, 4, 4, 64, False, 0.0),
+    (1, 256, 4, 2, 128, True, 0.1), (1, 130, 2, 1, 64, False, 0.2)])
+def test_flash_bwd_kernels_match_plain(cuda, B, S, Hq, Hkv, D, causal, p):
+    """The forward (with dropout where p > 0), then the dK/dV and dQ
+    kernels against their plain versions on the same lse and delta."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (B, S, Hq, D), cuda)
+    k = _randn(rng, (B, S, Hkv, D), cuda)
+    v = _randn(rng, (B, S, Hkv, D), cuda)
+    do = _randn(rng, (B, S, Hq, D), cuda)
+    seed = 1234567
+    out, lse = flash_attention_fwd(q, k, v, causal, None, p, seed)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal, None, p, seed)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-2
+    delta = attention_delta(out, do)
+    n0 = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, None,
+                                     p, seed)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, None, p,
+                                seed)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == (n0[0] + 1, n0[1] + 1)
+    rk, rv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                           None, p, seed)
+    rq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, None,
+                                      p, seed)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("n", [4096 * 37, 1000 * 37 + 5, 3])
+@pytest.mark.parametrize("step,decay", [(1, True), (7, False)])
+def test_adamw_kernel_bit_identical_to_plain(cuda, n, step, decay):
+    """Moments, master and the bf16 param equal the plain version's bit
+    for bit, over the vector body and the scalar tail."""
+    rng = np.random.default_rng(n)
+
+    def state():
+        g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-2).to(cuda).to(torch.bfloat16)
+        m = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-3).to(cuda)
+        v = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-5).to(cuda)
+        mw = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                              * 0.05).to(cuda)
+        return mw.to(torch.bfloat16), g, m, v, mw
+    a = state()
+    b = tuple(t.clone() for t in a)
+    n0 = fused_adamw_update.launches
+    fused_adamw_update(*a, 3e-4, step, weight_decay=0.01, apply_decay=decay)
+    torch.cuda.synchronize()
+    assert fused_adamw_update.launches == n0 + 1
+    fused_adamw_update_plain(*b, 3e-4, step, weight_decay=0.01,
+                             apply_decay=decay)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

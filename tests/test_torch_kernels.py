@@ -8,18 +8,22 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
 from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.ops.kernels.flash_attention import (
-    _flash_fwd_res, flash_attention_fwd as jax_flash)
+    _flash_fwd_res, _keep_mask, flash_attention_fwd as jax_flash)
 from paddle_tpu.ops.kernels.paged_attention import (
     paged_attention_append as jax_paged_append,
     paged_attention_decode as jax_paged_decode)
 
 from paddle_tpu_torch.incubate.nn import functional as TIF
-from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
+from paddle_tpu_torch.ops.kernels.flash_attention import (
+    FlashAttention, attention_delta, flash_attention_bwd,
+    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+    keep_mask)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_append, paged_attention_decode)
 
@@ -72,6 +76,87 @@ def test_flash_refuses_unequal_causal():
     k = torch.zeros(1, 6, 2, 8)
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_attention_fwd(q, k, k, causal=True)
+
+
+# a seed whose float32 view is a normal number: the reference carries the
+# seed's bits in a float32 (``seed_f``)
+SEED = 0x3F8ABCDE
+
+
+def _seed_f(seed):
+    return jnp.asarray(np.array([[seed]], np.int32).view(np.float32))
+
+
+def test_keep_mask_matches_reference_bit_for_bit():
+    """The dropout hash over a full [bh, sq, sk] grid, at a grid whose
+    flat index wraps past 2**31, for a negative and a positive seed."""
+    bh, sq, sk = 5, 96, 80
+    for seed, p, bh0 in ((SEED, 0.1, 0), (-123456789, 0.37, 280000)):
+        rows = jnp.arange(sq, dtype=jnp.int32)[:, None]
+        cols = jnp.arange(sk, dtype=jnp.int32)[None, :]
+        ref = np.stack([np.asarray(_keep_mask(
+            jnp.int32(seed), jnp.int32(bh0 + b), rows, cols, sq, sk, p))
+            for b in range(bh)])
+        got = keep_mask(seed, bh0 + torch.arange(bh).view(bh, 1, 1),
+                        torch.arange(sq)[:, None], torch.arange(sk)[None, :],
+                        sq, sk, p).numpy()
+        assert np.array_equal(got, ref)
+        assert abs(got.mean() - (1 - p)) < 0.02
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,p", [
+    (2, 64, 2, 2, 16, True, 0.0), (2, 64, 4, 2, 16, False, 0.0),
+    (1, 512, 2, 1, 16, True, 0.0), (1, 512, 2, 2, 16, False, 0.0),
+    (1, 64, 4, 2, 16, True, 0.1), (1, 512, 2, 1, 16, False, 0.1)])
+def test_flash_bwd_plain_matches_pallas_vjp(B, S, Hq, Hkv, D, causal, p):
+    """``FlashAttention`` on the CPU (the plain forward and backward)
+    against ``jax.vjp`` of the reference's flash attention (its Pallas
+    kernels in interpret mode): out, dq, dk, dv. At S=512 the reference's
+    forward tiles (256, 512) and backward tiles (512, 512) differ; with
+    dropout both rebuild the same position-hashed mask. float32, atol
+    1e-4."""
+    rng = np.random.default_rng(S + Hkv)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    do = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    out, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, causal, None, p, _seed_f(SEED)),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = (out,) + vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = FlashAttention.apply(tq, tk, tv, causal, None, p, SEED)
+    o.backward(torch.from_numpy(do))
+    for got, want in zip((o.detach(), tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+
+
+def test_flash_bwd_pieces_agree_and_refuse_bad_args():
+    """On the CPU the dK/dV and dQ wrappers (their plain versions) give
+    what the whole backward gives, without a launch; mismatched dout or
+    lse shapes are refused."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 40, h, 16))
+                                .astype(np.float32)) for h in (4, 2, 2))
+    do = torch.from_numpy(rng.standard_normal((1, 40, 4, 16))
+                          .astype(np.float32))
+    out, lse = flash_attention_fwd(q, k, v, True)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, True)
+    delta = attention_delta(out, do)
+    n = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    dq2 = flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+    assert n == (flash_attention_bwd_dkv.launches,
+                 flash_attention_bwd_dq.launches)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd_dq(q, k, v, do[:, :8], lse, delta, True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_dkv(q, k, v, do, lse[:, :2], delta, True)
+    with pytest.raises(ValueError, match="dropout_p"):
+        flash_attention_fwd(q, k, v, True, dropout_p=1.0)
 
 
 def _paged_case(rng, lens, Hq, Hkv, D=16, BS=8):

@@ -86,9 +86,9 @@ def test_swiglu_matches_reference():
     ("causal_equal", True), ("full", True), ("causal_unequal", False),
     ("mask", False), ("dropout_eval", True)])
 def test_sdpa_routing_and_values(case, flash, monkeypatch):
-    """Flash takes only mask-free, dropout-free calls with sq == sk when
-    causal; everything else takes the plain math. Values match the
-    reference sdpa either way (GQA: 4 q heads over 2 kv heads)."""
+    """Flash takes only mask-free calls with dropout_p < 1 and, when
+    causal, sq == sk; everything else takes the plain math. Values match
+    the reference sdpa either way (GQA: 4 q heads over 2 kv heads)."""
     rng = np.random.default_rng(3)
     sq, sk = (3, 7) if case == "causal_unequal" else (6, 6)
     q = rng.standard_normal((2, sq, 4, 8)).astype(np.float32)
@@ -102,8 +102,8 @@ def test_sdpa_routing_and_values(case, flash, monkeypatch):
     causal = case in ("causal_equal", "causal_unequal")
     kw = dict(dropout_p=0.5, training=False) if case == "dropout_eval" else {}
     calls = []
-    real = tattn.flash_attention_fwd
-    monkeypatch.setattr(tattn, "flash_attention_fwd",
+    real = tattn.flash_attention
+    monkeypatch.setattr(tattn, "flash_attention",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     out = TF.scaled_dot_product_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
@@ -118,12 +118,39 @@ def test_sdpa_routing_and_values(case, flash, monkeypatch):
 
 
 def test_sdpa_training_dropout_takes_plain_path(monkeypatch):
+    """Training dropout takes the plain math where the reference's
+    routing refuses flash: dropout_p >= 1, or a mask beside dropout."""
     calls = []
-    monkeypatch.setattr(tattn, "flash_attention_fwd",
+    monkeypatch.setattr(tattn, "flash_attention",
                         lambda *a, **k: calls.append(1))
     x = torch.ones(1, 4, 2, 8)
     gen = torch.Generator().manual_seed(0)
-    out = TF.scaled_dot_product_attention(x, x, x, dropout_p=0.5,
+    out = TF.scaled_dot_product_attention(x, x, x, dropout_p=1.0,
                                           is_causal=True, training=True,
                                           generator=gen)
+    assert not calls and out.shape == x.shape and not out.any()
+    out = TF.scaled_dot_product_attention(
+        x, x, x, attn_mask=torch.zeros(1, 1, 4, 4), dropout_p=0.5,
+        training=True, generator=gen)
     assert not calls and out.shape == x.shape
+
+
+def test_sdpa_training_dropout_runs_in_flash():
+    """0 < dropout_p < 1 goes to flash attention with an int32 seed drawn
+    from the caller's generator: one generator state gives one mask, and
+    the output is the plain forward's with that seed."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_fwd_plain
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 16, 2, 8))
+                                .astype(np.float32)) for _ in range(3))
+    outs = [TF.scaled_dot_product_attention(
+        q, k, v, dropout_p=0.3, is_causal=True, training=True,
+        generator=torch.Generator().manual_seed(7)) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    seed = int(torch.randint(-2 ** 31, 2 ** 31, (1,),
+                             generator=torch.Generator().manual_seed(7)))
+    ref, _ = flash_attention_fwd_plain(q, k, v, True, None, 0.3, seed)
+    assert torch.equal(outs[0], ref)
+    nodrop, _ = flash_attention_fwd_plain(q, k, v, True)
+    assert not torch.equal(outs[0], nodrop)
