@@ -9,7 +9,8 @@ Phases:
   (a) build   — compile every kernel of the path from paddle_tpu_torch/csrc
                 with nvcc for sm_90a, all nvcc processes at once;
   (b) parity  — each kernel against its plain PyTorch version on the card,
-                bf16, at the main path's shapes plus edge cases;
+                bf16, at the main path's shapes plus edge cases (both
+                AdamW kernels with bf16 and float32 grads, bit for bit);
   (c) forward — LlamaForCausalLM at Llama-2-7B widths (32 layers, bf16,
                 seeded random weights) on [2, 2048] ids: finite logits,
                 one flash launch per layer;
@@ -43,16 +44,38 @@ Phases:
                 beside the sync debug mode), and how many launches the host
                 can enqueue ahead of a stalled card;
   (f) train   — TrainStep over LlamaForCausalLM(labels=...) at Llama-2-7B
-                widths cut to 4 layers (bf16, seeded random weights), AdamW
-                with float32 masters and moments, 8 steps on one [4, 2048]
-                batch: finite losses, the first within 0.5 of ln(vocab),
-                the last below the first, every parameter with a grad after
-                each backward, exactly 4 flash forward, 4 dK/dV, 4 dQ and
-                39 AdamW launches per step and no AdamW plain-chain update;
-                step ms, tokens/s, MFU, peak memory and one traced step's
-                device time by kernel class (information); then the AdamW
-                kernel timed over a whole step's parameters and the flash
-                backward kernels at the training shape;
+                widths (bf16, seeded random weights, ids and labels as the
+                reference's bench line makes them), each run with finite
+                losses, the first within 0.5 of ln(vocab), the last below
+                the first, every parameter with a grad after each backward,
+                and exact kernel launches, plain-chain updates and
+                stochastic-rounding warnings per call; step ms, tokens/s,
+                MFU and peak memory (information):
+                  train: 4 layers, [4, 2048], AdamW with float32 masters and
+                    moments, 8 steps: 4 flash forward, 4 dK/dV, 4 dQ and 39
+                    AdamW launches per step, no chain update; a traced
+                    step; then the AdamW kernel timed over a step's
+                    parameters (bf16 and float32 grads) and the flash
+                    backward kernels at the training shape;
+                  train_accum: the same with accumulate_steps=2 for 4
+                    calls: AdamW launches 0, 39, 0, 39 (float32 grads);
+                  train_recompute_exact: 2 layers of the bench line's
+                    configuration, [6, 2048], recompute off, then on under
+                    the full and both dots policies: the same loss, every
+                    grad the same bits, the flash forward replayed, a lower
+                    peak under the full policy;
+                  train_bench_default: the reference bench line's defaults
+                    (3 layers, ff 11264, [6, 2048], recompute, bf16
+                    moments beside float32 masters), 8 steps: 6 flash
+                    forward (forward and replay), 3 dK/dV, 3 dQ, every
+                    update on the plain chain; then with fused q/k/v and
+                    gate/up projections, 4 steps;
+                  train_sr_full_depth: all 32 layers, [4, 2048], recompute,
+                    master-free AdamW with stochastic rounding and bf16
+                    moments, 8 steps: 64 flash forward, 32 dK/dV, 32 dQ,
+                    290 stochastic-rounding launches and one chain update
+                    (lm_head, with the reference's warning) per step; then
+                    that kernel timed over a step's parameters;
   (g) result  — the kernels line, the card's name and power limit, and the
                 ok line, in that order, last.
 """
@@ -72,6 +95,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -82,7 +106,8 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dq_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.fused_adamw import (
-    fused_adamw_update, fused_adamw_update_plain)
+    fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
+    fused_adamw_update_plain, sr_seed, tile_plan)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_append, paged_attention_append_plain,
     paged_attention_decode, paged_attention_decode_plain)
@@ -103,8 +128,11 @@ APPEND_REPLACES = "paddle_tpu/ops/kernels/paged_attention.py:662"
 DKV_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:174"
 DQ_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:229"
 ADAMW_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:40"
+ADAMW_SR_SRC = "paddle_tpu_torch/csrc/fused_adamw_sr.cu"
+ADAMW_SR_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:244"
 KERNELS = ["flash_attention_fwd", "paged_attention_decode",
-           "paged_attention_append", "flash_attention_bwd", "fused_adamw"]
+           "paged_attention_append", "flash_attention_bwd", "fused_adamw",
+           "fused_adamw_sr"]
 
 FLASH_TOL, LSE_TOL, PAGED_TOL, APPEND_TOL = 2e-2, 1e-2, 1e-2, 2e-2
 # flash backward: max |kernel - plain| over max |plain|, per gradient
@@ -399,30 +427,69 @@ ADAMW_SHAPE = (4096, 11008)
 
 def check_adamw(dev):
     """The AdamW kernel against its plain version on a [4096, 11008]
-    tensor at steps 1 and 7, decay on and off: m, v, master and the bf16
-    param bit-identical."""
+    tensor at steps 1 and 7, decay on and off, with a bf16 grad and with a
+    float32 grad (an accumulated mean): m, v, master and the bf16 param
+    bit-identical."""
     rng = np.random.default_rng(12)
     worst = 0.0
-    for step, decay in ((1, True), (1, False), (7, True), (7, False)):
-        a = adamw_state(rng, ADAMW_SHAPE, dev, step)
-        b = tuple(t.clone() for t in a)
-        before = a[4].clone()
-        fused_adamw_update(*a, 3e-4, step, weight_decay=0.01,
-                           apply_decay=decay)
-        fused_adamw_update_plain(*b, 3e-4, step, weight_decay=0.01,
-                                 apply_decay=decay)
-        same = {n: bool(torch.equal(x, y))
-                for n, x, y in zip(("p", "g", "m", "v", "master"), a, b)}
-        err = max((x.float() - y.float()).abs().max().item()
-                  for x, y in zip(a, b))
-        moved = not torch.equal(a[4], before)
-        emit({"phase": "parity", "kernel": "fused_adamw", "shape":
-              list(ADAMW_SHAPE), "step": step, "apply_decay": decay,
-              "bit_identical": same, "max_abs_err": err})
-        require(all(same.values()) and moved,
-                f"adamw step {step} decay {decay}: {same}")
-        worst = max(worst, err)
-        del a, b
+    for gdt in (torch.bfloat16, torch.float32):
+        for step, decay in ((1, True), (1, False), (7, True), (7, False)):
+            a = list(adamw_state(rng, ADAMW_SHAPE, dev, step))
+            a[1] = a[1].to(gdt)
+            b = tuple(t.clone() for t in a)
+            before = a[4].clone()
+            fused_adamw_update(*a, 3e-4, step, weight_decay=0.01,
+                               apply_decay=decay)
+            fused_adamw_update_plain(*b, 3e-4, step, weight_decay=0.01,
+                                     apply_decay=decay)
+            same = {n: bool(torch.equal(x, y))
+                    for n, x, y in zip(("p", "g", "m", "v", "master"), a, b)}
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(a, b))
+            moved = not torch.equal(a[4], before)
+            emit({"phase": "parity", "kernel": "fused_adamw", "shape":
+                  list(ADAMW_SHAPE), "grad_dtype": str(gdt), "step": step,
+                  "apply_decay": decay, "bit_identical": same,
+                  "max_abs_err": err})
+            require(all(same.values()) and moved,
+                    f"adamw {gdt} step {step} decay {decay}: {same}")
+            worst = max(worst, err)
+            del a, b
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_adamw_sr(dev):
+    """The stochastic-rounding AdamW kernel against its plain version on a
+    [4096, 11008] tensor (bf16 param and moments) at steps 1 and 7, decay
+    on and off, with a bf16 and a float32 grad: param and moments
+    bit-identical, and the param moved."""
+    rng = np.random.default_rng(16)
+    worst = 0.0
+    for gdt in (torch.bfloat16, torch.float32):
+        for step, decay in ((1, True), (1, False), (7, True), (7, False)):
+            mw, g, m, v, _ = adamw_state(rng, ADAMW_SHAPE, dev, step)
+            a = (mw, g.to(gdt), m.to(torch.bfloat16), v.to(torch.bfloat16))
+            b = tuple(t.clone() for t in a)
+            before = mw.clone()
+            seed = sr_seed(step, 7)
+            fused_adamw_sr_update(*a, 3e-4, step, seed, weight_decay=0.01,
+                                  apply_decay=decay)
+            fused_adamw_sr_update_plain(*b, 3e-4, step, seed,
+                                        weight_decay=0.01, apply_decay=decay)
+            same = {n: bool(torch.equal(x, y))
+                    for n, x, y in zip(("p", "g", "m", "v"), a, b)}
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(a, b))
+            moved = not torch.equal(a[0], before)
+            emit({"phase": "parity", "kernel": "fused_adamw_sr", "shape":
+                  list(ADAMW_SHAPE), "grad_dtype": str(gdt), "step": step,
+                  "apply_decay": decay, "seed": seed, "bit_identical": same,
+                  "max_abs_err": err})
+            require(all(same.values()) and moved,
+                    f"adamw_sr {gdt} step {step} decay {decay}: {same}")
+            worst = max(worst, err)
+            del a, b
     torch.cuda.empty_cache()
     return worst
 
@@ -500,7 +567,8 @@ SERVING_CLASSES = (("paged_decode_kernel", ("paged_decode_kernel",)),
 TRAIN_CLASSES = (("flash_forward", ("flash_fwd_kernel",)),
                  ("flash_backward", ("flash_bwd_dkv_kernel",
                                      "flash_bwd_dq_kernel")),
-                 ("adamw", ("adamw_kernel",)))
+                 ("adamw", ("adamw_kernel",)),
+                 ("adamw_sr", ("adamw_sr_kernel",)))
 
 
 def device_breakdown(prof, wall_s, n_steps, classes=SERVING_CLASSES):
@@ -1030,10 +1098,15 @@ def time_append(dev):
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LAYERS = 4, 2048, 8, 4
+# the reference bench line's defaults (bench.py:2762-2825): 7B widths with
+# ff = hidden * 11 // 4, 3 layers, [6, 2048], recompute and bf16 moments
+BENCH_B, BENCH_LAYERS, BENCH_FF = 6, 3, 11264
 TRAIN_COUNTERS = {"flash_attention_fwd": flash_attention_fwd,
                   "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
                   "flash_attention_bwd_dq": flash_attention_bwd_dq,
-                  "fused_adamw": fused_adamw_update}
+                  "fused_adamw": fused_adamw_update,
+                  "fused_adamw_sr": fused_adamw_sr_update}
+SR_WARNING = "adamw_stochastic_rounding: shape not tileable"
 
 
 def train_loss(m, ids, labels):
@@ -1041,114 +1114,366 @@ def train_loss(m, ids, labels):
     return loss
 
 
-def run_training(dev):
-    """TrainStep at Llama-2-7B widths cut to 4 layers (full depth is 6.74 B
-    params x 16 B of bf16 param and grad, float32 master and moments ~ 108
-    GB, above the card's 80 GB) on one [4, 2048] batch made as the
-    reference's llama bench line makes it (bench.py:2827-2831). Returns
-    the model, its optimizer and the kernel launches of the 8 steps."""
-    cfg = LlamaConfig.llama2_7b(dtype="bfloat16",
-                                num_hidden_layers=TRAIN_LAYERS,
-                                max_position_embeddings=TRAIN_S)
+@contextlib.contextmanager
+def training_flags(**flags):
+    """The port's optimizer flags for one run, reset to False after it."""
+    set_flags(flags)
+    try:
+        yield
+    finally:
+        set_flags({k: False for k in flags})
+
+
+def train_model(dev, layers, **over):
+    """A bf16 Llama at Llama-2-7B widths cut to ``layers`` layers, in
+    training mode, seed 0."""
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16", num_hidden_layers=layers,
+                                max_position_embeddings=TRAIN_S, **over)
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     model.train()
-    params = list(model.parameters())
-    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
-                parameters=model.named_parameters())
-    step = TrainStep(model, train_loss, opt)
+    return model
+
+
+def train_batch(vocab, B, dev):
+    """Random ids and labels ``[B, 2048]`` as the reference's llama bench
+    line makes them (``bench.py:2827-2831``)."""
     rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                        size=(TRAIN_B, TRAIN_S))).to(dev)
-    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                           size=(TRAIN_B, TRAIN_S))).to(dev)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, size=(B, TRAIN_S)))
+                 .to(dev) for _ in range(2))
+
+
+def drive(step, ids, labels, calls):
+    """``calls`` TrainStep calls on one batch, every launch count set to 0
+    just before. Per call: the loss (read back, so the call is waited
+    for), the wall time, each kernel's launches, plain-chain AdamW updates,
+    the stochastic-rounding chain warnings and the params without a grad.
+    Returns the calls and the peak device memory in bytes."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in TRAIN_COUNTERS.values():
         c.launches = 0
-    chain0 = Optimizer.chain_updates
-    losses, walls, per_step, missing = [], [], [], []
-    for _ in range(TRAIN_STEPS):
+    calls_out = []
+    for _ in range(calls):
         before = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
-        t0 = time.perf_counter()
-        loss = step(ids, labels)
-        losses.append(float(loss))            # waits for the step
-        walls.append(time.perf_counter() - t0)
-        per_step.append({n: c.launches - before[n]
-                         for n, c in TRAIN_COUNTERS.items()})
-        missing.extend(step.missing_grads)
-    launches = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
-    chain = Optimizer.chain_updates - chain0
-    peak = torch.cuda.max_memory_allocated()
+        chain0 = Optimizer.chain_updates
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            loss = float(step(ids, labels))
+            wall = time.perf_counter() - t0
+        calls_out.append(dict(
+            loss=loss, wall=wall,
+            launches={n: c.launches - before[n]
+                      for n, c in TRAIN_COUNTERS.items()},
+            chain=Optimizer.chain_updates - chain0,
+            sr_warnings=sum(SR_WARNING in str(w.message) for w in caught),
+            missing=list(step.missing_grads)))
+    return calls_out, torch.cuda.max_memory_allocated()
+
+
+def traced_step(step, ids, labels):
+    """One more TrainStep call under torch.profiler: its device time by
+    kernel class and the device's idle share (information)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(ids, labels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    breakdown = device_breakdown(prof, wall, 1, TRAIN_CLASSES)
-    L = cfg.num_hidden_layers
-    expect = {"flash_attention_fwd": L, "flash_attention_bwd_dkv": L,
-              "flash_attention_bwd_dq": L, "fused_adamw": len(params)}
-    step_ms = float(np.median(walls[2:])) * 1e3
-    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    return device_breakdown(prof, wall, 1, TRAIN_CLASSES)
+
+
+def train_report(name, model, calls, peak, B, expect, **extra):
+    """Emit one training run's line and hold its gates: finite losses, the
+    first within 0.5 of ln(vocab) (every run starts from fresh random
+    weights), the last below the
+    first, every parameter with a grad, and each call's launches, chain
+    updates and warnings as ``expect(i)`` gives them. Timing: the median
+    of the calls after the first two; MFU by the reference's convention
+    (``flops_per_token``, forward and backward, recompute not counted)."""
+    cfg = model.config
+    losses = [c["loss"] for c in calls]
+    walls = [c["wall"] * 1e3 for c in calls]
+    step_ms = float(np.median(walls[2:]))
+    tok_s = B * TRAIN_S / (step_ms / 1e3)
     flops_tok = model.flops_per_token(TRAIN_S)
     ln_vocab = float(np.log(cfg.vocab_size))
-    emit({"phase": "train", "layers": L, "hidden": cfg.hidden_size,
-          "heads": cfg.num_attention_heads, "ff": cfg.intermediate_size,
-          "vocab": cfg.vocab_size, "params": sum(p.numel() for p in params),
-          "param_tensors": len(params), "batch": [TRAIN_B, TRAIN_S],
-          "steps": TRAIN_STEPS, "losses": losses, "ln_vocab": ln_vocab,
-          "launches": launches, "launches_per_step": per_step,
-          "expected_per_step": expect, "adamw_chain_updates": chain,
-          "params_without_grad": sorted(set(missing)),
-          "step_ms_each": [w * 1e3 for w in walls],
-          "step_ms_median_steps_3_8": step_ms, "tokens_per_s": tok_s,
-          "flops_per_token": flops_tok,
-          "mfu": flops_tok * tok_s / PEAK_BF16_FLOPS,
-          "peak_memory_gb": peak / 1e9, "traced_step": breakdown})
-    require(all(np.isfinite(x) for x in losses), f"losses {losses}")
+    got = [dict(c["launches"], chain_updates=c["chain"],
+                sr_warnings=c["sr_warnings"]) for c in calls]
+    want = [expect(i) for i in range(len(calls))]
+    missing = sorted({n for c in calls for n in c["missing"]})
+    line = {"phase": "train", "run": name, "layers": cfg.num_hidden_layers,
+            "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+            "ff": cfg.intermediate_size, "vocab": cfg.vocab_size,
+            "recompute": cfg.use_recompute,
+            "fused_projections": cfg.fuse_attention_qkv,
+            "params": sum(p.numel() for p in model.parameters()),
+            "param_tensors": len(list(model.parameters())),
+            "batch": [B, TRAIN_S], "calls": len(calls), "losses": losses,
+            "ln_vocab": ln_vocab, "per_call": got, "expected_per_call": want,
+            "params_without_grad": missing, "step_ms_each": walls,
+            "step_ms_median_after_2": step_ms, "tokens_per_s": tok_s,
+            "flops_per_token": flops_tok,
+            "mfu": flops_tok * tok_s / PEAK_BF16_FLOPS,
+            "peak_memory_gb": peak / 1e9, **extra}
+    emit(line)
+    require(all(np.isfinite(x) for x in losses), f"{name}: losses {losses}")
     require(abs(losses[0] - ln_vocab) <= 0.5,
-            f"first loss {losses[0]} is not within 0.5 of ln(vocab)")
-    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    require(not missing, f"parameters without a grad: {sorted(set(missing))}")
-    require(all(ps == expect for ps in per_step),
-            f"launches per step {per_step} != {expect}")
-    require(chain == 0, f"{chain} AdamW updates took the plain chain")
+            f"{name}: first loss {losses[0]} not within 0.5 of ln(vocab)")
+    require(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+    require(not missing, f"{name}: parameters without a grad: {missing}")
+    require(got == want, f"{name}: per call {got} != {want}")
+    return {n: sum(c["launches"][n] for c in calls) for n in TRAIN_COUNTERS}
+
+
+def per_step(flash_fwd=0, dkv=0, dq=0, adamw=0, adamw_sr=0, chain=0,
+             warn=0):
+    return {"flash_attention_fwd": flash_fwd, "flash_attention_bwd_dkv": dkv,
+            "flash_attention_bwd_dq": dq, "fused_adamw": adamw,
+            "fused_adamw_sr": adamw_sr, "chain_updates": chain,
+            "sr_warnings": warn}
+
+
+def run_training(dev):
+    """TrainStep at Llama-2-7B widths cut to 4 layers (float32 masters and
+    moments: full depth would need 6.74 B params x 16 B ~ 108 GB) on one
+    [4, 2048] batch, 8 steps, then one traced step. Returns the model, its
+    optimizer and the kernel launches of the 8 steps."""
+    model = train_model(dev, TRAIN_LAYERS)
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+                parameters=model.named_parameters())
+    step = TrainStep(model, train_loss, opt)
+    ids, labels = train_batch(model.config.vocab_size, TRAIN_B, dev)
+    calls, peak = drive(step, ids, labels, TRAIN_STEPS)
+    traced = traced_step(step, ids, labels)
+    L, n = TRAIN_LAYERS, len(step.params)
+    launches = train_report(
+        "train", model, calls, peak, TRAIN_B,
+        lambda i: per_step(L, L, L, adamw=n), traced_step=traced)
     return model, opt, launches
+
+
+def run_train_accum(dev):
+    """The same 4-layer run with ``accumulate_steps=2`` for 4 calls: the
+    update (every parameter through the AdamW kernel's float32-grad form)
+    only on the 2nd and 4th call."""
+    model = train_model(dev, TRAIN_LAYERS)
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.01, multi_precision=True,
+                parameters=model.named_parameters())
+    step = TrainStep(model, train_loss, opt, accumulate_steps=2)
+    ids, labels = train_batch(model.config.vocab_size, TRAIN_B, dev)
+    calls, peak = drive(step, ids, labels, 4)
+    L, n = TRAIN_LAYERS, len(step.params)
+    launches = train_report(
+        "train_accum", model, calls, peak, TRAIN_B,
+        lambda i: per_step(L, L, L, adamw=n * (i % 2)),
+        optimizer_steps=opt._step_count)
+    require(opt._step_count == 2, f"accumulation took {opt._step_count} "
+            f"optimizer steps in 4 calls, not 2")
+    return launches
+
+
+RECOMPUTE_PASSES = (("off", False, None), ("full", True, None),
+                    ("dots", True, "dots_saveable"),
+                    ("dots_no_batch", True,
+                     "dots_with_no_batch_dims_saveable"))
+
+
+def run_train_recompute_exact(dev):
+    """Two layers of the bench line's configuration, one [6, 2048] batch,
+    forward and backward with recompute off, then on under the full
+    policy and the two selective ``dots`` policies: every grad the same
+    bits as without recompute (the replay runs the same kernels on the
+    same inputs; the selective policies keep the matrix products and
+    replay the flash forward, which launches through ctypes where no
+    dispatch mode sees it, into a fresh buffer), and a lower peak under
+    the full policy (counted above what was allocated before each
+    pass)."""
+    model = train_model(dev, 2, intermediate_size=BENCH_FF)
+    ids, labels = train_batch(model.config.vocab_size, BENCH_B, dev)
+    ref, losses, peaks, flash, diff = None, {}, {}, {}, {}
+    launches = collections.Counter()
+    for name, remat, policy in RECOMPUTE_PASSES:
+        model.config.use_recompute = remat
+        model.config.recompute_policy = policy
+        for c in TRAIN_COUNTERS.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = train_loss(model, ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses[name] = float(loss.detach())
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        flash[name] = flash_attention_fwd.launches
+        launches.update({n: c.launches for n, c in TRAIN_COUNTERS.items()})
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if ref is None:
+            ref = grads
+        else:
+            diff[name] = [n for n, g in ref.items()
+                          if not torch.equal(g, grads[n])]
+        for p in model.parameters():
+            p.grad = None
+        del grads
+    line = {"phase": "train_recompute_exact", "layers": 2,
+            "ff": BENCH_FF, "batch": [BENCH_B, TRAIN_S], "loss": losses,
+            "peak_gb_above_base": peaks, "flash_fwd_launches": flash,
+            "grads_compared": len(ref), "grads_not_bit_identical": diff}
+    emit(line)
+    require(not any(diff.values()), f"recompute changed grads: {diff}")
+    require(len(set(losses.values())) == 1, f"losses {losses}")
+    require(peaks["full"] < peaks["off"],
+            f"recompute did not lower the peak: {peaks}")
+    require(flash == {"off": 2, "full": 4, "dots": 4, "dots_no_batch": 4},
+            f"flash forward launches {flash}")
+    return dict(launches)
+
+
+def run_train_bench_default(dev):
+    """The reference bench line's defaults: 3 layers, ff 11264, [6, 2048],
+    recompute, bf16 moments, AdamW(3e-4, weight_decay=0.01,
+    multi_precision=True), 8 steps; every update takes the plain chain
+    (bf16 moments beside float32 masters, as in the reference); flash
+    forward 2L per step (forward and replay), dK/dV and dQ L. Then the same
+    with fused q/k/v and gate/up projections for 4 steps."""
+    launches = collections.Counter()
+    for fused, steps in ((False, TRAIN_STEPS), (True, 4)):
+        with training_flags(adamw_bf16_moments=True):
+            model = train_model(dev, BENCH_LAYERS, intermediate_size=BENCH_FF,
+                                use_recompute=True, fuse_attention_qkv=fused,
+                                fuse_swiglu=fused)
+            opt = AdamW(learning_rate=3e-4, weight_decay=0.01,
+                        multi_precision=True,
+                        parameters=model.named_parameters())
+            step = TrainStep(model, train_loss, opt)
+        ids, labels = train_batch(model.config.vocab_size, BENCH_B, dev)
+        calls, peak = drive(step, ids, labels, steps)
+        traced = None if fused else traced_step(step, ids, labels)
+        L, n = BENCH_LAYERS, len(step.params)
+        launches.update(train_report(
+            "train_bench_default_fused" if fused else "train_bench_default",
+            model, calls, peak, BENCH_B,
+            lambda i: per_step(2 * L, L, L, chain=n), traced_step=traced))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def run_train_sr_full_depth(dev):
+    """``LlamaConfig.llama2_7b`` at all 32 layers, [4, 2048], recompute,
+    master-free AdamW with stochastic rounding and bf16 moments
+    (``BENCH_OPT=adamw_sr``), 8 steps: the stochastic-rounding kernel on
+    every parameter the reference's kernel tiles (290), the chain with its
+    warning on ``lm_head``. Returns the model, optimizer, TrainStep and the
+    launches."""
+    with training_flags(adamw_stochastic_rounding=True,
+                        adamw_bf16_moments=True):
+        model = train_model(dev, 32, use_recompute=True)
+        opt = AdamW(learning_rate=3e-4, weight_decay=0.01,
+                    multi_precision=False,
+                    parameters=model.named_parameters())
+        step = TrainStep(model, train_loss, opt)
+        ids, labels = train_batch(model.config.vocab_size, TRAIN_B, dev)
+        calls, peak = drive(step, ids, labels, TRAIN_STEPS)
+        traced = traced_step(step, ids, labels)
+    L, n = 32, len(step.params)
+    tiled = sum(tile_plan(tuple(p.shape)) is not None for p in step.params)
+    launches = train_report(
+        "train_sr_full_depth", model, calls, peak, TRAIN_B,
+        lambda i: per_step(2 * L, L, L, adamw_sr=tiled, chain=n - tiled,
+                           warn=n - tiled),
+        traced_step=traced, param_tensors_tiled=tiled,
+        device_memory_gb=torch.cuda.get_device_properties(0).total_memory
+        / 1e9)
+    require((n, tiled) == (291, 290), f"{n} parameters, {tiled} tiled")
+    return model, opt, step, launches
 
 
 def time_adamw(model, opt, dev):
     """The AdamW kernel over every parameter of a step (one launch each,
     as TrainStep makes them) and on one [4096, 11008] tensor, against the
-    plain version; bytes bound: 28 B per parameter."""
+    plain version, with bf16 grads and with float32 ones (an accumulated
+    mean); bytes bound: 28 B per parameter, 30 B with a float32 grad."""
     params = [p for p in model.parameters()]
     gen = torch.Generator(device=dev).manual_seed(14)
-    grads = [(torch.randn(p.shape, device=dev, generator=gen) * 1e-3)
-             .to(torch.bfloat16) for p in params]
     slots = [opt._slots[id(p)] for p in params]
+    out = {}
+    for gname, gdt, nbytes in (("bf16_grad", torch.bfloat16, 28),
+                               ("f32_grad", torch.float32, 30)):
+        grads = [(torch.randn(p.shape, device=dev, generator=gen) * 1e-3)
+                 .to(gdt) for p in params]
+
+        def run(fn):
+            def go():
+                for p, g, s in zip(params, grads, slots):
+                    fn(p, g, s["moment1"], s["moment2"], s["master_weight"],
+                       3e-4, 9, weight_decay=0.01)
+            return go
+        ms = cuda_ms(run(fused_adamw_update), 5)
+        plain_ms = cuda_ms(run(fused_adamw_update_plain), 2)
+        one = next(i for i, p in enumerate(params)
+                   if tuple(p.shape) == ADAMW_SHAPE)
+        p1, g1, s1 = params[one], grads[one], slots[one]
+        one_args = (p1, g1, s1["moment1"], s1["moment2"], s1["master_weight"],
+                    3e-4, 9)
+        one_ms = cuda_ms(lambda: fused_adamw_update(*one_args), 20)
+        one_plain = cuda_ms(lambda: fused_adamw_update_plain(*one_args), 5)
+        n = sum(p.numel() for p in params)
+        out[gname] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=nbytes * n / PEAK_BYTES * 1e3, bound_by="bytes",
+            params=n, launches_per_step=len(params),
+            one_tensor=dict(shape=list(ADAMW_SHAPE), ms=one_ms,
+                            plain_ms=one_plain,
+                            bound_ms=nbytes * p1.numel() / PEAK_BYTES * 1e3))
+        del grads
+        torch.cuda.empty_cache()
+    return dict(out["bf16_grad"], f32_grad=out["f32_grad"])
+
+
+def time_adamw_sr(step, dev):
+    """The stochastic-rounding kernel over the parameters a full-depth
+    step sends it (290 launches) and on one [4096, 11008] tensor, against
+    the plain version, with a bf16 grad (and, for the one tensor, a
+    float32 grad); one random grad per distinct shape. Bytes bound: 14 B
+    per parameter (read g, p, m, v; write p, m, v), 16 B with a float32
+    grad. No PyTorch call rounds stochastically, so no library time."""
+    opt = step.optimizer
+    gen = torch.Generator(device=dev).manual_seed(15)
+    work = [(i, p, opt._slots[id(p)]) for i, p in enumerate(step.params)
+            if tile_plan(tuple(p.shape)) is not None]
+    grads = {}
+    for _, p, _ in work:
+        if tuple(p.shape) not in grads:
+            grads[tuple(p.shape)] = (torch.randn(p.shape, device=dev,
+                                                 generator=gen) * 1e-3) \
+                .to(torch.bfloat16)
 
     def run(fn):
         def go():
-            for p, g, s in zip(params, grads, slots):
-                fn(p, g, s["moment1"], s["moment2"], s["master_weight"],
-                   3e-4, 9, weight_decay=0.01)
+            for i, p, s in work:
+                fn(p, grads[tuple(p.shape)], s["moment1"], s["moment2"],
+                   3e-4, 9, sr_seed(9, i), weight_decay=0.01)
         return go
-    ms = cuda_ms(run(fused_adamw_update), 5)
-    plain_ms = cuda_ms(run(fused_adamw_update_plain), 2)
-    one = next(i for i, p in enumerate(params)
-               if tuple(p.shape) == ADAMW_SHAPE)
-    p1, g1, s1 = params[one], grads[one], slots[one]
-    one_args = (p1, g1, s1["moment1"], s1["moment2"], s1["master_weight"],
-                3e-4, 9)
-    one_ms = cuda_ms(lambda: fused_adamw_update(*one_args), 20)
-    one_plain = cuda_ms(lambda: fused_adamw_update_plain(*one_args), 5)
-    n = sum(p.numel() for p in params)
+    ms = cuda_ms(run(fused_adamw_sr_update), 3)
+    plain_ms = cuda_ms(run(fused_adamw_sr_update_plain), 1)
+    i1, p1, s1 = next(w for w in work if tuple(w[1].shape) == ADAMW_SHAPE)
+    one = {}
+    for gname, gdt, nbytes in (("bf16_grad", torch.bfloat16, 14),
+                               ("f32_grad", torch.float32, 16)):
+        g1 = grads[ADAMW_SHAPE].to(gdt)
+        args = (p1, g1, s1["moment1"], s1["moment2"], 3e-4, 9, sr_seed(9, i1))
+        one[gname] = dict(
+            ms=cuda_ms(lambda: fused_adamw_sr_update(*args), 20),
+            plain_ms=cuda_ms(lambda: fused_adamw_sr_update_plain(*args), 5),
+            bound_ms=nbytes * p1.numel() / PEAK_BYTES * 1e3)
+    n = sum(p.numel() for _, p, _ in work)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=28 * n / PEAK_BYTES * 1e3, bound_by="bytes",
-                params=n, launches_per_step=len(params),
-                one_tensor=dict(shape=list(ADAMW_SHAPE), ms=one_ms,
-                                plain_ms=one_plain,
-                                bound_ms=28 * p1.numel() / PEAK_BYTES * 1e3))
+                bound_ms=14 * n / PEAK_BYTES * 1e3, bound_by="bytes",
+                params=n, launches_per_step=len(work),
+                one_tensor=dict(shape=list(ADAMW_SHAPE), **one))
 
 
 def time_flash_bwd(dev):
@@ -1235,6 +1560,7 @@ def main():
     append_err = check_append(dev)
     bwd_err = check_flash_bwd(dev)
     adamw_err = check_adamw(dev)
+    adamw_sr_err = check_adamw_sr(dev)
     torch.cuda.empty_cache()
 
     model = build_model(dev)
@@ -1256,13 +1582,25 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    model, opt, train_launches = run_training(dev)
+    train_launches = collections.Counter()
+    model, opt, launches = run_training(dev)
+    train_launches.update(launches)
     torch.cuda.empty_cache()
     wt = time_adamw(model, opt, dev)
     del model, opt
     torch.cuda.empty_cache()
     bt = time_flash_bwd(dev)
     emit({"phase": "timing", "fused_adamw": wt, "flash_attention_bwd": bt})
+    torch.cuda.empty_cache()
+    for run in (run_train_accum, run_train_recompute_exact,
+                run_train_bench_default):
+        train_launches.update(run(dev))
+        torch.cuda.empty_cache()
+    model, opt, step, launches = run_train_sr_full_depth(dev)
+    train_launches.update(launches)
+    srt = time_adamw_sr(step, dev)
+    emit({"phase": "timing", "fused_adamw_sr": srt})
+    del model, opt, step
     torch.cuda.empty_cache()
     dkv, dq = bt["flash_attention_bwd_dkv"], bt["flash_attention_bwd_dq"]
     kernels = [
@@ -1302,6 +1640,12 @@ def main():
          "max_abs_err": adamw_err, "ms": wt["ms"],
          "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
          "bound_by": wt["bound_by"], "library_ms": wt["library_ms"]},
+        {"name": "fused_adamw_sr", "route": "cuda", "source": ADAMW_SR_SRC,
+         "replaces": ADAMW_SR_REPLACES,
+         "launches": train_launches["fused_adamw_sr"],
+         "max_abs_err": adamw_sr_err, "ms": srt["ms"],
+         "plain_ms": srt["plain_ms"], "bound_ms": srt["bound_ms"],
+         "bound_by": srt["bound_by"], "library_ms": srt["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -94,4 +94,5 @@ define_flag("adamw_bf16_moments", False,
             "update chain")
 define_flag("adamw_stochastic_rounding", False,
             "master-weight-free AdamW for bf16 params with a stochastically "
-            "rounded param write; not ported yet (ROADMAP B7)")
+            "rounded param write (the stochastic-rounding kernel where the "
+            "reference's kernel tiles the shape, else the plain chain)")

@@ -1,4 +1,4 @@
-"""Seeded generators for weight init (counterpart:
+"""Seeded generators and seed scopes (counterpart:
 ``paddle_tpu/core/random.py``).
 
 The reference advances one global threefry key; the port gives every
@@ -6,10 +6,30 @@ model init its own ``torch.Generator`` made from an explicit seed, so two
 models built from one seed on one device hold the same weights. The two
 packages draw different numbers from the same seed: tests that hold the
 port against the reference copy weights across instead (``bridge.py``).
+
+:func:`provide_seed` is the counterpart of the reference's
+``provide_key`` (:113-133): inside it, :func:`draw_seed` derives each
+draw from the scope's base seed and a per-draw counter, on the host. A
+recompute segment enters a scope with a seed drawn before the segment, so
+its replay draws the same seeds again, as the reference's segment folds
+the same key (``distributed/fleet/recompute.py:84-86``); ``TrainStep``
+enters one per step.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+_M32 = 0xFFFFFFFF
+_local = threading.local()     # each thread's stack of seed scopes
+
+
+def _scopes() -> list:
+    if not hasattr(_local, "scopes"):
+        _local.scopes = []
+    return _local.scopes
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -17,3 +37,53 @@ def make_generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(int(seed))
     return gen
+
+
+def _mix32(x):
+    """The murmur3 finalizer on 32 bits."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+class _SeedScope:
+    __slots__ = ("base", "counter")
+
+    def __init__(self, base):
+        self.base = int(base) & _M32
+        self.counter = 0
+
+
+@contextlib.contextmanager
+def provide_seed(base):
+    """Within this scope, :func:`draw_seed` on this thread returns seeds
+    derived from ``base`` and a counter that starts afresh on every
+    entry."""
+    _scopes().append(_SeedScope(base))
+    try:
+        yield
+    finally:
+        _scopes().pop()
+
+
+def draw_seed(generator=None) -> int:
+    """An int32 seed for a random kernel. Inside :func:`provide_seed`: the
+    next seed of the innermost scope, from the host. Outside: a draw from
+    ``generator`` (default: torch's CPU generator), which blocks on the
+    card when the generator lives there."""
+    if _scopes():
+        scope = _scopes()[-1]
+        scope.counter += 1
+        return _mix32(scope.base ^ _mix32(scope.counter * 0x9E3779B9)) \
+            & 0x7FFFFFFF
+    dev = generator.device if generator is not None else "cpu"
+    return int(torch.randint(-2 ** 31, 2 ** 31, (1,), device=dev,
+                             generator=generator))
+
+
+def in_seed_scope() -> bool:
+    """Whether a :func:`provide_seed` scope is active."""
+    return bool(_scopes())

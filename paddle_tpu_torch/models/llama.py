@@ -11,10 +11,16 @@ slot, the paged-append kernel for the fused scheduler's mixed step).
 ``forward(labels=...)`` returns ``(loss, logits)`` with the loss from the
 port's ``F.cross_entropy`` (the fused CE on hard labels), so training runs
 the flash backward kernels through ``F.scaled_dot_product_attention``.
+``use_recompute`` wraps each decoder layer in
+:func:`paddle_tpu_torch.distributed.fleet.recompute` under
+``recompute_policy`` when training without a cache (reference
+``llama.py:610-617``). ``fuse_attention_qkv`` makes one ``qkv_proj`` whose
+output splits into ``[q | k | v]`` (reference :314-348) and
+``fuse_swiglu`` one ``gate_up_proj`` split at ``intermediate_size``
+(:529-551).
 
-Not in this port yet, each raising where reached: LoRA scopes,
-``fuse_attention_qkv``/``fuse_swiglu``, recompute, the slot and chunk
-caches of the dense engine, quantized pools and
+Not in this port yet, each raising where reached: LoRA scopes, the slot
+and chunk caches of the dense engine, quantized pools and
 ``LlamaForCausalLM.generate``.
 """
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.random import make_generator
+from ..distributed.fleet.recompute import recompute
 from ..incubate.nn import functional as IF
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
@@ -135,19 +142,26 @@ class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         c = config
-        if c.fuse_attention_qkv:
-            raise NotImplementedError(
-                "fuse_attention_qkv is not ported yet (separate q/k/v only)")
         self.num_heads = c.num_attention_heads
         self.num_kv_heads = c.num_key_value_heads
         self.head_dim = c.hidden_size // c.num_attention_heads
+        self.fused = bool(c.fuse_attention_qkv)
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.q_proj = Linear(c.hidden_size, self.num_heads * self.head_dim,
-                             bias_attr=False, **kw)
-        self.k_proj = Linear(c.hidden_size, self.num_kv_heads * self.head_dim,
-                             bias_attr=False, **kw)
-        self.v_proj = Linear(c.hidden_size, self.num_kv_heads * self.head_dim,
-                             bias_attr=False, **kw)
+        if self.fused:
+            self.qkv_proj = Linear(
+                c.hidden_size,
+                (self.num_heads + 2 * self.num_kv_heads) * self.head_dim,
+                bias_attr=False, **kw)
+        else:
+            self.q_proj = Linear(c.hidden_size,
+                                 self.num_heads * self.head_dim,
+                                 bias_attr=False, **kw)
+            self.k_proj = Linear(c.hidden_size,
+                                 self.num_kv_heads * self.head_dim,
+                                 bias_attr=False, **kw)
+            self.v_proj = Linear(c.hidden_size,
+                                 self.num_kv_heads * self.head_dim,
+                                 bias_attr=False, **kw)
         self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
                              bias_attr=False, **kw)
 
@@ -155,9 +169,15 @@ class LlamaAttention(nn.Module):
                 position_offset=0):
         b, s = x.shape[0], x.shape[1]
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.q_proj(x).view(b, s, H, D)
-        k = self.k_proj(x).view(b, s, Hkv, D)
-        v = self.v_proj(x).view(b, s, Hkv, D)
+        if self.fused:
+            q, k, v = self.qkv_proj(x).split([H * D, Hkv * D, Hkv * D], -1)
+            # the kernels take contiguous tensors (rope copies q and k)
+            q, k = q.reshape(b, s, H, D), k.reshape(b, s, Hkv, D)
+            v = v.reshape(b, s, Hkv, D).contiguous()
+        else:
+            q = self.q_proj(x).view(b, s, H, D)
+            k = self.k_proj(x).view(b, s, Hkv, D)
+            v = self.v_proj(x).view(b, s, Hkv, D)
         cos, sin = rope_cache
         q, k = apply_rope(q, k, cos, sin, position_offset)
         if isinstance(kv_cache, PagedKVCache):
@@ -227,19 +247,26 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         c = config
-        if c.fuse_swiglu:
-            raise NotImplementedError(
-                "fuse_swiglu is not ported yet (separate gate/up only)")
+        self.fused = bool(c.fuse_swiglu)
+        self._ff = c.intermediate_size
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.gate_proj = Linear(c.hidden_size, c.intermediate_size,
-                                bias_attr=False, **kw)
-        self.up_proj = Linear(c.hidden_size, c.intermediate_size,
-                              bias_attr=False, **kw)
+        if self.fused:
+            self.gate_up_proj = Linear(c.hidden_size, 2 * c.intermediate_size,
+                                       bias_attr=False, **kw)
+        else:
+            self.gate_proj = Linear(c.hidden_size, c.intermediate_size,
+                                    bias_attr=False, **kw)
+            self.up_proj = Linear(c.hidden_size, c.intermediate_size,
+                                  bias_attr=False, **kw)
         self.down_proj = Linear(c.intermediate_size, c.hidden_size,
                                 bias_attr=False, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+        if self.fused:
+            gate, up = self.gate_up_proj(x).split(self._ff, -1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.swiglu(gate, up))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -296,10 +323,6 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, kv_caches=None,
                 position_offset=0):
-        if self.config.use_recompute and self.training:
-            raise NotImplementedError(
-                "use_recompute (per-layer activation recompute, "
-                "distributed/fleet/recompute) is not ported yet: ROADMAP A12")
         x = self.embed_tokens(input_ids.long())
         rope = (self.rope_cos, self.rope_sin)
         if kv_caches is not None:
@@ -308,8 +331,13 @@ class LlamaModel(nn.Module):
                 x, c = layer(x, rope, attn_mask, cache, position_offset)
                 new_caches.append(c)
             return self.norm(x), new_caches
+        remat = self.config.use_recompute and self.training
         for layer in self.layers:
-            x = layer(x, rope, attn_mask)
+            if remat:
+                x = recompute(layer, x, rope, attn_mask,
+                              checkpoint_policy=self.config.recompute_policy)
+            else:
+                x = layer(x, rope, attn_mask)
         return self.norm(x)
 
 

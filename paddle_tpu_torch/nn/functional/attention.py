@@ -7,14 +7,17 @@ flash attention takes a call when there is no mask, ``dropout_p < 1``, and —
 causal — ``sq == sk``, because the kernels mask top-left and Paddle's causal
 mask is bottom-right; the two agree only for equal lengths. It goes through
 the differentiable :class:`FlashAttention`, so training reaches the
-backward kernels; dropout runs inside the kernels from an int32 seed drawn
-from the caller's generator. Every other call takes the plain
-``_sdpa_reference`` math.
+backward kernels; dropout runs inside the kernels from an int32 seed
+(:func:`paddle_tpu_torch.core.random.draw_seed`: from the innermost
+``provide_seed`` scope on the host, else from the caller's generator).
+Every other call takes the plain ``_sdpa_reference`` math, whose dropout
+draws from a generator seeded the same way inside a scope.
 """
 from __future__ import annotations
 
 import torch
 
+from ...core.random import draw_seed, in_seed_scope, make_generator
 from ...ops.kernels.flash_attention import flash_attention
 
 
@@ -58,12 +61,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         dropout_p = 0.0
     if (attn_mask is None and dropout_p < 1.0
             and (not is_causal or query.shape[1] == key.shape[1])):
-        seed = 0
-        if dropout_p > 0.0:
-            dev = generator.device if generator is not None else "cpu"
-            seed = int(torch.randint(-2 ** 31, 2 ** 31, (1,), device=dev,
-                                     generator=generator))
+        seed = draw_seed(generator) if dropout_p > 0.0 else 0
         return flash_attention(query, key, value, causal=is_causal,
                                dropout_p=dropout_p, seed=seed)
+    if dropout_p > 0.0 and in_seed_scope():
+        generator = make_generator(draw_seed(), query.device)
     return _sdpa_reference(query, key, value, attn_mask, is_causal, dropout_p,
                            generator)

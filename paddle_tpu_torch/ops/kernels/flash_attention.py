@@ -49,13 +49,22 @@ def keep_mask(seed, bh, rows, cols, sq, sk, dropout_p):
     idx = _mul32(bh.long() & _M32, sq & _M32)
     idx = _mul32((idx + rows.long()) & _M32, sk & _M32)
     idx = (idx + cols.long()) & _M32
+    h = position_hash(idx, seed)
+    return (h & 0x7FFFFFFF) >= int(dropout_p * 2147483648.0)
+
+
+def position_hash(idx, seed):
+    """The reference's murmur3-style position hash, shared by the dropout
+    mask and the stochastic rounding of ``fused_adamw.py``: ``h = idx *
+    0x9E3779B9 + seed``, then the murmur3 finalizer, all mod ``2**32``.
+    ``idx`` is an int64 tensor in ``[0, 2**32)``; returns the same, with
+    logical shifts."""
     h = (_mul32(idx, 0x9E3779B9) + (int(seed) & _M32)) & _M32
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
-    h = h ^ (h >> 16)
-    return (h & 0x7FFFFFFF) >= int(dropout_p * 2147483648.0)
+    return h ^ (h >> 16)
 
 
 def _dropout_consts(dropout_p):

@@ -2,22 +2,36 @@
 ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer`` :32-249, ``SGD``,
 ``Momentum``, ``Adam`` :283-397, ``AdamW`` :400-418).
 
-Each optimizer's ``step()`` updates every parameter that has a grad;
-:class:`paddle_tpu_torch.jit.TrainStep` calls it. The reference's rule is
-pure and its train step donates the buffers; here the update writes params
-and slots IN PLACE, which keeps the state's memory flat.
+:meth:`Optimizer.apply_updates` is the one update, over an explicit list
+of parameters and their grads, as the reference's ``apply_updates``
+(:81-134): each parameter's ``param_id`` is its index in that list. The
+eager ``step()`` hands it the parameters that have a grad (reference
+:170-181); :class:`paddle_tpu_torch.jit.TrainStep` hands it every
+trainable parameter. The reference's rule is pure and its train step
+donates the buffers; here the update writes params and slots IN PLACE,
+which keeps the state's memory flat.
 
 Slots: Adam keeps ``moment1``/``moment2`` (float32, or bf16 under
-``adamw_bf16_moments`` for float32 params); with ``multi_precision`` a
+``adamw_bf16_moments`` for float32 params, or the param's own dtype for a
+low-precision param without a master); with ``multi_precision`` a
 bf16/fp16 param also keeps a float32 ``master_weight``. The routing of the
-reference's ``Adam._apply_fused`` (:323-397) holds: the fused kernel takes
-a param exactly where the reference's does by default (no amsgrad, no
-coupled decay, a master weight, float32 moments); float32 params and bf16
-moments take the reference's plain chain (``Adam._apply`` plus decoupled
-decay, :82-134); ``adamw_stochastic_rounding`` raises. The port does not
-read ``use_fused_adamw``: the kernel always takes the params above.
+reference's ``Adam._apply_fused`` (:323-397) holds:
+
+- a master weight with float32 moments (no amsgrad, no coupled decay):
+  the fused AdamW kernel;
+- a bf16 param without a master under ``adamw_stochastic_rounding``: the
+  stochastic-rounding kernel, seeded per (step, ``param_id``), where the
+  reference's ``_tile_plan`` tiles the shape; elsewhere the plain chain
+  with the reference's ``RuntimeWarning``;
+- everything else (float32 params, bf16 moments beside a master): the
+  reference's plain chain (``Adam._apply`` plus decoupled decay).
+
+The port does not read ``use_fused_adamw``: the kernels always take the
+params above.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -81,7 +95,7 @@ class Optimizer:
     def _apply(self, p, g, slots, lr, step) -> tuple:
         raise NotImplementedError
 
-    def _apply_fused(self, p, g, slots, lr, step, decay_mask):
+    def _apply_fused(self, p, g, slots, lr, step, decay_mask, param_id):
         """Update ``p`` and ``slots`` in place with a fused kernel and
         return True, or return False for the plain chain."""
         return False
@@ -121,18 +135,26 @@ class Optimizer:
         """Update every parameter that has a grad, and its slots, in place
         (Paddle's eager ``optimizer.step()``)."""
         params = [p for p in self._trainable() if p.grad is not None]
-        self._step_count += 1
         if not params:
+            self._step_count += 1
             return
+        self.apply_updates(params, [p.grad for p in params])
+
+    @torch.no_grad()
+    def apply_updates(self, params, grads):
+        """One update of ``params`` with ``grads`` (aligned lists; a grad is
+        any float dtype, float32 for an accumulated mean), in place:
+        advances the step count, then updates each parameter and its slots.
+        A parameter's index in ``params`` is its ``param_id``."""
+        self._step_count += 1
         self._ensure_slots(params)
         decay_flags = [bool(self._decay_mask(p)) for p in params]
-        grads = [p.grad for p in params]
         if self._grad_clip is not None:
             grads = self._grad_clip.apply(params, grads)
         lr, step = self.get_lr(), self._step_count
-        for p, g, dm in zip(params, grads, decay_flags):
+        for i, (p, g, dm) in enumerate(zip(params, grads, decay_flags)):
             s = self._slots[id(p)]
-            if self._apply_fused(p, g, s, lr, step, dm):
+            if self._apply_fused(p, g, s, lr, step, dm, i):
                 continue
             Optimizer.chain_updates += 1
             master = s.get("master_weight")
@@ -145,8 +167,12 @@ class Optimizer:
                     g32 = g32 + self._wd * work_p
             new_p, new_s = self._apply(work_p, g32, s, lr, step)
             if self._decoupled_wd and self._wd and dm:
-                new_p = new_p - float(np.float32(lr) * np.float32(self._wd)) \
-                    * work_p
+                # the reference's float32 ``lr`` promotes this term, and a
+                # low-precision param with it, to float32; the port keeps
+                # the param's dtype and rounds the float32 result once
+                new_p = new_p.float() - float(np.float32(lr) *
+                                              np.float32(self._wd)) \
+                    * work_p.float()
             for k, val in new_s.items():
                 s[k].copy_(val)
             if master is not None:
@@ -277,27 +303,35 @@ class Adam(Optimizer):
         update = (m / bc1) / denom
         return p - float(np.float32(lr)) * update, ns
 
-    def _apply_fused(self, p, g, slots, lr, step, decay_mask):
-        """The fused kernel where the reference takes its Pallas kernel:
-        multi-precision (a master weight), float32 moments, no amsgrad, no
-        coupled decay."""
+    def _apply_fused(self, p, g, slots, lr, step, decay_mask, param_id):
+        """The fused kernels where the reference takes its Pallas kernels:
+        multi-precision (a master weight) with float32 moments, or, under
+        ``adamw_stochastic_rounding``, a bf16 param without a master whose
+        shape the reference tiles. No amsgrad, no coupled decay."""
         if self._amsgrad or (self._wd and not self._decoupled_wd):
             return False
+        from ..ops.kernels import fused_adamw as K
+        kw = dict(beta1=self._beta1, beta2=self._beta2, eps=self._eps,
+                  weight_decay=self._wd if self._decoupled_wd else 0.0,
+                  apply_decay=bool(decay_mask))
         if slots.get("master_weight") is None:
-            if flag_value("adamw_stochastic_rounding"):
-                raise NotImplementedError(
-                    "adamw_stochastic_rounding (master-free AdamW with a "
-                    "stochastically rounded bf16 write) is not ported yet: "
-                    "ROADMAP B7")
-            return False
+            if not flag_value("adamw_stochastic_rounding") or \
+                    p.dtype != torch.bfloat16:
+                return False
+            if K.tile_plan(tuple(p.shape)) is None:
+                warnings.warn(
+                    "adamw_stochastic_rounding: shape not tileable for the "
+                    "SR kernel — falling back to DETERMINISTIC bf16 "
+                    "rounding for this parameter (small updates may stall)",
+                    RuntimeWarning, stacklevel=4)
+                return False
+            K.fused_adamw_sr_update(p, g, slots["moment1"], slots["moment2"],
+                                    lr, step, K.sr_seed(step, param_id), **kw)
+            return True
         if slots["moment1"].dtype != torch.float32:
             return False
-        from ..ops.kernels.fused_adamw import fused_adamw_update
-        fused_adamw_update(
-            p, g, slots["moment1"], slots["moment2"], slots["master_weight"],
-            lr, step, beta1=self._beta1, beta2=self._beta2, eps=self._eps,
-            weight_decay=self._wd if self._decoupled_wd else 0.0,
-            apply_decay=bool(decay_mask))
+        K.fused_adamw_update(p, g, slots["moment1"], slots["moment2"],
+                             slots["master_weight"], lr, step, **kw)
         return True
 
 

@@ -6,7 +6,7 @@ import nothing of JAX, so they run on a machine without it:
 Inputs are unit-normal bf16 made with numpy from a fixed seed. Tolerances:
 bf16 rounding of the output (~4e-3 relative) plus a different fp32
 summation order, against values of magnitude ~1; the flash backward's
-grads within 2e-2 of their largest magnitude; the AdamW kernel bit for
+grads within 2e-2 of their largest magnitude; the AdamW kernels bit for
 bit."""
 import numpy as np
 import pytest
@@ -17,7 +17,8 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.fused_adamw import (
-    fused_adamw_update, fused_adamw_update_plain)
+    fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
+    fused_adamw_update_plain, sr_seed)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_append, paged_attention_append_plain,
     paged_attention_decode, paged_attention_decode_plain)
@@ -197,3 +198,67 @@ def test_adamw_kernel_bit_identical_to_plain(cuda, n, step, decay):
                              apply_decay=decay)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [4096 * 37, 1000 * 37 + 5, 3])
+@pytest.mark.parametrize("step,decay", [(1, True), (7, False)])
+def test_adamw_kernel_f32_grad_bit_identical_to_plain(cuda, n, step, decay):
+    """The AdamW kernel's float32-grad form (an accumulated mean) against
+    the plain version, bit for bit."""
+    rng = np.random.default_rng(n + 1)
+
+    def state():
+        g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-2).to(cuda)
+        m = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-3).to(cuda)
+        v = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-5).to(cuda)
+        mw = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                              * 0.05).to(cuda)
+        return mw.to(torch.bfloat16), g, m, v, mw
+    a = state()
+    b = tuple(t.clone() for t in a)
+    n0 = fused_adamw_update.launches
+    fused_adamw_update(*a, 3e-4, step, weight_decay=0.01, apply_decay=decay)
+    torch.cuda.synchronize()
+    assert fused_adamw_update.launches == n0 + 1
+    fused_adamw_update_plain(*b, 3e-4, step, weight_decay=0.01,
+                             apply_decay=decay)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [4096 * 37, 1000 * 37 + 5, 3])
+@pytest.mark.parametrize("step,decay", [(1, True), (7, False)])
+def test_adamw_sr_kernel_bit_identical_to_plain(cuda, g_dtype, n, step,
+                                                decay):
+    """The stochastic-rounding AdamW kernel against its plain version:
+    param and moments bit for bit, over the vector body and the scalar
+    tail, and the param moved."""
+    rng = np.random.default_rng(n + 2)
+
+    def state():
+        p = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 0.05).to(cuda).to(torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-2).to(cuda).to(g_dtype)
+        m = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * 1e-3 * (step > 1)).to(cuda).to(torch.bfloat16)
+        v = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-5
+                             * (step > 1)).to(cuda).to(torch.bfloat16)
+        return p, g, m, v
+    a = state()
+    b = tuple(t.clone() for t in a)
+    before = a[0].clone()
+    seed = sr_seed(step, 5)
+    n0 = fused_adamw_sr_update.launches
+    fused_adamw_sr_update(*a, 3e-3, step, seed, weight_decay=0.01,
+                          apply_decay=decay)
+    torch.cuda.synchronize()
+    assert fused_adamw_sr_update.launches == n0 + 1
+    fused_adamw_sr_update_plain(*b, 3e-3, step, seed, weight_decay=0.01,
+                                apply_decay=decay)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[0], before)

@@ -110,8 +110,27 @@ def test_bridge_is_strict():
 
 @pytest.mark.parametrize("flag", ["fuse_attention_qkv", "fuse_swiglu"])
 def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(LlamaConfig(**GQA, **{flag: True}), device="cpu")
-    tm = LlamaForCausalLM(LlamaConfig(**GQA), device="cpu")
+    """The fused projections are ported: a fused model holding the
+    unfused one's weights, concatenated along the output dimension
+    (``[q | k | v]``, ``[gate | up]``), gives its logits (float32, atol
+    1e-5: the same products, summed in one order). ``generate`` still
+    raises."""
+    plain = LlamaForCausalLM(LlamaConfig(**GQA), device="cpu")
+    fused = LlamaForCausalLM(LlamaConfig(**GQA, **{flag: True}),
+                             device="cpu")
+    own = dict(plain.named_parameters())
+    params = {}
+    for n, p in fused.named_parameters():
+        parts = {"qkv_proj": ("q_proj", "k_proj", "v_proj"),
+                 "gate_up_proj": ("gate_proj", "up_proj")}
+        key = next((k for k in parts if f".{k}." in n), None)
+        params[n] = (np.concatenate([own[n.replace(key, part)].detach()
+                                     .numpy() for part in parts[key]], -1)
+                     if key else own[n].detach().numpy())
+    load_reference_params(fused, params)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 96, (2, 24)))
+    with torch.no_grad():
+        np.testing.assert_allclose(fused(ids).numpy(), plain(ids).numpy(),
+                                   atol=1e-5, rtol=0)
     with pytest.raises(NotImplementedError, match="LLMEngine"):
-        tm.generate(torch.zeros(1, 3, dtype=torch.long))
+        fused.generate(torch.zeros(1, 3, dtype=torch.long))

@@ -26,7 +26,6 @@ from paddle_tpu.ops.kernels.fused_ce import fused_softmax_ce as jax_ce
 import paddle_tpu_torch.ops.kernels.flash_attention as tflash
 from paddle_tpu_torch.bridge import (load_reference_optimizer_state,
                                      load_reference_params)
-from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import functional as F
@@ -295,20 +294,28 @@ def test_optimizer_state_bridge_continues_the_reference_run():
 
 
 def test_refusals():
+    """What this port still refuses, each naming its ROADMAP item:
+    quantized KV pools (kernel B4), ``generate`` and sampling with
+    ``temperature > 0`` (A7)."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.models.llama import PagedKVCache
     tm = LlamaForCausalLM(LlamaConfig(**dict(GQA, dtype="bfloat16")),
                           device="cpu")
-    opt = AdamW(parameters=tm.parameters(), multi_precision=False)
-    with pytest.raises(NotImplementedError, match="accumulate_steps"):
-        TrainStep(tm, _loss_fn, opt, accumulate_steps=2)
-    step = TrainStep(tm, _loss_fn, opt)
-    ids, labels = _batch(96, S=8)
-    set_flags({"adamw_stochastic_rounding": True})
-    try:
-        with pytest.raises(NotImplementedError, match="B7"):
-            step(torch.from_numpy(ids), torch.from_numpy(labels))
-    finally:
-        set_flags({"FLAGS_adamw_stochastic_rounding": False})
-    rec = LlamaForCausalLM(LlamaConfig(**dict(GQA, use_recompute=True)),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="recompute"):
-        rec(torch.from_numpy(ids))
+    tm.eval()
+    ids, _ = _batch(96, B=1, S=8)
+    with pytest.raises(NotImplementedError, match="B4"):
+        LLMEngine(tm, cache_impl="paged", kv_cache_dtype="int8",
+                  device="cpu")
+    pool = torch.zeros(4, 2, 64, 16, dtype=torch.bfloat16)
+    cache = PagedKVCache(pool, pool.clone(),
+                         torch.zeros(1, 2, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), quant="int8")
+    with pytest.raises(NotImplementedError, match="B4"):
+        tm.llama.layers[0].self_attn(
+            torch.zeros(1, 1, 64, dtype=torch.bfloat16),
+            (tm.llama.rope_cos, tm.llama.rope_sin), kv_cache=cache)
+    with pytest.raises(NotImplementedError, match="generate"):
+        tm.generate(torch.from_numpy(ids))
+    eng = LLMEngine(tm, cache_impl="paged", max_seq_len=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="temperature"):
+        eng.add_request(ids[0], max_new_tokens=4, temperature=0.7)
