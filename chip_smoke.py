@@ -10,7 +10,11 @@ Phases:
                 with nvcc for sm_90a, all nvcc processes at once;
   (b) parity  — each kernel against its plain PyTorch version on the card,
                 bf16, at the main path's shapes plus edge cases (both
-                AdamW kernels with bf16 and float32 grads, bit for bit);
+                AdamW kernels with bf16 and float32 grads, bit for bit;
+                B4's decode and append forms on int8 and int4 pools with
+                payload and scales bit for bit outside the scratch block, a
+                dirty block whose stale rows must not reach its scale, and
+                an idle slot whose blocks must stay byte for byte);
   (c) forward — LlamaForCausalLM at Llama-2-7B widths (32 layers, bf16,
                 seeded random weights) on [2, 2048] ids: finite logits,
                 one flash launch per layer;
@@ -33,6 +37,22 @@ Phases:
                 mixed step_begin dispatched behind another mixed step its
                 host ms, the step's device ms and whether the step in
                 flight still ran when it returned (information);
+  (d'') quant — the same 12 requests served through AsyncLLMServer
+                (default depth) over LLMEngine(scheduler="fused") in three
+                arms at equal pool bytes, sized as the reference's
+                llama_serve_kv_quant: bf16 at half the full block demand
+                (128 blocks), int8 and int4 at that budget over their bytes
+                per block (capped at the full 256). Every request finishes
+                with its 64 tokens; a quantized arm launches only its B4
+                decode and append kernels (one per layer per step of each
+                kind), the bf16 arm only B2 and B3, and no arm reaches a
+                plain version; no step_begin on the server's thread makes a
+                synchronizing call; the pool invariants hold and the server
+                is healthy at the end; the bf16 arm passes the greedy check.
+                Per arm: tokens/s, preemptions, mean resident slots,
+                effective blocks, TTFT p50/p90, stage shares, median step
+                ms, launches, and each quantized arm's drift against bf16
+                (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work; then four decode steps of
@@ -108,10 +128,13 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
     fused_adamw_update_plain, sr_seed, tile_plan)
+from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention_append, paged_attention_append_plain,
-    paged_attention_decode, paged_attention_decode_plain)
+    kv_block_scale, kv_packed_dim, kv_quantize, paged_attention_append,
+    paged_attention_append_plain, paged_attention_decode,
+    paged_attention_decode_plain)
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
+from paddle_tpu_torch.serving import AsyncLLMServer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -130,9 +153,9 @@ DQ_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:229"
 ADAMW_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:40"
 ADAMW_SR_SRC = "paddle_tpu_torch/csrc/fused_adamw_sr.cu"
 ADAMW_SR_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:244"
-KERNELS = ["flash_attention_fwd", "paged_attention_decode",
-           "paged_attention_append", "flash_attention_bwd", "fused_adamw",
-           "fused_adamw_sr"]
+PAGED_Q_SRC = "paddle_tpu_torch/csrc/paged_attention_decode_quant.cu"
+QUANTS = ("int8", "int4")
+KERNELS = _build.KERNELS
 
 FLASH_TOL, LSE_TOL, PAGED_TOL, APPEND_TOL = 2e-2, 1e-2, 1e-2, 2e-2
 # flash backward: max |kernel - plain| over max |plain|, per gradient
@@ -338,6 +361,163 @@ def check_append(dev):
         emit(line)
         require(ok, f"append {name}: {line}")
         worst = max(worst, err)
+    return worst
+
+
+def quant_pool(rng, shape, quant, dev, dirty=None):
+    """An int8 payload pool and its float32 scales, made by quantizing
+    unit-normal blocks with the port's rule. ``dirty = (block, row)``: that
+    block's rows from ``row`` on are 100x larger, stale content past the
+    live end of a block the step writes."""
+    f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    if dirty is not None:
+        f[dirty[0], :, dirty[1]:] *= 100.0
+    sc = kv_block_scale(f, quant, (2, 3))
+    return kv_quantize(f, sc[..., None, None], quant), sc
+
+
+def pools_equal(got, want):
+    """Payload and scales bit-identical outside the scratch block."""
+    nb = got[0].shape[0]
+    return all(bool(torch.equal(g[:nb - 1], w[:nb - 1]))
+               for g, w in zip(got, want))
+
+
+def paged_quant_case(rng, dev, quant, Hkv, lens=PAGED_LENS,
+                     wiped=PAGED_WIPED, bs=64):
+    """paged_case's tables and bf16 rows with quantized pools; slot 2's new
+    token opens its block 1 (lens 64), whose stale rows past row 0 are
+    100x larger."""
+    c = paged_case(rng, dev, Hkv, lens, wiped)
+    NB, D = c["k"].shape[0], c["q"].shape[-1]
+    dirty = (int(c["tables"][2, lens[2] // bs].item()), lens[2] % bs + 1)
+    pools = [*quant_pool(rng, (NB, Hkv, bs, D), quant, dev, dirty),
+             *quant_pool(rng, (NB, Hkv, bs, D), quant, dev, dirty)]
+    c["pools"] = [pools[0], pools[2], pools[1], pools[3]]   # k, v, ks, vs
+    c["dirty_block"] = dirty[0]
+    return c
+
+
+def check_paged_quant(dev):
+    """B4-decode against its plain version, int8 and int4, at
+    check_paged's shapes (Hkv 32 and a GQA case, a wiped slot whose -1
+    target parks in scratch, a dirty block): payload and scales
+    bit-identical outside scratch, out within PAGED_TOL."""
+    rng = np.random.default_rng(12)
+    worst = {q: 0.0 for q in QUANTS}
+    for quant in QUANTS:
+        for Hkv in (32, 8):
+            c = paged_quant_case(rng, dev, quant, Hkv)
+            got = [t.clone() for t in c["pools"]]
+            want = [t.clone() for t in c["pools"]]
+            args = (c["tables"], c["lens"], c["nk"], c["nv"])
+            out, *_ = paged_attention_decode(
+                c["q"], got[0], got[1], *args, k_scale=got[2],
+                v_scale=got[3], quant=quant)
+            ref, *_ = paged_attention_decode_plain(
+                c["q"], want[0], want[1], *args, None, want[2], want[3],
+                quant)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            exact = pools_equal(got, want)
+            written = not torch.equal(got[0][:-1], c["pools"][0][:-1])
+            db = c["dirty_block"]
+            clean = bool((got[2][db] < 10 * c["pools"][2].median()).all())
+            emit({"phase": "parity", "kernel": f"paged_attention_decode_{quant}",
+                  "case": f"Hkv{Hkv}", "B": len(PAGED_LENS), "Hq": 32,
+                  "Hkv": Hkv, "D": 128, "block_size": 64,
+                  "payload_dim": kv_packed_dim(128, quant),
+                  "lens": PAGED_LENS, "wiped_rows": list(PAGED_WIPED),
+                  "max_abs_err": err, "tol": PAGED_TOL,
+                  "payload_and_scales_exact_except_scratch": exact,
+                  "blocks_written": written,
+                  "dirty_block_scale_from_live_rows": clean})
+            require(err <= PAGED_TOL, f"{quant} decode Hkv={Hkv}: err {err}")
+            require(exact and written and clean,
+                    f"{quant} decode Hkv={Hkv}: payload or scales differ")
+            worst[quant] = max(worst[quant], err)
+    return worst
+
+
+# (lens, q_lens) per slot for the quantized append: APPEND_SPECS, whose
+# idle slot (700, 0) keeps a live table here so its blocks can be checked
+# unchanged byte for byte
+APPEND_Q_IDLE = 7
+
+
+def append_quant_case(rng, dev, quant, Hkv, minus_one=None, bs=64):
+    """append_case's rows with quantized pools and a live table for the
+    idle slot; slot 2's window (512 + 37 rows) ends inside block 8 of its
+    table, whose rows from 37 on are stale and 100x larger."""
+    c = append_case(rng, dev, Hkv, minus_one=minus_one)
+    NB, D = c["k"].shape[0], c["q"].shape[-1]
+    L_idle = APPEND_SPECS[APPEND_Q_IDLE][0]
+    # the idle slot's blocks: appended to the pool, the scratch block
+    # moving to the new end
+    extra = L_idle // bs + 1
+    NB2 = NB + extra
+    tables = c["tables"].cpu().numpy()
+    tables[APPEND_Q_IDLE, :extra] = np.arange(NB - 1, NB - 1 + extra)
+    c["tables"] = torch.from_numpy(tables).to(dev)
+    L, q = APPEND_SPECS[2]
+    dirty = (int(tables[2, (L + q - 1) // bs]), (L + q) % bs)
+    pools = [*quant_pool(rng, (NB2, Hkv, bs, D), quant, dev, dirty),
+             *quant_pool(rng, (NB2, Hkv, bs, D), quant, dev, dirty)]
+    c["pools"] = [pools[0], pools[2], pools[1], pools[3]]
+    c["idle_blocks"] = [int(x) for x in tables[APPEND_Q_IDLE, :extra]]
+    c["dirty_block"] = dirty[0]
+    return c
+
+
+def check_append_quant(dev):
+    """B4-append against its plain version, int8 and int4, at
+    check_append's shapes (Hkv 32, GQA, a -1 window entry): payload and
+    scales bit-identical outside scratch, real rows within APPEND_TOL,
+    padding rows zero, the idle slot's blocks unchanged."""
+    rng = np.random.default_rng(13)
+    worst = {q: 0.0 for q in QUANTS}
+    for quant in QUANTS:
+        for name, Hkv, minus_one in (("Hkv32", 32, None), ("Hkv8", 8, None),
+                                     ("minus_one_target", 32,
+                                      APPEND_MINUS_ONE)):
+            c = append_quant_case(rng, dev, quant, Hkv, minus_one)
+            got = [t.clone() for t in c["pools"]]
+            want = [t.clone() for t in c["pools"]]
+            rows = (c["tables"], c["lens"], c["qlens"], c["nk"], c["nv"])
+            out, *_ = paged_attention_append(
+                c["q"], got[0], got[1], *rows, k_scale=got[2],
+                v_scale=got[3], quant=quant)
+            ref, *_ = paged_attention_append_plain(
+                c["q"], want[0], want[1], *rows, None, want[2], want[3],
+                quant)
+            torch.cuda.synchronize()
+            err, padding_zero = 0.0, True
+            for b, (_, n) in enumerate(APPEND_SPECS):
+                if n:
+                    err = max(err, (out[b, :n].float() - ref[b, :n].float())
+                              .abs().max().item())
+                padding_zero &= not bool(out[b, n:].any().item())
+            exact = pools_equal(got, want)
+            idle = c["idle_blocks"]
+            unchanged = all(bool(torch.equal(g[idle], o[idle]))
+                            for g, o in zip(got, c["pools"]))
+            db = c["dirty_block"]
+            clean = bool((got[2][db] < 10 * c["pools"][2].median()).all())
+            line = {"phase": "parity",
+                    "kernel": f"paged_attention_append_{quant}",
+                    "case": name, "B": len(APPEND_SPECS), "S": 256, "Hq": 32,
+                    "Hkv": Hkv, "D": 128, "block_size": 64,
+                    "payload_dim": kv_packed_dim(128, quant),
+                    "lens_qlens": APPEND_SPECS, "max_abs_err": err,
+                    "tol": APPEND_TOL,
+                    "payload_and_scales_exact_except_scratch": exact,
+                    "padding_rows_zero": padding_zero,
+                    "idle_slot_blocks_unchanged": unchanged,
+                    "dirty_block_scale_from_live_rows": clean}
+            emit(line)
+            require(err <= APPEND_TOL and exact and padding_zero and
+                    unchanged and clean, f"{quant} append {name}: {line}")
+            worst[quant] = max(worst[quant], err)
     return worst
 
 
@@ -1093,6 +1273,284 @@ def time_append(dev):
                 bytes=nbytes)
 
 
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def time_paged_quant(dev, quant):
+    """B4-decode at time_paged's shape (Hkv 32, PAGED_LENS, a wiped slot).
+    Bound bytes: the visible K/V rows as stored (int8, or packed int4) and
+    their blocks' scales, q, the new K/V rows (bf16) read once; out, and
+    each written last block's payload and scales, written once."""
+    c = paged_quant_case(np.random.default_rng(14), dev, quant, 32)
+    k, v, ks, vs = c["pools"]
+    args = (c["q"], k, v, c["tables"], c["lens"], c["nk"], c["nv"])
+    ms = cuda_ms(lambda: paged_attention_decode(*args, k_scale=ks,
+                                                v_scale=vs, quant=quant), 50)
+    plain_ms = cuda_ms(lambda: paged_attention_decode_plain(
+        *args, None, ks, vs, quant), 5)
+    B, Hq, D = c["q"].shape
+    Hkv, bs, Dp = k.shape[1], k.shape[2], k.shape[3]
+    live = [b for b in range(B) if c["need"][b]]
+    visible = sum(int(PAGED_LENS[b]) + 1 for b in live)
+    blocks = sum(int(PAGED_LENS[b]) // bs + 1 for b in live)
+    nbytes = (2 * visible * Hkv * Dp + 2 * 4 * blocks * Hkv          # K/V, scales
+              + 2 * B * Hq * D + 2 * 2 * B * Hkv * D                # q, new rows
+              + 2 * B * Hq * D                                      # out
+              + 2 * (B * Hkv * bs * Dp + 4 * B * Hkv))              # last blocks
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(4 * Hq * D * visible, nbytes),
+                shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, block_size=bs,
+                           payload_dim=Dp, lens=PAGED_LENS))
+
+
+def time_append_quant(dev, quant):
+    """B4-append at time_append's shape (Hkv 32, APPEND_SPECS). Bound
+    bytes: each live slot's cached history as stored plus its blocks'
+    scales, the chunk's new K/V (bf16) and q read once; out and the
+    window blocks' payload and scales written once."""
+    c = append_quant_case(np.random.default_rng(15), dev, quant, 32)
+    k, v, ks, vs = c["pools"]
+    args = (c["q"], k, v, c["tables"], c["lens"], c["qlens"], c["nk"],
+            c["nv"])
+    ms = cuda_ms(lambda: paged_attention_append(*args, k_scale=ks,
+                                                v_scale=vs, quant=quant), 50)
+    plain_ms = cuda_ms(lambda: paged_attention_append_plain(
+        *args, None, ks, vs, quant), 5)
+    B, S, Hq, D = c["q"].shape
+    Hkv, bs, Dp = k.shape[1], k.shape[2], k.shape[3]
+    live = [(L, q) for L, q in APPEND_SPECS if q]
+    real = sum(q for _, q in live)
+    history = sum(L for L, _ in live)
+    hist_blocks = sum(-(-L // bs) for L, _ in live)
+    window = sum((L + q - 1) // bs - L // bs + 1 for L, q in live)
+    pairs = sum(q * L + q * (q + 1) // 2 for L, q in live)
+    nbytes = (2 * history * Hkv * Dp + 2 * 4 * hist_blocks * Hkv
+              + 2 * 2 * real * Hkv * D + 2 * real * Hq * D          # new, q
+              + 2 * real * Hq * D                                   # out
+              + 2 * (window * Hkv * bs * Dp + 4 * window * Hkv))    # windows
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(4 * Hq * D * pairs, nbytes),
+                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=bs,
+                           payload_dim=Dp, lens_qlens=APPEND_SPECS),
+                real_rows=real, window_blocks=window)
+
+
+# ---------------------------------------------------------------------------
+# (d'') quantized KV served through AsyncLLMServer
+# ---------------------------------------------------------------------------
+
+SERVE_POOL_FRAC = 0.5       # the bf16 arm holds half the full block demand
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Count calls of the four plain paged versions for the duration: on
+    the card no part of the serving path may reach them."""
+    calls = collections.Counter()
+    names = ("paged_attention_decode_plain", "paged_attention_append_plain")
+    saved = {n: getattr(pa_mod, n) for n in names}
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return counted
+
+    for n, fn in saved.items():
+        setattr(pa_mod, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(pa_mod, n, fn)
+
+
+def kernel_counts():
+    return {"b2_decode": paged_attention_decode.launches,
+            "b3_append": paged_attention_append.launches,
+            **{f"b4_decode_{q}": paged_attention_decode.quant_launches[q]
+               for q in QUANTS},
+            **{f"b4_append_{q}": paged_attention_append.quant_launches[q]
+               for q in QUANTS}}
+
+
+def reset_kernel_counts():
+    paged_attention_decode.launches = 0
+    paged_attention_append.launches = 0
+    for q in QUANTS:
+        paged_attention_decode.quant_launches[q] = 0
+        paged_attention_append.quant_launches[q] = 0
+
+
+def drift(ref_toks, arm_toks):
+    """Greedy drift against the bf16 arm, per request, as the reference's
+    kv-quant bench reports it: the matching prefix length, and the first
+    divergent step over all requests (None: every stream equal)."""
+    prefixes, first_div = [], None
+    for ref, got in zip(ref_toks, arm_toks):
+        n = 0
+        for a, b in zip(ref, got):
+            if a != b:
+                break
+            n += 1
+        prefixes.append(n)
+        if (n < min(len(ref), len(got)) or len(ref) != len(got)) and \
+                (first_div is None or n < first_div):
+            first_div = n
+    return {"match_prefix": prefixes, "min_match_prefix": min(prefixes),
+            "mean_match_prefix": float(np.mean(prefixes)),
+            "first_divergence_step": first_div,
+            "token_parity": first_div is None}
+
+
+def serve_arm(model, dev, prompts, quant, n_blocks):
+    """One arm: the fused engine over ``n_blocks`` pool blocks of dtype
+    ``quant``, the 12 requests through AsyncLLMServer (default depth),
+    every step_begin under the sync watch on the engine thread."""
+    eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
+                            kv_cache_dtype=quant)
+    syncs, kinds, step_ms = [], {}, {"mixed": [], "decode": []}
+    clock = {"prev": None}
+    begin, finish = eng.step_begin, eng.step_finish
+
+    def watched_begin():
+        f0 = eng.stats["fused_steps"]
+        with sync_watch(syncs):
+            pending = begin()
+        if pending is not None and pending.toks is not None:
+            kinds[id(pending)] = ("mixed" if eng.stats["fused_steps"] > f0
+                                  else "decode")
+        return pending
+
+    def timed_finish(pending):
+        done = finish(pending)
+        now = time.perf_counter()
+        kind = kinds.pop(id(pending), None)
+        if kind is not None and clock["prev"] is not None:
+            step_ms[kind].append((now - clock["prev"]) * 1e3)
+        clock["prev"] = now
+        return done
+
+    eng.step_begin, eng.step_finish = watched_begin, timed_finish
+    server = AsyncLLMServer(eng, max_queue_size=len(prompts) + 1)
+    reset_kernel_counts()
+    with counting_plain() as plain_calls:
+        server.start()
+        t0 = clock["prev"] = time.perf_counter()
+        handles = [server.submit(p, max_new_tokens=64) for p in prompts]
+        outs, resident = [], []
+        for h in handles:
+            while True:
+                try:
+                    outs.append(h.result(timeout=0.05))
+                    break
+                except TimeoutError:
+                    require(time.perf_counter() - t0 < 600,
+                            f"{quant or 'bf16'} arm: no progress in 600 s")
+                    resident.append(sum(s is not None for s in eng.slots))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        health = server.health()
+        server.stop()
+    launches = kernel_counts()
+    snap = server.telemetry.snapshot(wall_s=wall)
+    L = model.config.num_hidden_layers
+    n_mixed = eng.stats["fused_steps"]
+    n_decode = eng.stats["steps"] - n_mixed
+    saved_debug = eng._debug_pool
+    eng._debug_pool = True
+    try:
+        eng._check_pool_invariants()
+        invariants = True
+    finally:
+        eng._debug_pool = saved_debug
+    n_tok = sum(len(o.token_ids) for o in outs)
+    arm = {"kv_cache_dtype": quant or "bf16", "pool_blocks": n_blocks,
+           "pool_bytes": eng.kv_pool_nbytes(),
+           "bytes_per_block": eng.kv_bytes_per_block(),
+           "effective_blocks": eng.kv_pool_effective_blocks(),
+           "pipeline_depth": server.pipeline_depth,
+           "requests": len(outs), "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "preemptions": eng.stats["preemptions"],
+           "mean_resident_slots": float(np.mean(resident)) if resident
+           else float(eng.B),
+           "mixed_steps": n_mixed, "all_decode_steps": n_decode,
+           "mixed_step_ms_median": float(np.median(step_ms["mixed"]))
+           if step_ms["mixed"] else None,
+           "decode_step_ms_median": float(np.median(step_ms["decode"]))
+           if step_ms["decode"] else None,
+           "ttft_p50_s": snap["latency"]["ttft"]["p50_s"],
+           "ttft_p90_s": snap["latency"]["ttft"]["p90_s"],
+           "stage_shares": snap["attribution"],
+           "launches": launches, "plain_calls": dict(plain_calls),
+           "finish_reasons": sorted({o.finish_reason for o in outs}),
+           "step_begin_syncs": len(syncs),
+           "step_begin_sync_messages": sorted(set(syncs))[:5],
+           "pool_invariants": invariants, "healthy_at_end": health["healthy"]}
+    require(all(o.finished and o.finish_reason == "length" and
+                len(o.token_ids) == 64 for o in outs) and len(outs) == 12,
+            f"{arm['kv_cache_dtype']} arm: a request did not finish with its "
+            f"64 tokens")
+    require(not syncs, f"{arm['kv_cache_dtype']} arm: step_begin made "
+            f"{len(syncs)} synchronizing calls")
+    require(health["healthy"], f"{arm['kv_cache_dtype']} arm: server "
+            f"{health['state']} at the end")
+    require(not plain_calls, f"{arm['kv_cache_dtype']} arm: plain versions "
+            f"ran on the card: {dict(plain_calls)}")
+    dec = "b2_decode" if quant is None else f"b4_decode_{quant}"
+    app = "b3_append" if quant is None else f"b4_append_{quant}"
+    require(launches[app] == n_mixed * L and launches[app] > 0 and
+            launches[dec] == n_decode * L and launches[dec] > 0,
+            f"{arm['kv_cache_dtype']} arm: launches {launches} against "
+            f"{n_mixed} mixed and {n_decode} all-decode steps x {L}")
+    require(all(n == 0 for k, n in launches.items() if k not in (dec, app)),
+            f"{arm['kv_cache_dtype']} arm: other paged kernels launched: "
+            f"{launches}")
+    del eng, server
+    torch.cuda.empty_cache()
+    return arm, [list(o.token_ids) for o in outs]
+
+
+def run_quant_serving(model, dev):
+    """The slice's path at full width and depth: the 12 requests through
+    AsyncLLMServer over the fused engine in three arms at equal pool bytes
+    (the reference's llama_serve_kv_quant sizing, bench.py:1236-1256): the
+    bf16 arm at half the full block demand, each quantized arm at
+    min(that budget // its bytes per block, the full demand)."""
+    prompts = serving_prompts(model.config.vocab_size)
+    probe = {q: make_fused_engine(model, dev, kv_pool_blocks=8 + 1,
+                                  kv_cache_dtype=q).kv_bytes_per_block()
+             for q in (None, *QUANTS)}
+    torch.cuda.empty_cache()
+    full = 8 * (2048 // 64)
+    budget = int(full * SERVE_POOL_FRAC) * probe[None]
+    arms, toks = {}, {}
+    for q in (None, *QUANTS):
+        n_blocks = min(budget // probe[q], full)
+        arms[q or "bf16"], toks[q or "bf16"] = serve_arm(model, dev, prompts,
+                                                         q, n_blocks)
+    checked, excused, mismatched = greedy_check(
+        model, dev, prompts,
+        [collections.namedtuple("Out", "token_ids")(t) for t in toks["bf16"]])
+    for q in QUANTS:
+        arms[q]["drift_vs_bf16"] = drift(toks["bf16"], toks[q])
+    emit({"phase": "quant_serving", "budget_bytes": budget,
+          "full_blocks": full, "bytes_per_block": {q or "bf16": b
+                                                  for q, b in probe.items()},
+          "arms": arms, "bf16_greedy_checked": checked,
+          "bf16_greedy_excused_near_ties": excused,
+          "bf16_greedy_mismatched": mismatched, "margin": MARGIN})
+    require(mismatched == 0, f"quant serving bf16 arm: {mismatched} greedy "
+            f"tokens disagree with the no-cache forward beyond {MARGIN}")
+    return {q: (arms[q]["launches"][f"b4_decode_{q}"],
+                arms[q]["launches"][f"b4_append_{q}"]) for q in QUANTS}
+
+
 # ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
@@ -1558,6 +2016,8 @@ def main():
     flash_err = check_flash(dev)
     paged_err = check_paged(dev)
     append_err = check_append(dev)
+    paged_q_err = check_paged_quant(dev)
+    append_q_err = check_append_quant(dev)
     bwd_err = check_flash_bwd(dev)
     adamw_err = check_adamw(dev)
     adamw_sr_err = check_adamw_sr(dev)
@@ -1571,10 +2031,16 @@ def main():
     append_launches, fused_decode_launches = run_fused_serving(
         model, dev, legacy_tokens)
     torch.cuda.empty_cache()
+    quant_launches = run_quant_serving(model, dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
+    qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
+          for q in QUANTS}
     emit({"phase": "timing", "flash_attention_fwd": ft,
-          "paged_attention_decode": pt, "paged_attention_append": at})
+          "paged_attention_decode": pt, "paged_attention_append": at,
+          **{f"paged_attention_decode_{q}": qt[q][0] for q in QUANTS},
+          **{f"paged_attention_append_{q}": qt[q][1] for q in QUANTS}})
     torch.cuda.empty_cache()
     emit({"phase": "decode_profile", "breakdown": profile_decode(model, dev)})
     torch.cuda.empty_cache()
@@ -1647,6 +2113,18 @@ def main():
          "plain_ms": srt["plain_ms"], "bound_ms": srt["bound_ms"],
          "bound_by": srt["bound_by"], "library_ms": srt["library_ms"]},
     ]
+    for q in QUANTS:
+        for form, src, replaces, err, t, n in (
+                ("decode", PAGED_Q_SRC, PAGED_REPLACES, paged_q_err[q],
+                 qt[q][0], quant_launches[q][0]),
+                ("append", APPEND_SRC, APPEND_REPLACES, append_q_err[q],
+                 qt[q][1], quant_launches[q][1])):
+            kernels.append(
+                {"name": f"paged_attention_{form}_{q}", "route": "cuda",
+                 "source": src, "replaces": replaces, "launches": n,
+                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

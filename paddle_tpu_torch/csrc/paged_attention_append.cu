@@ -1,39 +1,61 @@
-// Paged-attention append step for Hopper (sm_90a), bf16 pools, fp32 math.
+// Paged-attention append step for Hopper (sm_90a), fp32 math, over bf16
+// pools (kernel B3) or quantized int8/int4 pools (kernel B4, append form).
 //
 // Replaces: paddle_tpu/ops/kernels/paged_attention.py `_append_kernel`
 // (:662), the Pallas TPU kernel launched through `paged_attention_append`
-// (:784, pallas_call at :868), in its unquantized form with the fused
-// multi-block write. It is the attention of the fused scheduler's mixed
-// step: per sequence b, up to S new positions (q_lens[b] of them real)
-// attend the pooled history plus their own chunk prefix.
+// (:784, pallas_call at :868): its unquantized form with the fused
+// multi-block write, and its quant="int8"|"int4" form (:689-750). It is the
+// attention of the fused scheduler's mixed step: per sequence b, up to S
+// new positions (q_lens[b] of them real) attend the pooled history plus
+// their own chunk prefix.
 //
 // What it computes, for pools [NB, Hkv, bs, D], tables [B, MB] (-1 =
 // unallocated), lens [B] (tokens already cached) and q_lens [B]:
-// - row i < q_lens[b] writes its new K/V at position lens[b] + i into block
-//   tables[b, (lens[b] + i) / bs]; a -1 entry routes the write to the pool's
-//   last block (the engine's scratch block), a logical block >= MB drops;
-//   padding rows and q_lens == 0 slots write nothing;
+// - bf16 pools: row i < q_lens[b] writes its new K/V at position
+//   lens[b] + i into block tables[b, (lens[b] + i) / bs]; a -1 entry routes
+//   the write to the pool's last block (the engine's scratch block), a
+//   logical block >= MB drops; padding rows and q_lens == 0 slots write
+//   nothing;
+// - quantized pools (payload [NB, Hkv, bs, Dp], int8: Dp = D, int4:
+//   Dp = D / 2 in split-half nibbles; scales [NB, Hkv]): every window block
+//   w0 <= j <= j_last of a sequence with q_lens > 0 (w0 = min(lens / bs,
+//   MB - 1), j_last = min((lens + q_lens - 1) / bs, MB - 1)) is rewritten
+//   under the quantized write rule (csrc/kv_quant.cuh): the chunk rows that
+//   land in it merged, its rows at or past lens + q_lens zeroed, older rows
+//   re-rounded under the new absmax scale; payload and scale are stored at
+//   tables[b, j], or in the scratch block for a -1 entry. A q_lens == 0
+//   slot writes nothing;
 // - row i attends positions <= lens[b] + i of blocks
-//   0 .. (lens[b] + q_lens[b] - 1) / bs, skipping -1 entries; fp32 online
-//   softmax, P rounded to bf16 before P@V as the reference rounds it,
-//   out = acc / max(l, 1e-30). Padding rows (i >= q_lens) and idle slots
-//   get zeros.
+//   0 .. (lens[b] + q_lens[b] - 1) / bs, skipping -1 entries (quantized:
+//   each key dequantized with its block's scales, the window blocks read
+//   from their round-tripped values, since the write pass runs first);
+//   fp32 online softmax, out = acc / max(l, 1e-30). P is rounded to bf16
+//   before P@V as the reference rounds it for bf16 pools; for quantized
+//   pools the rounded factor is P * (the key's V scale), where the
+//   reference keeps float32 (the one rounding this kernel adds to the
+//   reference's math). Padding rows (i >= q_lens) and idle slots get zeros.
 //
 // Bound on the H100: bytes. At the smoke's parity shape (B=8, S=256,
 // Hq=Hkv=32, D=128, block 64, 808 real rows over lens up to 1999) the
-// function reads ~62 MB of cached K/V (3,762 positions), ~13 MB of new K/V
-// and ~6.6 MB of q, and writes ~13 MB of K/V and ~6.6 MB of out: ~101 MB,
-// ~0.030 ms at 3.35 TB/s, against ~6.7 GFLOP of products over 408,208
-// visible (query, key) pairs, ~0.007 ms at 989 TFLOP/s. So K/V must be
-// read from device memory about once per (sequence, kv head) and the
-// products must not be the limit: they run on the tensor cores. The two
-// passes below read the new K/V a second time, out of the pool (~13 MB
-// more): that is this design's cost, not the function's.
+// bf16 function reads ~62 MB of cached K/V (3,762 positions), ~13 MB of new
+// K/V and ~6.6 MB of q, and writes ~13 MB of K/V and ~6.6 MB of out:
+// ~101 MB, ~0.030 ms at 3.35 TB/s, against ~6.7 GFLOP of products over
+// 408,208 visible (query, key) pairs, ~0.007 ms at 989 TFLOP/s. So K/V
+// must be read from device memory about once per (sequence, kv head) and
+// the products must not be the limit: they run on the tensor cores.
+// Quantized pools move half the cached bytes (a quarter for int4) plus one
+// scale per block. The two passes below read the new K/V a second time,
+// out of the pool: that is this design's cost, not the function's.
 //
 // Design (simple first; no TMA or wgmma yet), two launches on one stream so
 // that no CTA races another CTA's write:
-// - write pass: one CTA per (b, row i) copies the row's Hkv x D new K and V
-//   values with 16-byte loads and stores into their block slots;
+// - write pass, bf16: one CTA per (b, row i) copies the row's Hkv x D new
+//   K and V values with 16-byte loads and stores into their block slots;
+// - write pass, quantized: one CTA per (window block, kv head, sequence)
+//   loads the block's stored K payload into shared memory, requantizes it
+//   there with the chunk rows merged (kv_requant_block), stores payload and
+//   scale, then does the same for V. The CTA owns its block, so no other
+//   CTA races its write;
 // - attention pass: one CTA = 4 warps per (b, kv head, 64-row query tile).
 //   The tile runs over the G*S rows of the head group ordered
 //   position-major (row r = i * G + g), so a tile holds 64 / G chunk
@@ -42,65 +64,32 @@
 //   walks 64-position K/V tiles up to lens + (its last real row), skipping
 //   tiles whose blocks are all -1, staged through shared memory with
 //   double-buffered 16-byte cp.async (tile t+1 in flight while tile t is
-//   used). S = Q K^T and O += P V run on mma.sync.m16n8k16 bf16 -> fp32
-//   with q held as A fragments in registers, the S accumulator reused as
-//   P's A fragment, m and l in fp32 registers per row (the flash-forward
-//   kernel's inner loop). Rows past a sequence's window are zero-filled in
-//   shared memory and masked.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//   used): pool rows as they are stored, bf16 or payload bytes. S = Q K^T
+//   and O += P V run on mma.sync.m16n8k16 bf16 -> fp32 with q held as A
+//   fragments in registers, the S accumulator reused as P's A fragment, m
+//   and l in fp32 registers per row (the flash-forward kernel's inner
+//   loop). Rows past a sequence's window are zero-filled in shared memory
+//   and masked. Quantized tiles are first unpacked in shared memory into
+//   bf16 tiles of their grid values, which bf16 holds exactly (|grid| <=
+//   127): the key's K scale multiplies its column of S in fp32, and its V
+//   scale multiplies its column of P before P is rounded, so no
+//   dequantized value is rounded.
 #include <math.h>
-#include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_common.cuh"
+#include "kv_quant.cuh"
+#include "paged_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per CTA (4 warps x 16)
-constexpr int BK = 64;       // key positions per K/V tile
-constexpr int NTHREADS = 128;
-constexpr int PAD = 8;       // bf16 elements of padding per shared row
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int MAXBS = 128;   // block size
+constexpr int PADB = 16;     // bytes of padding per shared row
+constexpr int BF16 = 16;     // the BITS of a bf16 pool
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  uint16_t l = *reinterpret_cast<uint16_t*>(&lo);
-  uint16_t h = *reinterpret_cast<uint16_t*>(&hi);
-  return (uint32_t)l | ((uint32_t)h << 16);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ---- write pass: one CTA per (row i, sequence b) ---------------------------
+// ---- write pass, bf16: one CTA per (row i, sequence b) ---------------------
 __global__ void __launch_bounds__(NTHREADS)
 append_write_kernel(__nv_bfloat16* k_pool, __nv_bfloat16* v_pool,
                     const int* __restrict__ tables,
@@ -131,24 +120,104 @@ append_write_kernel(__nv_bfloat16* k_pool, __nv_bfloat16* v_pool,
   }
 }
 
+// ---- write pass, quantized: one CTA per (window block, kv head, sequence) --
+template <int BITS>
+__global__ void __launch_bounds__(NTHREADS)
+append_quant_write_kernel(uint8_t* k_pool, uint8_t* v_pool, float* k_scale,
+                          float* v_scale, const int* __restrict__ tables,
+                          const int* __restrict__ lens,
+                          const int* __restrict__ qlens,
+                          const __nv_bfloat16* __restrict__ new_k,
+                          long long nk_b, long long nk_s,
+                          const __nv_bfloat16* __restrict__ new_v,
+                          long long nv_b, long long nv_s, int Hkv, int D,
+                          int bs, int MB, int NB) {
+  __shared__ __align__(16) uint8_t buf[MAXBS * (128 + PADB)];
+  __shared__ float red_s[NWARPS];
+  const int w = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int QL = qlens[b];
+  if (QL <= 0) return;                       // idle slot: writes nothing
+  const int L = lens[b];
+  const int w0 = min(L / bs, MB - 1);
+  const int j_last = min((L + QL - 1) / bs, MB - 1);
+  const int j = w0 + w;
+  if (j > j_last) return;
+  const int phys = tables[(long)b * MB + j];
+  const int src = max(phys, 0);              // -1: block 0's content ...
+  const int tgt = phys < 0 ? NB - 1 : phys;  // ... parked in scratch
+  const int Dp = D / kv_pack_factor<BITS>();
+  const int ld = Dp + PADB;
+  const int ch = Dp / 16;
+  const int first = j * bs - L;              // chunk index of block row 0
+  const int live_end = L + QL - j * bs;      // rows >= this are zeroed
+  const long sbase = ((long)src * Hkv + kvh) * bs * Dp;
+  const long obase = ((long)tgt * Hkv + kvh) * bs * Dp;
+  for (int pass = 0; pass < 2; ++pass) {
+    uint8_t* pool = pass ? v_pool : k_pool;
+    float* scales = pass ? v_scale : k_scale;
+    const __nv_bfloat16* nw = pass ? new_v : new_k;
+    const long nb_ = pass ? nv_b : nk_b, ns_ = pass ? nv_s : nk_s;
+    for (int i = threadIdx.x; i < bs * ch; i += NTHREADS) {
+      const int r = i / ch, c = (i % ch) * 16;
+      *reinterpret_cast<uint4*>(buf + r * ld + c) =
+          *reinterpret_cast<const uint4*>(pool + sbase + (long)r * Dp + c);
+    }
+    const float s_old = scales[(long)src * Hkv + kvh];
+    __syncthreads();
+    const float s_new = kv_requant_block<BITS, NTHREADS>(
+        buf, ld, s_old, bs, Dp, live_end,
+        [&](int r) -> const __nv_bfloat16* {
+          const int ci = first + r;
+          return (ci >= 0 && ci < QL)
+                     ? nw + (long)b * nb_ + (long)ci * ns_ + (long)kvh * D
+                     : nullptr;
+        },
+        red_s);
+    for (int i = threadIdx.x; i < bs * ch; i += NTHREADS) {
+      const int r = i / ch, c = (i % ch) * 16;
+      *reinterpret_cast<uint4*>(pool + obase + (long)r * Dp + c) =
+          *reinterpret_cast<const uint4*>(buf + r * ld + c);
+    }
+    if (threadIdx.x == 0) scales[(long)tgt * Hkv + kvh] = s_new;
+    __syncthreads();   // buf is reloaded by the next pass
+  }
+}
+
 // ---- attention pass: one CTA per (64-row tile, kv head, sequence) ----------
-template <int D>
+// BITS: 16 (bf16 pools), 8 or 4 (quantized pools, with their scales); a pool
+// holds elements of PoolT: bf16, or payload bytes
+template <int BITS>
+using PoolT = std::conditional_t<BITS == BF16, __nv_bfloat16, uint8_t>;
+
+template <int D, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
 append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
-                   long long q_s, const __nv_bfloat16* __restrict__ k_pool,
-                   const __nv_bfloat16* __restrict__ v_pool,
+                   long long q_s, const PoolT<BITS>* __restrict__ k_pool,
+                   const PoolT<BITS>* __restrict__ v_pool,
                    const int* __restrict__ tables,
                    const int* __restrict__ lens,
                    const int* __restrict__ qlens,
                    __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
-                   int bs, int MB, float scale_log2) {
-  constexpr int LD = D + PAD;
+                   int bs, int MB, float scale_log2,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale) {
+  using T = PoolT<BITS>;
+  constexpr bool QUANT = BITS != BF16;
+  constexpr int LD = D + PAD;       // shared row stride of a bf16 tile
+  constexpr int RE = D * BITS / 8 / (int)sizeof(T);  // elements of a pool row
+  constexpr int LDP = RE + PADB / (int)sizeof(T);    // ... of a staged row
+  constexpr int CE = 16 / (int)sizeof(T);            // ... of a 16-byte chunk
   constexpr int KD = D / 16;   // k-steps over the head dim
   constexpr int ND = D / 8;    // n8 tiles of the output row
   constexpr int NS = BK / 8;   // n8 tiles of one score tile
-  constexpr int CH = D / 8;    // 16-byte chunks per row
-  extern __shared__ __align__(16) __nv_bfloat16 kv_s[];  // [2][K, V][BK][LD]
+  constexpr int CH = RE / CE;  // 16-byte chunks per pool row
+  constexpr int CHO = D / 8;   // 16-byte chunks per output row
+  // [2][K, V][BK][LDP] pool elements as stored (bf16 pools: the tiles the
+  // products read); quantized pools: then [K, V][BK][LD] bf16 grid tiles
+  extern __shared__ __align__(16) __nv_bfloat16 kv_s[];
   __shared__ int ok_s[2][BK];
+  // quantized: [stage][K, V][key] its block's K scale * scale_log2, V scale
+  __shared__ float sc_s[2][2][QUANT ? BK : 1];
 
   const int G = Hq / Hkv;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -161,8 +230,8 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
 
   if (r0 / G >= QL) {
     // every row of the tile is padding (or the slot is idle): zeros
-    for (int c = threadIdx.x; c < (r_end - r0) * CH; c += NTHREADS) {
-      const int r = r0 + c / CH, d = (c % CH) * 8;
+    for (int c = threadIdx.x; c < (r_end - r0) * CHO; c += NTHREADS) {
+      const int r = r0 + c / CHO, d = (c % CHO) * 8;
       const int i = r / G, gg = r % G;
       *reinterpret_cast<uint4*>(
           out + (((long)b * S + i) * Hq + kvh * G + gg) * D + d) =
@@ -176,7 +245,8 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
   const int j_last = min((L + QL - 1) / bs, MB - 1);
   const int n_kt = (n_pos + BK - 1) / BK;
   const int* trow = tables + (long)b * MB;
-  const long stage = (long)2 * BK * LD;      // elements of one stage
+  // bf16 elements of one stage
+  const long stage = (long)2 * BK * LDP * (int)sizeof(T) / 2;
 
   // does K/V tile kt touch a live block?
   auto tile_live = [&](int kt) {
@@ -192,29 +262,54 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
   };
   // stage K/V tile kt into buffer st; dead rows are zero-filled
   auto issue = [&](int kt, int st) {
-    __nv_bfloat16* ks = kv_s + st * stage;
-    __nv_bfloat16* vs = ks + (long)BK * LD;
+    T* ks = reinterpret_cast<T*>(kv_s + st * stage);
+    T* vs = ks + (long)BK * LDP;
     if (threadIdx.x < BK) {
       const int pos = kt * BK + threadIdx.x;
       const int j = pos / bs;
-      ok_s[st][threadIdx.x] =
-          (pos < n_pos && j <= j_last && trow[j] >= 0) ? 1 : 0;
+      const bool live = pos < n_pos && j <= j_last && trow[j] >= 0;
+      ok_s[st][threadIdx.x] = live ? 1 : 0;
+      if constexpr (QUANT) {
+        sc_s[st][0][threadIdx.x] =
+            live ? k_scale[(long)trow[j] * Hkv + kvh] * scale_log2 : 0.f;
+        sc_s[st][1][threadIdx.x] =
+            live ? v_scale[(long)trow[j] * Hkv + kvh] : 0.f;
+      }
     }
     for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {
-      const int r = c / CH, d = (c % CH) * 8;
+      const int r = c / CH, d = (c % CH) * CE;
       const int pos = kt * BK + r;
       const int j = pos / bs;
       const int phys = (pos < n_pos && j <= j_last) ? trow[j] : -1;
       if (phys >= 0) {
-        const long src = (((long)phys * Hkv + kvh) * bs + (pos - j * bs)) * D + d;
-        cp_async16(ks + r * LD + d, k_pool + src);
-        cp_async16(vs + r * LD + d, v_pool + src);
+        const long src =
+            (((long)phys * Hkv + kvh) * bs + (pos - j * bs)) * RE + d;
+        cp_async16(ks + r * LDP + d, k_pool + src);
+        cp_async16(vs + r * LDP + d, v_pool + src);
       } else {
-        *reinterpret_cast<uint4*>(ks + r * LD + d) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(vs + r * LD + d) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(ks + r * LDP + d) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vs + r * LDP + d) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
     cp_async_commit();
+  };
+  // quantized: unpack buffer st's payload into the bf16 grid tiles, which
+  // follow the two stages
+  auto unpack = [&](int st) {
+    const uint8_t* kq = reinterpret_cast<const uint8_t*>(kv_s + st * stage);
+    const uint8_t* vq = kq + (long)BK * LDP;
+    __nv_bfloat16* kg = kv_s + 2 * stage;
+    __nv_bfloat16* vg = kg + BK * LD;
+    for (int c = threadIdx.x; c < BK * RE; c += NTHREADS) {
+      const int r = c / RE, col = c % RE;
+      const uint8_t kb = kq[r * LDP + col], vb = vq[r * LDP + col];
+#pragma unroll
+      for (int h = 0; h < kv_pack_factor<BITS>(); ++h) {
+        const int d = col + h * RE;
+        kg[r * LD + d] = __float2bfloat16_rn(kv_grid<BITS>(kb, h));
+        vg[r * LD + d] = __float2bfloat16_rn(kv_grid<BITS>(vb, h));
+      }
+    }
   };
 
   int kt = tile_live(0) ? 0 : next_tile(0);
@@ -260,8 +355,13 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();   // tile kt resident, its ok flags written
+    __syncthreads();   // tile kt resident, its ok flags (and scales) written
     const __nv_bfloat16* Ks = kv_s + st * stage;
+    if constexpr (QUANT) {
+      unpack(st);
+      __syncthreads();   // the grid tiles are written
+      Ks = kv_s + 2 * stage;
+    }
     const __nv_bfloat16* Vs = Ks + (long)BK * LD;
     const int k0 = kt * BK;
 
@@ -287,7 +387,10 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + t * 2 + (e & 1);
         const bool ok = ok_s[st][col] && (k0 + col) <= lim[e >> 1];
-        s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
+        if constexpr (QUANT)   // the key's K scale too
+          s[n][e] = ok ? s[n][e] * sc_s[st][0][col] : -INFINITY;
+        else
+          s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     }
@@ -314,6 +417,15 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
+    if constexpr (QUANT) {
+      // P's column of each key takes that key's V scale (after l summed P)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float* vsc = &sc_s[st][1][n * 8 + t * 2];
+        s[n][0] *= vsc[0]; s[n][1] *= vsc[1];
+        s[n][2] *= vsc[0]; s[n][3] *= vsc[1];
+      }
+    }
 
     // O += P V: the score accumulators of n-tiles 2j, 2j+1 are exactly
     // the A fragment of P's 16-key slice j
@@ -333,7 +445,7 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
         mma16816(o[n], pa, bv);
       }
     }
-    __syncthreads();   // buffer st is refilled by the next iteration's issue
+    __syncthreads();   // buffer st (and the grid tiles) are rewritten next
     kt = kn;
     st ^= 1;
   }
@@ -358,25 +470,81 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
   }
 }
 
-template <int D>
+template <int D, int BITS>
 int launch_attn(dim3 grid, cudaStream_t s, const __nv_bfloat16* q,
-                long long q_b, long long q_s, const __nv_bfloat16* k_pool,
-                const __nv_bfloat16* v_pool, const int* tables,
-                const int* lens, const int* qlens, __nv_bfloat16* out, int S,
-                int Hq, int Hkv, int bs, int MB, float scale_log2) {
-  const int smem = 2 * 2 * BK * (D + PAD) * (int)sizeof(__nv_bfloat16);
+                long long q_b, long long q_s, const void* k_pool,
+                const void* v_pool, const float* k_scale,
+                const float* v_scale, const int* tables, const int* lens,
+                const int* qlens, __nv_bfloat16* out, int S, int Hq, int Hkv,
+                int bs, int MB, float scale_log2) {
+  const int smem = 2 * 2 * BK * (D * BITS / 8 + PADB) +  // 2 stages, K and V
+                   (BITS == BF16 ? 0
+                                 : 2 * BK * (D + PAD) *
+                                       (int)sizeof(__nv_bfloat16));
   static int smem_allowed = 0;   // the opt-in above 48 KB, set once per size
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        append_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        append_attn_kernel<D, BITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_allowed = smem;
   }
-  append_attn_kernel<D><<<grid, NTHREADS, smem, s>>>(
-      q, q_b, q_s, k_pool, v_pool, tables, lens, qlens, out, S, Hq, Hkv, bs,
-      MB, scale_log2);
+  append_attn_kernel<D, BITS><<<grid, NTHREADS, smem, s>>>(
+      q, q_b, q_s, static_cast<const PoolT<BITS>*>(k_pool),
+      static_cast<const PoolT<BITS>*>(v_pool), tables, lens, qlens, out, S,
+      Hq, Hkv, bs, MB, scale_log2, k_scale, v_scale);
   return (int)cudaGetLastError();
+}
+
+// Both passes for pools of BITS (16: bf16, no scales; 8 or 4: quantized).
+template <int BITS>
+int dispatch(const void* q, long long q_b, long long q_s, void* k_pool,
+             void* v_pool, void* k_scale, void* v_scale, const void* tables,
+             const void* lens, const void* qlens, const void* new_k,
+             long long nk_b, long long nk_s, const void* new_v, long long nv_b,
+             long long nv_s, void* out, int B, int S, int Hq, int Hkv, int D,
+             int bs, int MB, int NB, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || bs <= 0 || bs > MAXBS ||
+      MB <= 0 || NB <= 0 || B > 65535 || Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  auto* ksp = static_cast<float*>(k_scale);
+  auto* vsp = static_cast<float*>(v_scale);
+  const auto* tp = static_cast<const int*>(tables);
+  const auto* lp = static_cast<const int*>(lens);
+  const auto* qlp = static_cast<const int*>(qlens);
+  const auto* nkp = static_cast<const __nv_bfloat16*>(new_k);
+  const auto* nvp = static_cast<const __nv_bfloat16*>(new_v);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+
+  if constexpr (BITS == BF16) {
+    append_write_kernel<<<dim3(S, B), NTHREADS, 0, s>>>(
+        static_cast<__nv_bfloat16*>(k_pool),
+        static_cast<__nv_bfloat16*>(v_pool), tp, lp, qlp, nkp, nk_b, nk_s,
+        nvp, nv_b, nv_s, Hkv, D, bs, MB, NB);
+  } else {
+    // a window covers at most ceil(S / bs) + 1 blocks
+    const int NW = (S + bs - 1) / bs + 1;
+    append_quant_write_kernel<BITS><<<dim3(NW, Hkv, B), NTHREADS, 0, s>>>(
+        static_cast<uint8_t*>(k_pool), static_cast<uint8_t*>(v_pool), ksp,
+        vsp, tp, lp, qlp, nkp, nk_b, nk_s, nvp, nv_b, nv_s, Hkv, D, bs, MB,
+        NB);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int G = Hq / Hkv;
+  const dim3 grid((S * G + BQ - 1) / BQ, Hkv, B);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (D == 128)
+    return launch_attn<128, BITS>(grid, s, qp, q_b, q_s, k_pool, v_pool, ksp,
+                                  vsp, tp, lp, qlp, op, S, Hq, Hkv, bs, MB,
+                                  scale_log2);
+  return launch_attn<64, BITS>(grid, s, qp, q_b, q_s, k_pool, v_pool, ksp,
+                               vsp, tp, lp, qlp, op, S, Hq, Hkv, bs, MB,
+                               scale_log2);
 }
 
 }  // namespace
@@ -387,36 +555,28 @@ extern "C" int pt_paged_attention_append_bf16(
     const void* new_k, long long nk_b, long long nk_s, const void* new_v,
     long long nv_b, long long nv_s, void* out, int B, int S, int Hq, int Hkv,
     int D, int bs, int MB, int NB, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || bs <= 0 || bs > 128 ||
-      MB <= 0 || NB <= 0 || B > 65535 || Hkv > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  auto* kp = static_cast<__nv_bfloat16*>(k_pool);
-  auto* vp = static_cast<__nv_bfloat16*>(v_pool);
-  const auto* tp = static_cast<const int*>(tables);
-  const auto* lp = static_cast<const int*>(lens);
-  const auto* qlp = static_cast<const int*>(qlens);
-  const auto* nkp = static_cast<const __nv_bfloat16*>(new_k);
-  const auto* nvp = static_cast<const __nv_bfloat16*>(new_v);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-
-  append_write_kernel<<<dim3(S, B), NTHREADS, 0, s>>>(
-      kp, vp, tp, lp, qlp, nkp, nk_b, nk_s, nvp, nv_b, nv_s, Hkv, D, bs, MB,
-      NB);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int G = Hq / Hkv;
-  const dim3 grid((S * G + BQ - 1) / BQ, Hkv, B);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  if (D == 128)
-    return launch_attn<128>(grid, s, qp, q_b, q_s, kp, vp, tp, lp, qlp, op, S,
-                            Hq, Hkv, bs, MB, scale_log2);
-  return launch_attn<64>(grid, s, qp, q_b, q_s, kp, vp, tp, lp, qlp, op, S,
-                         Hq, Hkv, bs, MB, scale_log2);
+  return dispatch<BF16>(q, q_b, q_s, k_pool, v_pool, nullptr, nullptr, tables,
+                        lens, qlens, new_k, nk_b, nk_s, new_v, nv_b, nv_s,
+                        out, B, S, Hq, Hkv, D, bs, MB, NB, scale, stream);
 }
+
+#define PT_ENTRY(NAME, BITS)                                                  \
+  extern "C" int NAME(const void* q, long long q_b, long long q_s,            \
+                      void* k_pool, void* v_pool, void* k_scale,              \
+                      void* v_scale, const void* tables, const void* lens,    \
+                      const void* qlens, const void* new_k, long long nk_b,   \
+                      long long nk_s, const void* new_v, long long nv_b,      \
+                      long long nv_s, void* out, int B, int S, int Hq,        \
+                      int Hkv, int D, int bs, int MB, int NB, float scale,    \
+                      void* stream) {                                         \
+    return dispatch<BITS>(q, q_b, q_s, k_pool, v_pool, k_scale, v_scale,      \
+                          tables, lens, qlens, new_k, nk_b, nk_s, new_v,      \
+                          nv_b, nv_s, out, B, S, Hq, Hkv, D, bs, MB, NB,      \
+                          scale, stream);                                     \
+  }
+PT_ENTRY(pt_paged_attention_append_int8, 8)
+PT_ENTRY(pt_paged_attention_append_int4, 4)
+#undef PT_ENTRY
 
 extern "C" const char* pt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

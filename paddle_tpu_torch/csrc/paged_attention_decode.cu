@@ -37,34 +37,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "paged_common.cuh"
+
 namespace {
 
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAXBS = 128;  // block size
 constexpr int PAD = 8;      // bf16 elements of padding per shared row
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// First live block index (tables entry >= 0) in (j, j_last], or -1.
-__device__ __forceinline__ int next_live(const int* row, int j, int j_last) {
-  for (int n = j + 1; n <= j_last; ++n)
-    if (row[n] >= 0) return n;
-  return -1;
-}
 
 // D: head dim; G: query heads per kv head (compile-time, so the per-head
 // accumulators stay in registers)

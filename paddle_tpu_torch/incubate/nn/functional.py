@@ -1,12 +1,64 @@
 """Counterpart: ``paddle_tpu/incubate/nn/functional/__init__.py``
-``block_multihead_attention`` (``:592-751``) and its append form
-``_block_mha_append`` (``:771-878``), unquantized."""
+``block_multihead_attention`` (``:592-751``), its append form
+``_block_mha_append`` (``:771-878``), and the quantized-pool rules
+``_kv_quant_scatter`` (``:546``), ``_kv_quant_gather`` (``:583``) and
+``_quant_head_dim`` (``:754``)."""
 from __future__ import annotations
 
 import torch
 
-from ...ops.kernels.paged_attention import (paged_attention_append,
+from ...ops.kernels.paged_attention import (kv_block_scale, kv_dequantize,
+                                            kv_quantize,
+                                            paged_attention_append,
                                             paged_attention_decode)
+
+
+def _kv_quant_scatter(pool, scales, wblk, slot, rows, quant, D, end_rows):
+    """Merge new rows into a QUANTIZED block pool, IN PLACE: every block
+    written dequantizes, takes its new rows, zeroes its rows at or past
+    ``end_rows`` (stale content of a reused block must not inflate the
+    scale), recomputes its per-(block, head) absmax scale and requantizes;
+    every untouched block keeps its exact payload and scale. ``wblk``,
+    ``slot``, ``rows [N, Hkv, D]`` and ``end_rows`` are flat write
+    coordinates; ``wblk == pool.shape[0]`` drops the row (the decode
+    form's -1-table contract); ``end_rows[i]`` is the live row COUNT of
+    block ``wblk[i]`` after the write (equal for all rows of a block).
+    Returns ``(pool, scales)``."""
+    nb, _, bs, _ = pool.shape
+    keep = wblk < nb
+    wblk, slot, rows, end_rows = (x[keep] for x in (wblk, slot, rows,
+                                                    end_rows))
+    blocks, where = torch.unique(wblk, return_inverse=True)
+    pf = kv_dequantize(pool[blocks], scales[blocks], quant, D)
+    pf[where, :, slot] = rows.float()
+    live_end = torch.zeros_like(blocks)
+    live_end[where] = end_rows.to(live_end.dtype)
+    dead = torch.arange(bs, device=pool.device)[None, :] >= live_end[:, None]
+    pf = torch.where(dead[:, None, :, None], torch.zeros_like(pf), pf)
+    s_new = kv_block_scale(pf, quant, (2, 3))                # [U, Hkv]
+    pool[blocks] = kv_quantize(pf, s_new[..., None, None], quant)
+    scales[blocks] = s_new
+    return pool, scales
+
+
+def _kv_quant_gather(pool, scales, safe_tables, quant, D):
+    """Per-sequence logical KV off a QUANTIZED pool: the table's blocks
+    dequantized with their scales, float32 ``[B, MB, Hkv, bs, D]``."""
+    return kv_dequantize(pool[safe_tables], scales[safe_tables], quant, D)
+
+
+def _quant_head_dim(qkv_width, Hkv, Dp, quant):
+    """Head dim of a quantized-pool call from the qkv row width and the
+    packed pool head dim ``Dp``: D = Dp for int8; 2*Dp for int4, or
+    2*Dp - 1 when only that divides the width into a whole GQA head
+    count."""
+    if quant == "int8":
+        return Dp
+    D = 2 * Dp
+    if qkv_width % D == 0 and (qkv_width // D - 2 * Hkv) > 0 \
+            and (qkv_width // D - 2 * Hkv) % Hkv == 0:
+        return D
+    return D - 1
 
 
 def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
@@ -33,17 +85,27 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
     outputs are ignored. Returns ``(out [B, S, Hq*D], key_cache,
     value_cache)``.
 
-    The pools are updated IN PLACE and returned for the reference's call
-    shape. CUDA tensors run the paged-decode or paged-append kernel, CPU
-    tensors their plain versions. Quantized pools are not in this port yet
-    (ROADMAP B4)."""
+    Quantized pools (``cache_quant_type="int8"|"int4"``, int8 payload
+    ``[num_blocks, Hkv, block_size, kv_packed_dim(D)]`` with float32
+    ``cache_k_quant_scales``/``cache_v_quant_scales [num_blocks, Hkv]``):
+    blocks dequantize on read, every written block is requantized under a
+    fresh absmax scale, and the return grows the scale arrays:
+    ``(out, key_cache, value_cache, k_scales, v_scales)``.
+
+    The pools (and scales) are updated IN PLACE and returned for the
+    reference's call shape. CUDA tensors run the paged kernels (B2/B3, or
+    B4 on quantized pools), CPU tensors their plain versions."""
     if block_tables is None:
         raise ValueError("block_mha requires block_tables")
-    if cache_quant_type or cache_k_quant_scales is not None or \
-            cache_v_quant_scales is not None:
-        raise NotImplementedError(
-            "quantized KV pools (int8/int4) are not ported yet: ROADMAP B4")
-    _, Hkv, _, D = key_cache.shape
+    quant = cache_quant_type
+    if quant and (cache_k_quant_scales is None
+                  or cache_v_quant_scales is None):
+        raise ValueError("cache_quant_type needs cache_k_quant_scales and "
+                         "cache_v_quant_scales ([num_blocks, Hkv] fp32)")
+    _, Hkv, _, Dp = key_cache.shape
+    D = _quant_head_dim(qkv.shape[-1], Hkv, Dp, quant) if quant else Dp
+    qargs = dict(k_scale=cache_k_quant_scales, v_scale=cache_v_quant_scales,
+                 quant=quant) if quant else {}
     tables = block_tables.to(torch.int32).contiguous()
     lens = seq_lens_decoder.to(torch.int32).contiguous()
     if qkv.dim() == 3:
@@ -56,14 +118,21 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
         knew = qkv[:, :, Hq * D:(Hq + Hkv) * D].view(b, S, Hkv, D)
         vnew = qkv[:, :, (Hq + Hkv) * D:].view(b, S, Hkv, D)
         qlens = seq_lens_this_time.to(torch.int32).contiguous()
-        out = paged_attention_append(q, key_cache, value_cache, tables, lens,
-                                     qlens, knew, vnew)
-        return out.reshape(b, S, Hq * D), key_cache, value_cache
-    b = qkv.shape[0]
-    Hq = qkv.shape[1] // D - 2 * Hkv
-    q = qkv[:, :Hq * D].view(b, Hq, D)
-    knew = qkv[:, Hq * D:(Hq + Hkv) * D].view(b, Hkv, D)
-    vnew = qkv[:, (Hq + Hkv) * D:].view(b, Hkv, D)
-    out = paged_attention_decode(q, key_cache, value_cache, tables, lens,
-                                 knew, vnew)
-    return out.reshape(b, Hq * D), key_cache, value_cache
+        res = paged_attention_append(q, key_cache, value_cache, tables, lens,
+                                     qlens, knew, vnew, **qargs)
+        out = res[0] if quant else res
+        out = out.reshape(b, S, Hq * D)
+    else:
+        b = qkv.shape[0]
+        Hq = qkv.shape[1] // D - 2 * Hkv
+        q = qkv[:, :Hq * D].view(b, Hq, D)
+        knew = qkv[:, Hq * D:(Hq + Hkv) * D].view(b, Hkv, D)
+        vnew = qkv[:, (Hq + Hkv) * D:].view(b, Hkv, D)
+        res = paged_attention_decode(q, key_cache, value_cache, tables, lens,
+                                     knew, vnew, **qargs)
+        out = res[0] if quant else res
+        out = out.reshape(b, Hq * D)
+    if quant:
+        return (out, key_cache, value_cache, cache_k_quant_scales,
+                cache_v_quant_scales)
+    return out, key_cache, value_cache

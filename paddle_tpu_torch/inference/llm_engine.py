@@ -41,10 +41,23 @@ The K/V pools ``[n_blocks + 1, Hkv, block_size, D]`` per layer live on the
 engine's device and are updated IN PLACE (the reference is functional and
 donates its buffers). The trailing block is scratch: the kernels park
 there the writes of slots whose target table entry is -1.
+``kv_cache_dtype="int8"|"int4"`` makes them quantized pools: int8 payload
+``[n_blocks + 1, Hkv, block_size, kv_packed_dim(D)]`` with one float32
+scale per (block, kv head) beside each (``_k_scale``/``_v_scale``); the
+paged kernels dequantize on read and requantize what they write (kernel
+B4), and the legacy admission prefill gathers dequantized blocks and
+scatters requantized ones.
+
+For :class:`~paddle_tpu_torch.serving.AsyncLLMServer` the engine keeps the
+reference's serving surface: ``reset`` (crash recovery), ``cancel``,
+``reset_stats``, re-admission with ``committed_tokens``, the
+``fault_injector`` hooks at ``step_begin``/``step_finish``,
+``emit_backdate_s`` and the pool-capacity accounting (``kv_pool_nbytes``,
+``kv_bytes_per_block``, ``kv_pool_effective_blocks``).
 
 Not in this port yet (each raises ``NotImplementedError``): the dense
-cache, speculation, multi-step readout, quantized KV, LoRA adapters, the
-host KV tier, meshes and the prefix cache; sampling with
+cache, speculation, multi-step readout, LoRA adapters, the host KV tier,
+meshes, embedding requests, KV export and the prefix cache; sampling with
 ``temperature > 0`` waits for the threefry port (ROADMAP A7).
 """
 from __future__ import annotations
@@ -60,7 +73,10 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..incubate.nn.functional import _kv_quant_gather
 from ..models.llama import PagedKVCache, StaticKVCache
+from ..ops.kernels.paged_attention import (kv_block_scale, kv_packed_dim,
+                                           kv_quantize)
 
 __all__ = ["LLMEngine", "GenerationRequest", "RequestOutput", "PendingStep",
            "PoolCapacityError", "default_engine_stats"]
@@ -68,7 +84,7 @@ __all__ = ["LLMEngine", "GenerationRequest", "RequestOutput", "PendingStep",
 
 def default_engine_stats():
     """Fresh engine ``stats`` dict: the reference's keys that this
-    engine's paths touch."""
+    engine's paths touch (the server reads them by name)."""
     return {"steps": 0, "prefill_chunks": 0, "tokens_generated": 0,
             "preemptions": 0, "prefill_tokens": 0, "fused_steps": 0,
             "decode_time_s": 0.0, "admit_time_s": 0.0,
@@ -173,6 +189,16 @@ class LLMEngine:
                  adapter_cache_slots=4, kv_cache_dtype=None,
                  kv_host_swap=False, kv_host_spill_bytes=0,
                  sampling_seed=None, device=None):
+        if kv_cache_dtype is not None:
+            if kv_cache_dtype not in ("int8", "int4"):
+                raise ValueError(
+                    f"unknown kv_cache_dtype {kv_cache_dtype!r} "
+                    f"(supported: 'int8', 'int4', None)")
+            if cache_impl != "paged":
+                raise ValueError(
+                    "kv_cache_dtype needs cache_impl='paged': per-block "
+                    "quantization scales live at the paged pool's block "
+                    "granularity")
         if cache_impl == "dense":
             _unported("cache_impl='dense' (the SlotKVCache engine)", "A8(a)")
         if cache_impl != "paged":
@@ -183,8 +209,6 @@ class LLMEngine:
             _unported("speculative_k > 1", "A8(e)")
         if int(readout_stride) > 1:
             _unported("readout_stride > 1", "A8(d)")
-        if kv_cache_dtype is not None:
-            _unported("kv_cache_dtype", "A8(f) and kernel B4")
         if adapter_store is not None:
             _unported("adapter_store (batched multi-LoRA)", "A10")
         if kv_host_swap or kv_host_spill_bytes:
@@ -199,6 +223,9 @@ class LLMEngine:
                              f"is {self.device}")
         self.model = model
         self.scheduler = scheduler
+        self.cache_impl = cache_impl
+        #: KV-pool quantization mode (None = bf16 pools)
+        self.kv_quant = kv_cache_dtype
         c = model.config
         self.B = int(max_batch)
         self.horizon = max(1, int(horizon))
@@ -247,21 +274,38 @@ class LLMEngine:
         self._preempted_prefix = {}
         #: dispatched steps not yet finished (<= max_pipeline_depth())
         self._inflight = 0
+        #: optional FaultInjector (serving.faults): scripted chaos fires at
+        #: the step_begin/step_finish hooks; None costs one attribute check
+        self.fault_injector = None
+        #: seconds the current token's emit stamp is backdated by (the
+        #: reference amortizes multi-row readouts; one-row steps: 0.0)
+        self.emit_backdate_s = 0.0
         self.stats = default_engine_stats()
 
     # ------------------------------------------------------------------
     # device state
     # ------------------------------------------------------------------
     def _init_device_state(self):
-        """Pools (with the trailing scratch block), carried logits, lens,
-        and the host allocator."""
+        """(Re)build the pools (with the trailing scratch block; quantized
+        pools with their scale arrays: zero payload under zero scales is
+        the same cold state), carried logits, lens, and the host
+        allocator. Called by ``__init__`` and :meth:`reset`."""
         dev = self.device
-        pool_shape = (self.n_blocks + 1, self._kvh, self.block_size,
-                      self._head_dim)
-        self._k = [torch.zeros(pool_shape, dtype=self._dtype, device=dev)
-                   for _ in range(self._n_layers)]
-        self._v = [torch.zeros(pool_shape, dtype=self._dtype, device=dev)
-                   for _ in range(self._n_layers)]
+        L = self._n_layers
+        dp = kv_packed_dim(self._head_dim, self.kv_quant)
+        pool_shape = (self.n_blocks + 1, self._kvh, self.block_size, dp)
+        pool_dtype = torch.int8 if self.kv_quant else self._dtype
+        self._k = [torch.zeros(pool_shape, dtype=pool_dtype, device=dev)
+                   for _ in range(L)]
+        self._v = [torch.zeros(pool_shape, dtype=pool_dtype, device=dev)
+                   for _ in range(L)]
+        self._k_scale = self._v_scale = [None] * L
+        if self.kv_quant:
+            scale_shape = (self.n_blocks + 1, self._kvh)
+            self._k_scale = [torch.zeros(scale_shape, dtype=torch.float32,
+                                         device=dev) for _ in range(L)]
+            self._v_scale = [torch.zeros(scale_shape, dtype=torch.float32,
+                                         device=dev) for _ in range(L)]
         self._tables = np.full((self.B, self._max_blocks), -1, np.int32)
         #: min-heap of free physical blocks: allocation pops the smallest
         #: index, so the layout is a pure function of the request sequence
@@ -275,6 +319,53 @@ class LLMEngine:
         self._logits = torch.zeros((self.B, self.model.config.vocab_size),
                                    dtype=torch.float32, device=dev)
         self._lens = torch.zeros((self.B,), dtype=torch.int32, device=dev)
+
+    def reset(self):
+        """Tear the engine down to EMPTY and re-arm it: the supervised
+        server's crash-recovery hook. Every slot, waiting request, finished
+        output and preemption stitch drops, and the pools (scale arrays
+        included), carried logits, lens and allocator are rebuilt from
+        zeros. The request-id counter and the cumulative ``stats``
+        survive."""
+        self.slots = [None] * self.B
+        self.waiting.clear()
+        self.finished_outputs.clear()
+        self._preempted_prefix.clear()
+        self._inflight = 0
+        self._admit_order = [0] * self.B
+        self._init_device_state()
+        self._check_pool_invariants()
+        return self
+
+    def reset_stats(self):
+        for key in self.stats:
+            self.stats[key] = 0.0 if key.endswith("_s") else 0
+
+    # ------------------------------------------------------------------
+    # KV-pool capacity accounting
+    # ------------------------------------------------------------------
+    def kv_pool_nbytes(self):
+        """Device bytes of the K/V pools INCLUDING the scale arrays, summed
+        off the real tensors."""
+        return sum(t.numel() * t.element_size()
+                   for t in (*self._k, *self._v, *self._k_scale,
+                             *self._v_scale) if t is not None)
+
+    def kv_bytes_per_block(self):
+        """Device bytes one pool block costs across all layers (K + V
+        payload plus its per-head scales): what an equal-bytes pool sizing
+        divides a memory budget by."""
+        return self.kv_pool_nbytes() // (self.n_blocks + 1)
+
+    def kv_pool_effective_blocks(self):
+        """Pool capacity in unquantized-equivalent blocks: ``n_blocks`` on
+        an unquantized pool, ~2x/~4x under int8/int4 (less the scales)."""
+        if not self.kv_quant:
+            return self.n_blocks
+        unquant = self._n_layers * 2 * self._kvh * self.block_size * \
+            self._head_dim * torch.empty((), dtype=self._dtype).element_size()
+        return int(self.n_blocks * unquant
+                   // max(self.kv_bytes_per_block(), 1))
 
     def max_pipeline_depth(self):
         """How many ``step_begin()`` dispatches may be in flight at once
@@ -293,7 +384,14 @@ class LLMEngine:
     # requests
     # ------------------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=64, temperature=0.0,
-                    top_p=1.0, eos_token_id=None, request_id=None):
+                    top_p=1.0, eos_token_id=None, request_id=None,
+                    committed_tokens=None):
+        """Queue one request. ``committed_tokens``: tokens ALREADY
+        generated for it in a previous life (a supervised restart's or a
+        failover's re-admission): they join the prompt for prefill, like a
+        preemption, so the stream CONTINUES — only new tokens reach the
+        stream callback, the output prepends the committed ones, and
+        ``max_new_tokens`` counts new tokens only."""
         ids = np.asarray(
             prompt_ids.cpu().numpy() if isinstance(prompt_ids, torch.Tensor)
             else prompt_ids, dtype=np.int32).reshape(-1)
@@ -302,6 +400,10 @@ class LLMEngine:
         if float(temperature) > 0.0:
             _unported("sampling with temperature > 0 (threefry fold_in keys)",
                       "A7")
+        committed = [int(t) for t in committed_tokens] \
+            if committed_tokens else []
+        if committed:
+            ids = np.concatenate([ids, np.asarray(committed, np.int32)])
         if len(ids) >= self.capacity - self.speculative_k:
             raise ValueError(f"prompt of {len(ids)} tokens leaves no room "
                              f"to generate (engine capacity "
@@ -314,6 +416,11 @@ class LLMEngine:
                        for s in self.slots)):
             raise ValueError(f"duplicate request_id {rid!r}")
         self._next_id = max(self._next_id, rid) + 1
+        if committed:
+            # the preemption stitch: _finish_tokens pops this and prepends
+            # it to whatever the slot generates from here on
+            self._preempted_prefix[rid] = \
+                self._preempted_prefix.pop(rid, []) + committed
         self.waiting.append(GenerationRequest(
             rid, ids, int(max_new_tokens), float(temperature), float(top_p),
             eos_token_id))
@@ -322,9 +429,38 @@ class LLMEngine:
     def has_unfinished(self):
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
+    def cancel(self, request_id, reason="cancelled"):
+        """Cancel a waiting or running request. Returns its partial
+        RequestOutput (finish_reason ``reason``; the server passes
+        'deadline' for expiries), or None if the id is unknown or
+        finished. A running slot frees at once, pool blocks included (a
+        block an in-flight dispatch may still write waits in quarantine)."""
+        for i, req in enumerate(self.waiting):
+            if req.request_id == request_id:
+                del self.waiting[i]
+                out = RequestOutput(request_id, self._finish_tokens(req, []),
+                                    True, reason)
+                self.finished_outputs[request_id] = out
+                return out
+        for b, slot in enumerate(self.slots):
+            if slot is not None and slot.req.request_id == request_id:
+                out = RequestOutput(
+                    request_id,
+                    self._finish_tokens(slot.req, slot.generated), True,
+                    reason)
+                self.finished_outputs[request_id] = out
+                self._free_slot(b)
+                return out
+        return None
+
     # ------------------------------------------------------------------
     # paged-pool allocator (host side; tables upload with every dispatch)
     # ------------------------------------------------------------------
+    def _n_allocatable(self):
+        """Blocks a new allocation may claim: the free ones (the reference
+        adds its prefix cache's evictable blocks; there is none here)."""
+        return len(self._free_blocks)
+
     def _alloc_blocks(self, slot_idx, n):
         """Grow slot ``slot_idx`` by ``n`` blocks. False = pool dry."""
         if len(self._free_blocks) < n:
@@ -535,34 +671,58 @@ class LLMEngine:
         attend through the static cache (masked plain attention — never
         the flash kernel, whose top-left causal mask would be wrong here),
         scatter the window's K/V back into its blocks. Returns the logits
-        of in-window row ``last``."""
+        of in-window row ``last``.
+
+        Quantized pools gather DEQUANTIZED blocks (in the model's dtype)
+        and scatter requantized ones: each written block is whole-window
+        content, its rows past ``last`` (padding) zeroed before its fresh
+        absmax scale (reference ``llm_engine.py:1594-1618``)."""
         bs, chunk = self.block_size, self.chunk
         end = off + chunk
+        nblk = chunk // bs
+        quant = self.kv_quant
         safe = self._upload(np.maximum(table_row[:end // bs], 0), torch.long)
         phys = self._upload(table_row[off // bs:end // bs], torch.long)
 
-        def gather(pool):
-            blks = pool[safe]                         # [n, Hkv, bs, D]
+        def gather(pool, scales):
+            if quant:
+                blks = _kv_quant_gather(pool, scales, safe, quant,
+                                        self._head_dim).to(self._dtype)
+            else:
+                blks = pool[safe]                     # [n, Hkv, bs, D]
             return blks.permute(0, 2, 1, 3).reshape(
                 1, end, blks.shape[1], blks.shape[3])
 
-        caches = [StaticKVCache(gather(k), gather(v))
-                  for k, v in zip(self._k, self._v)]
+        caches = [StaticKVCache(gather(k, ks), gather(v, vs))
+                  for k, v, ks, vs in zip(self._k, self._v, self._k_scale,
+                                          self._v_scale)]
         hidden, new_caches = self.model.llama(self._upload(ids),
                                               kv_caches=caches,
                                               position_offset=off)
         logits_row = self.model._logits(hidden[:, last:last + 1])[0, 0] \
             .float()
+        dead = None
+        if quant:
+            # window rows past `last` are padding: zeroed before the scale
+            ridx = torch.arange(chunk, device=self.device).view(nblk, bs)
+            dead = (ridx > last)[:, None, :, None]
 
-        def scatter(pool, buf):
+        def scatter(pool, scales, buf):
             rows = buf[0, off:end]                    # [chunk, Hkv, D]
-            nblk = chunk // bs
-            pool[phys] = rows.reshape(nblk, bs, rows.shape[1],
-                                      rows.shape[2]).transpose(1, 2)
+            blks = rows.reshape(nblk, bs, rows.shape[1],
+                                rows.shape[2]).transpose(1, 2)
+            if quant:
+                blks = blks.float().masked_fill(dead, 0.0)
+                s_new = kv_block_scale(blks, quant, (2, 3))
+                pool[phys] = kv_quantize(blks, s_new[..., None, None], quant)
+                scales[phys] = s_new
+            else:
+                pool[phys] = blks
 
-        for k, v, cc in zip(self._k, self._v, new_caches):
-            scatter(k, cc.k)
-            scatter(v, cc.v)
+        for k, v, ks, vs, cc in zip(self._k, self._v, self._k_scale,
+                                    self._v_scale, new_caches):
+            scatter(k, ks, cc.k)
+            scatter(v, vs, cc.v)
         return logits_row
 
     def _admit(self, slot_idx, req):
@@ -690,6 +850,14 @@ class LLMEngine:
         return PendingStep(toks, was_active, list(self.slots), pool_done,
                            sched=sched, fenced=fenced, event=event)
 
+    def _paged_caches(self, tables, lens, q_lens=None):
+        """One :class:`PagedKVCache` per layer over the engine's pools (and
+        their scale arrays when quantized)."""
+        return [PagedKVCache(k, v, tables, lens, q_lens, ks, vs,
+                             self.kv_quant)
+                for k, v, ks, vs in zip(self._k, self._v, self._k_scale,
+                                        self._v_scale)]
+
     def _decode(self, active, eos_ids, budgets):
         """``horizon`` greedy decode iterations for every slot, all on the
         device: sample from the carried logits, one-token model step through
@@ -707,8 +875,7 @@ class LLMEngine:
         for _ in range(self.horizon):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
-            caches = [PagedKVCache(k, v, tables, lens)
-                      for k, v in zip(self._k, self._v)]
+            caches = self._paged_caches(tables, lens)
             hidden, _ = model.llama(nxt[:, None], kv_caches=caches,
                                     position_offset=lens)
             new_logits = model._logits(hidden)[:, 0].float()
@@ -745,8 +912,7 @@ class LLMEngine:
         nxt = torch.where(dec, nxt, torch.zeros_like(nxt))
         q_eff = torch.where(act, ql, torch.zeros_like(ql))
         ids_t[:, 0] = torch.where(dec, nxt, ids_t[:, 0])
-        caches = [PagedKVCache(k, v, tables, lens, q_eff)
-                  for k, v in zip(self._k, self._v)]
+        caches = self._paged_caches(tables, lens, q_eff)
         hidden, _ = self.model.llama(ids_t, kv_caches=caches,
                                      position_offset=lens)
         last = (q_eff - 1).clamp(min=0).long()
@@ -763,6 +929,9 @@ class LLMEngine:
         :class:`PendingStep` for :meth:`step_finish`, or None when there is
         nothing to run. Up to :meth:`max_pipeline_depth` steps may be in
         flight."""
+        fi = self.fault_injector
+        if fi is not None:
+            fi.on_step_begin(self)
         if self._inflight >= self.max_pipeline_depth():
             raise RuntimeError(
                 "paged engine cannot pipeline step_begin() calls this deep: "
@@ -1003,6 +1172,9 @@ class LLMEngine:
         finished requests. Returns the RequestOutputs finished by this
         step. Tokens of a slot whose occupant changed since dispatch are
         dropped: they were decoded for the old occupant's state."""
+        fi = self.fault_injector
+        if fi is not None:
+            fi.on_step_finish(self)
         if pending.toks is None:
             return list(pending.pool_done)
         self._inflight -= 1

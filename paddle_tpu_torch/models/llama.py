@@ -19,9 +19,12 @@ output splits into ``[q | k | v]`` (reference :314-348) and
 ``fuse_swiglu`` one ``gate_up_proj`` split at ``intermediate_size``
 (:529-551).
 
+A :class:`PagedKVCache` may carry int8/int4 quantized pools with their
+scale arrays (the engine's ``kv_cache_dtype``); attention routes them to
+the quantized paged kernels.
+
 Not in this port yet, each raising where reached: LoRA scopes, the slot
-and chunk caches of the dense engine, quantized pools and
-``LlamaForCausalLM.generate``.
+and chunk caches of the dense engine and ``LlamaForCausalLM.generate``.
 """
 from __future__ import annotations
 
@@ -123,8 +126,10 @@ class PagedKVCache:
     block_size, D]``, ``block_tables [B, max_blocks]`` (-1 = unallocated)
     and ``seq_lens [B]`` tokens already cached. ``q_lens [B]`` marks a
     mixed step (seq len > 1): how many of each slot's rows are real. Both
-    steps update the pools in place. The quantized fields exist for the
-    reference's call shape; this port does not serve them yet."""
+    steps update the pools in place. ``quant`` ("int8"/"int4") marks
+    quantized pools: int8 payload ``[num_blocks, Hkv, block_size,
+    kv_packed_dim(D)]`` with float32 ``k_scale``/``v_scale [num_blocks,
+    Hkv]``, also updated in place."""
 
     __slots__ = ("k", "v", "block_tables", "seq_lens", "q_lens",
                  "k_scale", "v_scale", "quant")
@@ -181,9 +186,10 @@ class LlamaAttention(nn.Module):
         cos, sin = rope_cache
         q, k = apply_rope(q, k, cos, sin, position_offset)
         if isinstance(kv_cache, PagedKVCache):
-            if kv_cache.quant:
-                raise NotImplementedError(
-                    "quantized KV pools are not ported yet: ROADMAP B4")
+            kvq = kv_cache.quant
+            qargs = dict(cache_k_quant_scales=kv_cache.k_scale,
+                         cache_v_quant_scales=kv_cache.v_scale,
+                         cache_quant_type=kvq) if kvq else {}
             if s != 1:
                 # fused mixed step: S rows per slot, q_lens of them real —
                 # the append form of the op (the paged-append kernel)
@@ -194,21 +200,25 @@ class LlamaAttention(nn.Module):
                 qkv = torch.cat([q.reshape(b, s, H * D),
                                  k.reshape(b, s, Hkv * D),
                                  v.reshape(b, s, Hkv * D)], dim=-1)
-                out, kc, vc = IF.block_multihead_attention(
+                outs = IF.block_multihead_attention(
                     qkv, kv_cache.k, kv_cache.v, None, kv_cache.seq_lens,
-                    kv_cache.q_lens, block_tables=kv_cache.block_tables)
-                out = self.o_proj(out.view(b, s, H * D))
+                    kv_cache.q_lens, block_tables=kv_cache.block_tables,
+                    **qargs)
+                out = self.o_proj(outs[0].view(b, s, H * D))
                 return out, PagedKVCache(
-                    kc, vc, kv_cache.block_tables,
-                    kv_cache.seq_lens + kv_cache.q_lens, kv_cache.q_lens)
+                    outs[1], outs[2], kv_cache.block_tables,
+                    kv_cache.seq_lens + kv_cache.q_lens, kv_cache.q_lens,
+                    *(outs[3:] if kvq else (None, None)), quant=kvq)
             qkv = torch.cat([q.reshape(b, H * D), k.reshape(b, Hkv * D),
                              v.reshape(b, Hkv * D)], dim=-1)
-            out, kc, vc = IF.block_multihead_attention(
+            outs = IF.block_multihead_attention(
                 qkv, kv_cache.k, kv_cache.v, None, kv_cache.seq_lens, None,
-                block_tables=kv_cache.block_tables)
-            out = self.o_proj(out.view(b, 1, H * D))
-            return out, PagedKVCache(kc, vc, kv_cache.block_tables,
-                                     kv_cache.seq_lens + 1)
+                block_tables=kv_cache.block_tables, **qargs)
+            out = self.o_proj(outs[0].view(b, 1, H * D))
+            return out, PagedKVCache(
+                outs[1], outs[2], kv_cache.block_tables,
+                kv_cache.seq_lens + 1, None,
+                *(outs[3:] if kvq else (None, None)), quant=kvq)
         if isinstance(kv_cache, StaticKVCache):
             off = int(position_offset)
             T = kv_cache.k.shape[1]

@@ -28,6 +28,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: every kernel source under ``csrc/`` (``<name>.cu``), what
+#: :func:`build_all` compiles for a run that drives all the paths
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+           "paged_attention_decode", "paged_attention_append",
+           "paged_attention_decode_quant", "fused_adamw", "fused_adamw_sr")
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 

@@ -41,25 +41,173 @@ S new positions per sequence, ``q_lens [B]`` of them real:
 
 The pools are updated IN PLACE (the reference returns new pools from a
 functional call whose buffers it donates).
+
+Quantized pools (``quant="int8"|"int4"``, the engine's
+``kv_cache_dtype``; reference ``paged_attention.py:95-162``, ``:401-447``,
+``:689-750``): int8 payload ``[NB, Hkv, bs, kv_packed_dim(D)]`` (int4
+packs two head-dim elements per byte in the split-half layout of
+:func:`kv_unpack`) with one float32 absmax scale per (physical block, kv
+head) in ``k_scale``/``v_scale [NB, Hkv]``. Blocks dequantize on read
+(``int * scale``). Every block a step writes is merged in float32, its
+rows past the written end are ZEROED (stale content of a reused block
+must not inflate the scale), its scale recomputed (absmax / qmax) and the
+block requantized; attention reads the ROUND-TRIPPED values of the blocks
+it wrote. Decode rewrites the last live block; append rewrites every
+window block ``w0 <= j <= j_last`` and leaves a ``q_lens == 0`` slot's
+blocks unchanged. A ``-1`` target parks payload and scale in the scratch
+block. The plain versions' attention math is float32 throughout (P is not
+rounded); the append kernel rounds P times each key's V scale to bf16 for
+its tensor-core product, as it rounds P over bf16 pools. These forms are
+kernel B4 (``csrc/paged_attention_decode_quant.cu``, and the int8/int4
+instantiations of ``csrc/paged_attention_append.cu``; rules shared in
+``csrc/kv_quant.cuh``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
 
 KERNEL = "paged_attention_decode"
 APPEND_KERNEL = "paged_attention_append"
+QUANT_KERNEL = "paged_attention_decode_quant"
+
+#: symmetric integer grid per KV quantization mode; int4 is [-7, 7] (not
+#: -8), stored offset by +8 in a nibble
+KV_QMAX = {"int8": 127.0, "int4": 7.0}
+
+
+# ---------------------------------------------------------------------------
+# KV quantization rules (reference paged_attention.py:95-162, op for op)
+# ---------------------------------------------------------------------------
+
+def kv_packed_dim(D, quant):
+    """Last dim of the pool storage: D for int8 (and unquantized pools),
+    ceil(D/2) bytes for int4 (odd D pads one nibble)."""
+    if quant is None or quant == "int8":
+        return D
+    if quant == "int4":
+        return (D + 1) // 2
+    raise ValueError(f"unknown kv quant dtype {quant!r}")
+
+
+def kv_unpack(vals, quant, D):
+    """Quantized storage -> UNSCALED float32 grid values, last dim
+    packed -> D. int4 is split-half: byte j holds element j in its low
+    nibble and element ``Dp + j`` (Dp = ceil(D/2)) in its high nibble, each
+    stored +8; odd D drops the final high nibble."""
+    if quant == "int8":
+        return vals.to(torch.float32)
+    b = vals.to(torch.int32) & 0xFF
+    lo = (b & 0xF) - 8
+    hi = ((b >> 4) & 0xF) - 8
+    return torch.cat([lo, hi], dim=-1)[..., :D].to(torch.float32)
+
+
+def kv_pack(q, quant):
+    """Grid values (already clipped) -> int8 storage; int4 packs nibble
+    pairs in the split-half layout of :func:`kv_unpack`."""
+    q = q.to(torch.int32)
+    if quant == "int8":
+        return q.to(torch.int8)
+    D = q.shape[-1]
+    Dp = (D + 1) // 2
+    if 2 * Dp != D:
+        q = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    lo = q[..., :Dp] + 8
+    hi = q[..., Dp:] + 8
+    return (lo | (hi << 4)).to(torch.int8)
+
+
+def kv_quantize(x, scale, quant):
+    """float32 values + (broadcastable) scale -> packed storage:
+    ``x / max(scale, 1e-20)``, rounded half to even, clipped to +-qmax."""
+    qmax = KV_QMAX[quant]
+    q = torch.clamp(torch.round(x / torch.clamp(scale, min=1e-20)),
+                    -qmax, qmax)
+    return kv_pack(q, quant)
+
+
+#: float32 ``1 / qmax``. The reference writes ``absmax / qmax``, and XLA
+#: compiles a division by a constant into a product with its float32
+#: reciprocal, which is what its compiled paths (the dense fallback, the
+#: engine's prefill scatter) store; the port stores the same bits.
+KV_INV_QMAX = {"int8": float(np.float32(1.0) / np.float32(127.0)),
+               "int4": float(np.float32(1.0) / np.float32(7.0))}
+
+
+def kv_block_scale(x, quant, dims):
+    """Absmax scale of float32 block(s) over ``dims``: ``absmax *
+    float32(1 / qmax)``. THE one scale rule: the kernels' in-CTA reduction
+    (``csrc/kv_quant.cuh``) and the engine's prefill scatter compute it
+    the same way."""
+    inv = x.new_full((), KV_INV_QMAX[quant], dtype=torch.float32)
+    return torch.amax(torch.abs(x), dim=dims) * inv
+
+
+def kv_dequantize(vals, scale, quant, D):
+    """Packed storage [..., bs, Dp] under scales [...] -> float32
+    [..., bs, D]."""
+    return kv_unpack(vals, quant, D) * scale[..., None, None]
+
+
+def _attend_plain(q_rows, kseq, vseq, visible, scale, p_dtype):
+    """The plain versions' attention: ``q_rows [B, Hkv, R, D]`` against
+    ``kseq``/``vseq [B, Hkv, T, D]`` under ``visible [B, Hkv|1, R, T]``;
+    float32 softmax, P rounded to ``p_dtype`` before P@V,
+    ``acc / max(l, 1e-30)``."""
+    s = torch.matmul(q_rows.float() * scale, kseq.float().transpose(-1, -2))
+    s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)   # nothing visible
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.matmul(p.to(p_dtype).float(), vseq.float()) / l
+
+
+def _gather_seq(pool, tables, scales=None, quant=None, D=None):
+    """Each sequence's logical K or V ``[B, Hkv, MB*bs, D]`` (float32 when
+    quantized): blocks gathered through ``tables`` (-1 reads block 0, and
+    the caller masks it)."""
+    B, MB = tables.shape
+    safe = tables.clamp(min=0)
+    blks = pool[safe]                                 # [B, MB, Hkv, bs, Dp]
+    if quant:
+        blks = kv_dequantize(blks, scales[safe], quant, D)
+    Hkv, bs = blks.shape[2], blks.shape[3]
+    return blks.permute(0, 2, 1, 3, 4).reshape(B, Hkv, MB * bs, blks.shape[-1])
+
+
+def _requant_blocks(pool, scales, src, tgt, rows_new, new_mask, live_end,
+                    quant, D):
+    """The quantized write rule on a batch of P blocks: dequantize blocks
+    ``src [P]``, put ``rows_new [P, Hkv, bs, D]`` where ``new_mask [P, bs]``,
+    zero rows at or past ``live_end [P]``, recompute the per-head absmax
+    scale, requantize, and store payload and scale at ``tgt [P]`` (in
+    place)."""
+    bs = pool.shape[2]
+    blk = kv_dequantize(pool[src], scales[src], quant, D)    # [P, Hkv, bs, D]
+    blk = torch.where(new_mask[:, None, :, None], rows_new.float(), blk)
+    dead = torch.arange(bs, device=pool.device)[None, :] >= live_end[:, None]
+    blk = torch.where(dead[:, None, :, None], torch.zeros_like(blk), blk)
+    s_new = kv_block_scale(blk, quant, (2, 3))               # [P, Hkv]
+    pool[tgt] = kv_quantize(blk, s_new[..., None, None], quant)
+    scales[tgt] = s_new
 
 
 def paged_attention_decode_plain(q, k_pool, v_pool, block_tables, seq_lens,
-                                 new_k, new_v, scale=None):
-    """The plain PyTorch version of the kernel (same writes, same visible
-    set, float32 softmax, P rounded to the pool dtype before P@V). Updates
-    the pools in place and returns ``out [B, Hq, D]``."""
+                                 new_k, new_v, scale=None, k_scale=None,
+                                 v_scale=None, quant=None):
+    """The plain PyTorch version of the decode kernels (same writes, same
+    visible set, float32 softmax; unquantized pools round P to their dtype
+    before P@V). Updates the pools in place and returns ``out [B, Hq, D]``;
+    with ``quant`` it also rewrites the last live block of every slot under
+    the quantized write rule and returns ``(out, k_pool, v_pool, k_scale,
+    v_scale)``."""
     B, Hq, D = q.shape
     NB, Hkv, bs, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -72,47 +220,74 @@ def paged_attention_decode_plain(q, k_pool, v_pool, block_tables, seq_lens,
     phys = tables.gather(1, j_last[:, None])[:, 0]
     slot = lens - j_last * bs
     tgt = torch.where(phys < 0, torch.full_like(phys, NB - 1), phys)
-    rows = torch.nonzero(slot < bs)[:, 0]
-    k_pool[tgt[rows], :, slot[rows]] = new_k[rows].to(k_pool.dtype)
-    v_pool[tgt[rows], :, slot[rows]] = new_v[rows].to(v_pool.dtype)
+    if quant:
+        # the last live block of every slot (block 0's content for a -1
+        # entry, parked in scratch): the new row at `slot`, rows past it
+        # zeroed, rescaled and requantized
+        new_mask = torch.arange(bs, device=dev)[None, :] == slot[:, None]
+        src = phys.clamp(min=0)
+        for pool, scales, new in ((k_pool, k_scale, new_k),
+                                  (v_pool, v_scale, new_v)):
+            _requant_blocks(pool, scales, src, tgt,
+                            new[:, :, None, :].expand(B, Hkv, bs, D),
+                            new_mask, slot + 1, quant, D)
+    else:
+        rows = torch.nonzero(slot < bs)[:, 0]
+        k_pool[tgt[rows], :, slot[rows]] = new_k[rows].to(k_pool.dtype)
+        v_pool[tgt[rows], :, slot[rows]] = new_v[rows].to(v_pool.dtype)
 
-    safe = tables.clamp(min=0)
-    kseq = k_pool[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, MB * bs, D)
-    vseq = v_pool[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, MB * bs, D)
+    kseq = _gather_seq(k_pool, tables, k_scale, quant, D)
+    vseq = _gather_seq(v_pool, tables, v_scale, quant, D)
     pos = torch.arange(MB * bs, device=dev)
     blk = pos // bs
     visible = (pos[None, :] <= lens[:, None]) & \
         (blk[None, :] <= j_last[:, None]) & \
         (tables.gather(1, blk[None, :].expand(B, -1)) >= 0)   # [B, T]
-    qg = q.reshape(B, Hkv, G, D).float() * scale
-    s = torch.matmul(qg, kseq.float().transpose(-1, -2))      # [B, Hkv, G, T]
-    s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)   # nothing visible
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p.to(v_pool.dtype).float(), vseq.float()) / l
-    return o.reshape(B, Hq, D).to(q.dtype)
+    o = _attend_plain(q.reshape(B, Hkv, G, D), kseq, vseq,
+                      visible[:, None, None, :], scale,
+                      torch.float32 if quant else v_pool.dtype)
+    out = o.reshape(B, Hq, D).to(q.dtype)
+    if quant:
+        return out, k_pool, v_pool, k_scale, v_scale
+    return out
 
 
-def _check(q, k_pool, v_pool, block_tables, seq_lens, new_k, new_v):
+def _check_pools(what, D, Hq, k_pool, v_pool, k_scale, v_scale, quant):
+    """Pool shapes against q's head dim, the scale arrays of a quantized
+    pool, and the GQA ratio."""
+    NB, Hkv, _, Dk = k_pool.shape
+    if v_pool.shape != k_pool.shape or Dk != kv_packed_dim(D, quant):
+        raise ValueError(f"{what}: pool shapes {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)} vs head dim {D} "
+                         f"(quant={quant!r})")
+    if quant:
+        if k_scale is None or v_scale is None or \
+                k_scale.shape != (NB, Hkv) or v_scale.shape != (NB, Hkv):
+            raise ValueError(f"{what}: quant={quant!r} needs k_scale and "
+                             f"v_scale [num_blocks, Hkv] = [{NB}, {Hkv}]")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(f"{what}: scale arrays given without quant")
+    if Hq % Hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq} and {Hkv}")
+
+
+def _check(q, k_pool, v_pool, block_tables, seq_lens, new_k, new_v,
+           k_scale=None, v_scale=None, quant=None):
     if q.dim() != 3 or k_pool.dim() != 4:
         raise ValueError("paged_attention_decode takes q [B, Hq, D] and "
                          "pools [NB, Hkv, bs, D]")
     B, Hq, D = q.shape
-    NB, Hkv, bs, Dk = k_pool.shape
-    if v_pool.shape != k_pool.shape or Dk != D:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)} vs q {tuple(q.shape)}")
-    if Hq % Hkv:
-        raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq} and {Hkv}")
+    Hkv = k_pool.shape[1]
+    _check_pools("paged_attention_decode", D, Hq, k_pool, v_pool, k_scale,
+                 v_scale, quant)
     if block_tables.dim() != 2 or block_tables.shape[0] != B or \
             seq_lens.shape != (B,):
         raise ValueError("block_tables [B, MB] and seq_lens [B] expected")
     if new_k.shape != (B, Hkv, D) or new_v.shape != (B, Hkv, D):
         raise ValueError("new_k/new_v [B, Hkv, D] expected")
     devs = {t.device for t in (q, k_pool, v_pool, block_tables, seq_lens,
-                               new_k, new_v)}
+                               new_k, new_v, k_scale, v_scale)
+            if t is not None}
     if len(devs) != 1:
         raise ValueError(f"paged_attention_decode: tensors on {devs}")
 
@@ -126,19 +301,30 @@ def _rows_ok(t):
         t.data_ptr() % 16 == 0
 
 
-def _check_kernel_args(what, rows, pools, ints, D, G, bs):
-    """What both paged kernels take, raising on anything else: bf16
-    ``rows`` (q, new K/V) and contiguous bf16 ``pools``, contiguous int32
+def _check_kernel_args(what, rows, pools, ints, D, G, bs, quant=None,
+                       scales=None):
+    """What the paged kernels take, raising on anything else: bf16
+    ``rows`` (q, new K/V), contiguous bf16 ``pools`` (int8 payload and
+    contiguous float32 ``scales`` when quantized), contiguous int32
     ``ints`` (tables, lens), head dim 64 or 128, 1/2/4/8 query heads per kv
     head, block size <= 128."""
-    for name, t in {**rows, **pools}.items():
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    for name, t in rows.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{what} kernel takes bfloat16 {name}, got "
                             f"{t.dtype}")
+    for name, t in pools.items():
+        if t.dtype != pool_dtype:
+            raise TypeError(f"{what} kernel takes {pool_dtype} {name}, got "
+                            f"{t.dtype}")
+    for name, t in (scales or {}).items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{what}: {name} must be contiguous float32")
     for name, t in ints.items():
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{what}: {name} must be contiguous int32")
     if D not in (64, 128):
+        # odd head dims (int4 nibble padding) stay with the plain version
         raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
     if G not in (1, 2, 4, 8):
         raise ValueError(f"{what} kernel takes 1, 2, 4 or 8 query heads "
@@ -154,49 +340,67 @@ def _check_kernel_args(what, rows, pools, ints, D, G, bs):
 
 
 def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens, new_k,
-                           new_v, scale=None):
+                           new_v, scale=None, k_scale=None, v_scale=None,
+                           quant=None):
     """One paged decode step: writes the new K/V into the pools (in place)
-    and returns ``out [B, Hq, D]`` in q's dtype.
+    and returns ``out [B, Hq, D]`` in q's dtype; with ``quant`` ("int8" or
+    "int4", int8 pools and float32 ``k_scale``/``v_scale [NB, Hkv]``) the
+    last live block of each slot is requantized in place and the return
+    is ``(out, k_pool, v_pool, k_scale, v_scale)``.
 
     CPU tensors take :func:`paged_attention_decode_plain`. CUDA tensors
-    launch the kernel (bf16, head dim 64 or 128, int32 tables and lens,
-    contiguous pools; q and new K/V may be strided views of one qkv row)
-    or raise."""
-    _check(q, k_pool, v_pool, block_tables, seq_lens, new_k, new_v)
+    launch the kernel (bf16 q and new K/V, head dim 64 or 128, int32 tables
+    and lens, contiguous pools; q and new K/V may be strided views of one
+    qkv row; quantized pools launch B4-decode) or raise."""
+    _check(q, k_pool, v_pool, block_tables, seq_lens, new_k, new_v, k_scale,
+           v_scale, quant)
     B, Hq, D = q.shape
     NB, Hkv, bs, _ = k_pool.shape
     MB = block_tables.shape[1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if q.device.type == "cpu":
         return paged_attention_decode_plain(q, k_pool, v_pool, block_tables,
-                                            seq_lens, new_k, new_v, scale)
+                                            seq_lens, new_k, new_v, scale,
+                                            k_scale, v_scale, quant)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode: unsupported device "
                          f"{q.device}")
     _check_kernel_args(
         "paged_attention_decode", dict(q=q, new_k=new_k, new_v=new_v),
         dict(k_pool=k_pool, v_pool=v_pool),
-        dict(block_tables=block_tables, seq_lens=seq_lens), D, Hq // Hkv, bs)
+        dict(block_tables=block_tables, seq_lens=seq_lens), D, Hq // Hkv, bs,
+        quant, dict(k_scale=k_scale, v_scale=v_scale) if quant else None)
     out = torch.empty((B, Hq, D), device=q.device, dtype=q.dtype)
-    lib = _build.load(KERNEL)
-    fn = lib.pt_paged_attention_decode_bf16
+    if quant:
+        lib = _build.load(QUANT_KERNEL)
+        fn = getattr(lib, f"pt_paged_attention_decode_{quant}")
+        scales = [k_scale.data_ptr(), v_scale.data_ptr()]
+    else:
+        lib = _build.load(KERNEL)
+        fn = lib.pt_paged_attention_decode_bf16
+        scales = []
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + \
-        [ctypes.c_void_p] * 4 + \
+        [ctypes.c_void_p] * (4 + len(scales)) + \
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
-              block_tables.data_ptr(), seq_lens.data_ptr(),
+              *scales, block_tables.data_ptr(), seq_lens.data_ptr(),
               new_k.data_ptr(), new_k.stride(0), new_v.data_ptr(),
               new_v.stride(0), out.data_ptr(), B, Hq, Hkv, D, bs, MB, NB,
               scale, _build.stream_of(q))
+    if quant:
+        _build.check(lib, code, f"paged_attention_decode ({quant})")
+        paged_attention_decode.quant_launches[quant] += 1
+        return out, k_pool, v_pool, k_scale, v_scale
     _build.check(lib, code, "paged_attention_decode")
     paged_attention_decode.launches += 1
     return out
 
 
-paged_attention_decode.launches = 0
+paged_attention_decode.launches = 0          # B2
+paged_attention_decode.quant_launches = {"int8": 0, "int4": 0}   # B4
 
 
 # ---------------------------------------------------------------------------
@@ -204,13 +408,18 @@ paged_attention_decode.launches = 0
 # ---------------------------------------------------------------------------
 
 def paged_attention_append_plain(q, k_pool, v_pool, block_tables, seq_lens,
-                                 q_lens, new_k, new_v, scale=None):
-    """The plain PyTorch version of the append kernel: the reference Pallas
-    kernel's writes (``-1`` targets park in the scratch block, blocks past
-    the table drop), its visible set and its arithmetic (float32 softmax,
-    P rounded to the pool dtype before P@V, ``acc / max(l, 1e-30)``).
-    Updates the pools in place and returns ``out [B, S, Hq, D]``; rows
-    past ``q_lens`` and ``q_lens == 0`` slots are zeros."""
+                                 q_lens, new_k, new_v, scale=None,
+                                 k_scale=None, v_scale=None, quant=None):
+    """The plain PyTorch version of the append kernels: the reference
+    Pallas kernel's writes (``-1`` targets park in the scratch block, blocks
+    past the table drop), its visible set and its arithmetic (float32
+    softmax, unquantized pools round P to their dtype before P@V,
+    ``acc / max(l, 1e-30)``). Updates the pools in place and returns
+    ``out [B, S, Hq, D]``; rows past ``q_lens`` and ``q_lens == 0`` slots
+    are zeros. With ``quant`` every window block of a slot with
+    ``q_lens > 0`` is rewritten under the quantized write rule (a
+    ``q_lens == 0`` slot's blocks stay as they are) and the return is
+    ``(out, k_pool, v_pool, k_scale, v_scale)``."""
     B, S, Hq, D = q.shape
     NB, Hkv, bs, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -222,19 +431,39 @@ def paged_attention_append_plain(q, k_pool, v_pool, block_tables, seq_lens,
     tables = block_tables.to(device=dev, dtype=torch.long)
     i_idx = torch.arange(S, device=dev)
     pos = lens[:, None] + i_idx[None, :]                       # [B, S]
-    blk = pos // bs
-    phys = tables.gather(1, blk.clamp(max=MB - 1))
-    tgt = torch.where(phys < 0, torch.full_like(phys, NB - 1), phys)
-    bi, ii = torch.nonzero((i_idx[None, :] < qlens[:, None]) & (blk < MB),
-                           as_tuple=True)
-    slot = pos % bs
-    k_pool[tgt[bi, ii], :, slot[bi, ii]] = new_k[bi, ii].to(k_pool.dtype)
-    v_pool[tgt[bi, ii], :, slot[bi, ii]] = new_v[bi, ii].to(v_pool.dtype)
-
     j_last = torch.clamp((lens + (qlens - 1).clamp(min=0)) // bs, max=MB - 1)
-    safe = tables.clamp(min=0)
-    kseq = k_pool[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, MB * bs, D)
-    vseq = v_pool[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, MB * bs, D)
+    if quant:
+        # window blocks w0 .. j_last of each slot with rows to write
+        w0 = torch.clamp(lens // bs, max=MB - 1)
+        jj = w0[:, None] + torch.arange((S + bs - 1) // bs + 1, device=dev)
+        bi, wi = torch.nonzero((jj <= j_last[:, None]) & (qlens[:, None] > 0),
+                               as_tuple=True)
+        j = jj[bi, wi]
+        phys = tables[bi, j]
+        src = phys.clamp(min=0)
+        tgt = torch.where(phys < 0, torch.full_like(phys, NB - 1), phys)
+        ci = j[:, None] * bs + torch.arange(bs, device=dev)[None, :] - \
+            lens[bi][:, None]                                  # [P, bs]
+        new_mask = (ci >= 0) & (ci < qlens[bi][:, None])
+        cic = ci.clamp(0, S - 1)
+        live_end = (lens + qlens)[bi] - j * bs
+        for pool, scales, new in ((k_pool, k_scale, new_k),
+                                  (v_pool, v_scale, new_v)):
+            rows = new[bi[:, None], cic].permute(0, 2, 1, 3)   # [P, Hkv, bs, D]
+            _requant_blocks(pool, scales, src, tgt, rows, new_mask,
+                            live_end, quant, D)
+    else:
+        blk = pos // bs
+        phys = tables.gather(1, blk.clamp(max=MB - 1))
+        tgt = torch.where(phys < 0, torch.full_like(phys, NB - 1), phys)
+        bi, ii = torch.nonzero((i_idx[None, :] < qlens[:, None]) & (blk < MB),
+                               as_tuple=True)
+        slot = pos % bs
+        k_pool[tgt[bi, ii], :, slot[bi, ii]] = new_k[bi, ii].to(k_pool.dtype)
+        v_pool[tgt[bi, ii], :, slot[bi, ii]] = new_v[bi, ii].to(v_pool.dtype)
+
+    kseq = _gather_seq(k_pool, tables, k_scale, quant, D)
+    vseq = _gather_seq(v_pool, tables, v_scale, quant, D)
     t = torch.arange(MB * bs, device=dev)
     tb = t // bs
     live = (tb[None, :] <= j_last[:, None]) & \
@@ -244,33 +473,28 @@ def paged_attention_append_plain(q, k_pool, v_pool, block_tables, seq_lens,
         (t[None, None, :] <= pos[:, :, None])                    # [B, S, T]
     # [B, S, Hkv, G, D] -> [B, Hkv, S*G, D]: row r = i*G + g
     qg = q.reshape(B, S, Hkv, G, D).permute(0, 2, 1, 3, 4) \
-        .reshape(B, Hkv, S * G, D).float() * scale
-    s = torch.matmul(qg, kseq.float().transpose(-1, -2))       # [B, Hkv, SG, T]
+        .reshape(B, Hkv, S * G, D)
     vis = visible[:, None, :, None, :].expand(B, Hkv, S, G, MB * bs) \
         .reshape(B, Hkv, S * G, MB * bs)
-    s = s.masked_fill(~vis, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)     # nothing visible
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p.to(v_pool.dtype).float(), vseq.float()) / l
+    o = _attend_plain(qg, kseq, vseq, vis, scale,
+                      torch.float32 if quant else v_pool.dtype)
     o = o.reshape(B, Hkv, S, G, D).permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
     real = (i_idx[None, :] < qlens[:, None])[:, :, None, None]
-    return torch.where(real, o, torch.zeros_like(o)).to(q.dtype)
+    out = torch.where(real, o, torch.zeros_like(o)).to(q.dtype)
+    if quant:
+        return out, k_pool, v_pool, k_scale, v_scale
+    return out
 
 
 def _check_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens, new_k,
-                  new_v):
+                  new_v, k_scale=None, v_scale=None, quant=None):
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError("paged_attention_append takes q [B, S, Hq, D] and "
                          "pools [NB, Hkv, bs, D]")
     B, S, Hq, D = q.shape
-    NB, Hkv, bs, Dk = k_pool.shape
-    if v_pool.shape != k_pool.shape or Dk != D:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)} vs q {tuple(q.shape)}")
-    if Hq % Hkv:
-        raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq} and {Hkv}")
+    Hkv = k_pool.shape[1]
+    _check_pools("paged_attention_append", D, Hq, k_pool, v_pool, k_scale,
+                 v_scale, quant)
     if block_tables.dim() != 2 or block_tables.shape[0] != B or \
             seq_lens.shape != (B,) or q_lens.shape != (B,):
         raise ValueError("block_tables [B, MB], seq_lens [B] and q_lens [B] "
@@ -278,24 +502,28 @@ def _check_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens, new_k,
     if new_k.shape != (B, S, Hkv, D) or new_v.shape != (B, S, Hkv, D):
         raise ValueError("new_k/new_v [B, S, Hkv, D] expected")
     devs = {t.device for t in (q, k_pool, v_pool, block_tables, seq_lens,
-                               q_lens, new_k, new_v)}
+                               q_lens, new_k, new_v, k_scale, v_scale)
+            if t is not None}
     if len(devs) != 1:
         raise ValueError(f"paged_attention_append: tensors on {devs}")
 
 
 def paged_attention_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens,
-                           new_k, new_v, scale=None):
+                           new_k, new_v, scale=None, k_scale=None,
+                           v_scale=None, quant=None):
     """One fused prefill+decode attention step off the block pools: writes
     each sequence's ``q_lens[b]`` new K/V rows into its blocks (in place)
-    and returns ``out [B, S, Hq, D]`` in q's dtype (padding rows zero).
+    and returns ``out [B, S, Hq, D]`` in q's dtype (padding rows zero);
+    with ``quant`` every window block is requantized in place and the
+    return is ``(out, k_pool, v_pool, k_scale, v_scale)``.
 
     CPU tensors take :func:`paged_attention_append_plain`. CUDA tensors
-    launch the kernel (bf16, head dim 64 or 128, 1/2/4/8 query heads per
-    kv head, block size <= 128, int32 contiguous tables, lens and q_lens,
-    contiguous pools; q and new K/V may be strided views of one qkv row)
-    or raise."""
+    launch the kernel (bf16 q and new K/V, head dim 64 or 128, 1/2/4/8
+    query heads per kv head, block size <= 128, int32 contiguous tables,
+    lens and q_lens, contiguous pools; q and new K/V may be strided views
+    of one qkv row; quantized pools launch B4-append) or raise."""
     _check_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens, new_k,
-                  new_v)
+                  new_v, k_scale, v_scale, quant)
     B, S, Hq, D = q.shape
     NB, Hkv, bs, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -303,7 +531,7 @@ def paged_attention_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens,
     if q.device.type == "cpu":
         return paged_attention_append_plain(q, k_pool, v_pool, block_tables,
                                             seq_lens, q_lens, new_k, new_v,
-                                            scale)
+                                            scale, k_scale, v_scale, quant)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_append: unsupported device "
                          f"{q.device}")
@@ -311,25 +539,32 @@ def paged_attention_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens,
         "paged_attention_append", dict(q=q, new_k=new_k, new_v=new_v),
         dict(k_pool=k_pool, v_pool=v_pool),
         dict(block_tables=block_tables, seq_lens=seq_lens, q_lens=q_lens),
-        D, Hq // Hkv, bs)
+        D, Hq // Hkv, bs, quant,
+        dict(k_scale=k_scale, v_scale=v_scale) if quant else None)
     out = torch.empty((B, S, Hq, D), device=q.device, dtype=q.dtype)
     lib = _build.load(APPEND_KERNEL)
-    fn = lib.pt_paged_attention_append_bf16
+    fn = getattr(lib, f"pt_paged_attention_append_{quant or 'bf16'}")
+    scales = [k_scale.data_ptr(), v_scale.data_ptr()] if quant else []
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + \
-        [ctypes.c_void_p] * 5 + \
+        [ctypes.c_void_p] * (5 + len(scales)) + \
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 2 + \
         [ctypes.c_void_p] + [ctypes.c_int] * 8 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
-              v_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-              q_lens.data_ptr(), new_k.data_ptr(), new_k.stride(0),
-              new_k.stride(1), new_v.data_ptr(), new_v.stride(0),
-              new_v.stride(1), out.data_ptr(), B, S, Hq, Hkv, D, bs, MB, NB,
-              scale, _build.stream_of(q))
+              v_pool.data_ptr(), *scales, block_tables.data_ptr(),
+              seq_lens.data_ptr(), q_lens.data_ptr(), new_k.data_ptr(),
+              new_k.stride(0), new_k.stride(1), new_v.data_ptr(),
+              new_v.stride(0), new_v.stride(1), out.data_ptr(), B, S, Hq, Hkv,
+              D, bs, MB, NB, scale, _build.stream_of(q))
+    if quant:
+        _build.check(lib, code, f"paged_attention_append ({quant})")
+        paged_attention_append.quant_launches[quant] += 1
+        return out, k_pool, v_pool, k_scale, v_scale
     _build.check(lib, code, "paged_attention_append")
     paged_attention_append.launches += 1
     return out
 
 
-paged_attention_append.launches = 0
+paged_attention_append.launches = 0          # B3
+paged_attention_append.quant_launches = {"int8": 0, "int4": 0}   # B4

@@ -1,0 +1,24 @@
+"""paddle_tpu_torch.serving — the async server over the LLM engine
+(counterpart: ``paddle_tpu/serving``).
+
+:class:`AsyncLLMServer` runs one engine's pipelined continuous-batching
+loop on a background thread, behind a bounded admission queue with
+backpressure, per-request streaming, cancellation and deadlines, and
+per-stage telemetry (:mod:`paddle_tpu_torch.profiler.serving_telemetry`).
+:class:`RestartPolicy` arms supervised crash recovery and
+:class:`FaultInjector` scripts chaos for the tests.
+
+Not in this port yet: ``ReplicaRouter`` and the tensor-parallel engine
+(``cluster.py``, A14), adapters and embeddings (A10), KV transport (A8(h))
+and the SLO/recorder layer (A11).
+"""
+from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
+                    ServerClosed, ServerQueueFull, TraceContext)
+from .scheduler import AdmissionQueue
+from .faults import FaultInjector, InjectedFault, RestartPolicy
+from .server import AsyncLLMServer
+
+__all__ = ["AsyncLLMServer", "AdmissionQueue", "RequestHandle",
+           "RequestState", "ServeRequest", "ServeResult", "ServerClosed",
+           "ServerQueueFull", "TraceContext", "FaultInjector",
+           "InjectedFault", "RestartPolicy"]

@@ -7,7 +7,8 @@ Inputs are unit-normal bf16 made with numpy from a fixed seed. Tolerances:
 bf16 rounding of the output (~4e-3 relative) plus a different fp32
 summation order, against values of magnitude ~1; the flash backward's
 grads within 2e-2 of their largest magnitude; the AdamW kernels bit for
-bit."""
+bit; the quantized paged kernels' payload and scales bit for bit (their
+outputs within the unquantized forms' tolerances)."""
 import numpy as np
 import pytest
 import torch
@@ -20,8 +21,9 @@ from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
     fused_adamw_update_plain, sr_seed)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention_append, paged_attention_append_plain,
-    paged_attention_decode, paged_attention_decode_plain)
+    kv_block_scale, kv_quantize, paged_attention_append,
+    paged_attention_append_plain, paged_attention_decode,
+    paged_attention_decode_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +132,194 @@ def test_paged_append_kernel_matches_plain(cuda, Hq, Hkv, D, bs, S):
         assert not out[b, n:].any()
     assert torch.equal(kp[:NB - 1], kp2[:NB - 1])
     assert torch.equal(vp[:NB - 1], vp2[:NB - 1])
+
+
+def _quant_pool(rng, shape, quant, dev):
+    """A quantized pool (int8 payload, float32 scales) made by quantizing
+    unit-normal blocks; block 1 holds rows 100x larger, as a reused block
+    holds stale content (the tests hand it out as a block whose write
+    leaves those rows past the live end)."""
+    f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    f[1] *= 100.0
+    sc = kv_block_scale(f, quant, (2, 3))
+    return kv_quantize(f, sc[..., None, None], quant).to(dev), sc.to(dev)
+
+
+def _tables(rng, need, MB, NB):
+    it = iter(rng.permutation(NB - 1))
+    tables = np.full((len(need), MB), -1, np.int32)
+    for b in range(len(need)):
+        for j in range(need[b]):
+            tables[b, j] = next(it)
+    return tables
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("Hq,Hkv,D,bs", [(4, 4, 128, 64), (8, 2, 128, 16),
+                                         (4, 1, 64, 32)])
+def test_paged_decode_quant_kernel_matches_plain(cuda, quant, Hq, Hkv, D, bs):
+    """B4-decode against its plain version: payload and scales bit for bit
+    outside the scratch block (a wiped slot parks there), out within 1e-2."""
+    rng = np.random.default_rng(3)
+    lens = np.array([0, bs - 1, bs, 3 * bs + 5, 2 * bs, 1], np.int32)
+    B, MB = len(lens), int(lens.max()) // bs + 2
+    need = [int(L) // bs + 1 for L in lens]
+    NB = sum(need) + 3
+    tables = _tables(rng, need, MB, NB)
+    tables[5, :] = -1            # a freed slot: stale lens, wiped table
+    # slot 2's new token opens block 1, the dirty one
+    tables[tables == 1], tables[2, 1] = tables[2, 1], 1
+    kp, ks = _quant_pool(rng, (NB, Hkv, bs, D), quant, cuda)
+    vp, vs = _quant_pool(rng, (NB, Hkv, bs, D), quant, cuda)
+    q = _randn(rng, (B, Hq, D), cuda)
+    nk = _randn(rng, (B, Hkv, D), cuda)
+    nv = _randn(rng, (B, Hkv, D), cuda)
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    ref_pools = [x.clone() for x in (kp, vp, ks, vs)]
+    n0 = paged_attention_decode.quant_launches[quant]
+    out, *_ = paged_attention_decode(q, kp, vp, t, ln, nk, nv, k_scale=ks,
+                                     v_scale=vs, quant=quant)
+    torch.cuda.synchronize()
+    assert paged_attention_decode.quant_launches[quant] == n0 + 1
+    ref, *_ = paged_attention_decode_plain(q, *ref_pools[:2], t, ln, nk, nv,
+                                           None, *ref_pools[2:], quant)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    for got, want in zip((kp, vp, ks, vs), ref_pools):
+        assert torch.equal(got[:NB - 1], want[:NB - 1])
+    # the dirty block's scale follows its live rows only
+    assert ks[1].max().item() < 10 * ks[0].max().item()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("Hq,Hkv,D,bs,S", [(4, 4, 128, 64, 80),
+                                           (8, 2, 128, 16, 40),
+                                           (4, 1, 64, 32, 33)])
+def test_paged_append_quant_kernel_matches_plain(cuda, quant, Hq, Hkv, D, bs,
+                                                 S):
+    """B4-append against its plain version on the specs of the unquantized
+    case plus an idle slot with a live table: payload and scales bit for
+    bit outside the scratch block, the idle slot's blocks unchanged byte
+    for byte, real rows within 2e-2, padding rows zero."""
+    rng = np.random.default_rng(4)
+    specs = [(0, S), (bs + 5, S), (3 * bs, S // 3), (bs - 1, 1), (bs, 1),
+             (2 * bs + 7, 0), (bs // 2, S), (bs + 3, 0)]
+    B = len(specs)
+    need = [(L + max(q, 1) - 1) // bs + 1 for L, q in specs]
+    MB = max(need) + 1
+    NB = sum(need) + 2
+    tables = _tables(rng, need, MB, NB)
+    tables[5, :] = -1                    # idle slot, wiped row
+    tables[6, need[6] - 1] = -1          # the window's last block is -1
+    # slot 2's window starts block 3 and ends inside it: the dirty block 1
+    # goes there, its stale rows past the window's end
+    tables[tables == 1], tables[2, 3] = tables[2, 3], 1
+    kp, ks = _quant_pool(rng, (NB, Hkv, bs, D), quant, cuda)
+    vp, vs = _quant_pool(rng, (NB, Hkv, bs, D), quant, cuda)
+    q = _randn(rng, (B, S, Hq, D), cuda)
+    nk = _randn(rng, (B, S, Hkv, D), cuda)
+    nv = _randn(rng, (B, S, Hkv, D), cuda)
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.tensor([L for L, _ in specs], dtype=torch.int32, device=cuda)
+    ql = torch.tensor([n for _, n in specs], dtype=torch.int32, device=cuda)
+    before = [x.clone() for x in (kp, vp, ks, vs)]
+    ref_pools = [x.clone() for x in (kp, vp, ks, vs)]
+    n0 = paged_attention_append.quant_launches[quant]
+    out, *_ = paged_attention_append(q, kp, vp, t, ln, ql, nk, nv,
+                                     k_scale=ks, v_scale=vs, quant=quant)
+    torch.cuda.synchronize()
+    assert paged_attention_append.quant_launches[quant] == n0 + 1
+    ref, *_ = paged_attention_append_plain(q, *ref_pools[:2], t, ln, ql, nk,
+                                           nv, None, *ref_pools[2:], quant)
+    for b, (_, n) in enumerate(specs):
+        if n:
+            err = (out[b, :n].float() - ref[b, :n].float()).abs().max()
+            assert err.item() <= 2e-2
+        assert not out[b, n:].any()
+    for got, want in zip((kp, vp, ks, vs), ref_pools):
+        assert torch.equal(got[:NB - 1], want[:NB - 1])
+    idle = [int(x) for x in tables[7, :need[7]]]
+    for got, old in zip((kp, vp, ks, vs), before):
+        assert torch.equal(got[idle], old[idle])
+    # the dirty block's scale follows its live rows only
+    assert ks[1].max().item() < 10 * ks[0].max().item()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("form", ["decode", "append"])
+@pytest.mark.parametrize("pool", ["k", "v"])
+def test_paged_quant_kernel_outlier_block_in_history(cuda, quant, form,
+                                                     pool):
+    """A block of K (or V) 100x larger than the rest, in the live history
+    every row attends: the kernels dequantize no value into a rounded
+    tile, so the large logits (or values) keep the plain version's
+    softmax. Out within the form's tolerance of the output's own scale
+    (the bf16 output rounds at ~4e-3 of it)."""
+    rng = np.random.default_rng(5)
+    D, bs, Hq, Hkv, S = 128, 64, 4, 2, 40
+    lens = np.array([3 * bs + 5, 2 * bs + 9, bs + 1], np.int32)
+    B = len(lens)
+    need = [(int(L) + S) // bs + 1 for L in lens]
+    MB, NB = max(need) + 1, sum(need) + 2
+    tables = _tables(rng, need, MB, NB)
+    # every slot's block 1 (live history; slot 2's window opens in it) is
+    # the outlier
+    outlier = [int(x) for x in tables[:, 1]]
+    pools = {}
+    for name in ("k", "v"):
+        f = torch.from_numpy(
+            rng.standard_normal((NB, Hkv, bs, D)).astype(np.float32))
+        if name == pool:
+            f[outlier] *= 100.0
+        sc = kv_block_scale(f, quant, (2, 3))
+        pools[name] = [kv_quantize(f, sc[..., None, None], quant).to(cuda),
+                       sc.to(cuda)]
+    kp, ks = pools["k"]
+    vp, vs = pools["v"]
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    ref_pools = [x.clone() for x in (kp, vp, ks, vs)]
+    if form == "decode":
+        q = _randn(rng, (B, Hq, D), cuda)
+        nk = _randn(rng, (B, Hkv, D), cuda)
+        nv = _randn(rng, (B, Hkv, D), cuda)
+        out, *_ = paged_attention_decode(q, kp, vp, t, ln, nk, nv,
+                                         k_scale=ks, v_scale=vs, quant=quant)
+        ref, *_ = paged_attention_decode_plain(
+            q, *ref_pools[:2], t, ln, nk, nv, None, *ref_pools[2:], quant)
+        tol = 1e-2
+    else:
+        q = _randn(rng, (B, S, Hq, D), cuda)
+        nk = _randn(rng, (B, S, Hkv, D), cuda)
+        nv = _randn(rng, (B, S, Hkv, D), cuda)
+        ql = torch.full((B,), S, dtype=torch.int32, device=cuda)
+        out, *_ = paged_attention_append(q, kp, vp, t, ln, ql, nk, nv,
+                                         k_scale=ks, v_scale=vs, quant=quant)
+        ref, *_ = paged_attention_append_plain(
+            q, *ref_pools[:2], t, ln, ql, nk, nv, None, *ref_pools[2:],
+            quant)
+        tol = 2e-2
+    torch.cuda.synchronize()
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= tol * max(1.0, ref.abs().max().item())
+    for got, want in zip((kp, vp, ks, vs), ref_pools):
+        assert torch.equal(got[:NB - 1], want[:NB - 1])
+
+
+def test_quant_kernels_raise_on_untaken_head_dims(cuda):
+    """Head dims other than 64 and 128 (odd int4 dims among them) stay with
+    the plain version and the CPU: on the card the kernels raise."""
+    rng = np.random.default_rng(5)
+    kp, ks = _quant_pool(rng, (4, 1, 16, 32), "int4", cuda)
+    vp, vs = _quant_pool(rng, (4, 1, 16, 32), "int4", cuda)
+    t = torch.tensor([[0, 2]], dtype=torch.int32, device=cuda)
+    ln = torch.tensor([3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention_decode(_randn(rng, (1, 1, 32), cuda), kp, vp, t, ln,
+                               _randn(rng, (1, 1, 32), cuda),
+                               _randn(rng, (1, 1, 32), cuda), k_scale=ks,
+                               v_scale=vs, quant="int4")
 
 
 def _rel(a, b):

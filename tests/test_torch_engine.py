@@ -154,7 +154,7 @@ def test_unported_options_raise(gqa):
     for scheduler in ("legacy", "fused"):
         for kw in (dict(cache_impl="dense"),
                    dict(speculative_k=2), dict(readout_stride=2),
-                   dict(kv_cache_dtype="int8"), dict(adapter_store=object()),
+                   dict(adapter_store=object()),
                    dict(kv_host_swap=True), dict(mesh=object()),
                    dict(enable_prefix_cache=True)):
             with pytest.raises(NotImplementedError):
@@ -162,6 +162,8 @@ def test_unported_options_raise(gqa):
                           **{**_kw(scheduler=scheduler), **kw})
     with pytest.raises(ValueError, match="scheduler"):
         LLMEngine(tm, device="cpu", **_kw(scheduler="warp"))
+    with pytest.raises(ValueError, match="unknown kv_cache_dtype"):
+        LLMEngine(tm, device="cpu", **_kw(kv_cache_dtype="fp8"))
     with pytest.raises(NotImplementedError):
         LLMEngine(tm)                      # the reference default: dense
     eng = LLMEngine(tm, device="cpu", **_kw())

@@ -25,7 +25,8 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
     keep_mask)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention_append, paged_attention_decode)
+    kv_block_scale, kv_quantize, paged_attention_append,
+    paged_attention_decode)
 
 torch.set_num_threads(1)
 ATOL = 1e-5
@@ -248,8 +249,8 @@ def test_paged_minus_one_write_target_parks_in_scratch(pallas_decode):
 
 def test_block_multihead_attention_decode_matches_reference():
     """The port's op (qkv split + kernel wrapper) against the reference op
-    on the same fused qkv rows; the 3-D form needs q_lens; quantized pools
-    raise."""
+    on the same fused qkv rows; the 3-D form needs q_lens; int8 pools
+    return the scales beside the pools, as the reference's op does."""
     rng = np.random.default_rng(9)
     c = _paged_case(rng, [8, 13, 1], Hq=4, Hkv=2)
     B, Hq, D = c["q"].shape
@@ -283,11 +284,38 @@ def test_block_multihead_attention_decode_matches_reference():
             torch.from_numpy(qkv)[:, None], kc3, vc3, None,
             torch.from_numpy(c["lens"]), None,
             block_tables=torch.from_numpy(c["tables"]))
-    with pytest.raises(NotImplementedError, match="B4"):
+    # quantized pools: the reference op's five-tuple, the same bits
+    NB = c["kc"].shape[0]
+    with pytest.raises(ValueError, match="cache_k_quant_scales"):
         TIF.block_multihead_attention(
             torch.from_numpy(qkv), kc, vc, None, torch.from_numpy(c["lens"]),
             None, block_tables=torch.from_numpy(c["tables"]),
             cache_quant_type="int8")
+    qpools = []
+    for f in (c["kc"], c["vc"]):
+        sc = kv_block_scale(torch.from_numpy(f), "int8", (2, 3))
+        qpools += [kv_quantize(torch.from_numpy(f), sc[..., None, None],
+                               "int8"), sc]
+    ref = JIF.block_multihead_attention(
+        paddle.to_tensor(qkv), *[paddle.to_tensor(t.numpy().copy())
+                                 for t in qpools[::2]],
+        None, paddle.to_tensor(c["lens"]), None,
+        block_tables=paddle.to_tensor(c["tables"]),
+        cache_k_quant_scales=paddle.to_tensor(qpools[1].numpy().copy()),
+        cache_v_quant_scales=paddle.to_tensor(qpools[3].numpy().copy()),
+        cache_quant_type="int8")
+    outs = TIF.block_multihead_attention(
+        torch.from_numpy(qkv), qpools[0], qpools[2], None,
+        torch.from_numpy(c["lens"]), None,
+        block_tables=torch.from_numpy(c["tables"]),
+        cache_k_quant_scales=qpools[1], cache_v_quant_scales=qpools[3],
+        cache_quant_type="int8")
+    assert len(outs) == 5 and outs[1] is qpools[0] and outs[3] is qpools[1]
+    np.testing.assert_allclose(outs[0].numpy(), np.asarray(ref[0]._value),
+                               atol=ATOL, rtol=0)
+    for got, want in zip(outs[1:], ref[1:]):
+        np.testing.assert_array_equal(got.numpy()[:NB - 1],
+                                      np.asarray(want._value)[:NB - 1])
 
 
 # ---------------------------------------------------------------------------

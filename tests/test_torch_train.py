@@ -295,25 +295,32 @@ def test_optimizer_state_bridge_continues_the_reference_run():
 
 def test_refusals():
     """What this port still refuses, each naming its ROADMAP item:
-    quantized KV pools (kernel B4), ``generate`` and sampling with
-    ``temperature > 0`` (A7)."""
+    ``generate`` and sampling with ``temperature > 0`` (A7). Quantized KV
+    pools (kernel B4), refused before slice 5, now serve: an int8 engine
+    builds and a layer attends through a quantized paged cache."""
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.models.llama import PagedKVCache
     tm = LlamaForCausalLM(LlamaConfig(**dict(GQA, dtype="bfloat16")),
                           device="cpu")
     tm.eval()
     ids, _ = _batch(96, B=1, S=8)
-    with pytest.raises(NotImplementedError, match="B4"):
-        LLMEngine(tm, cache_impl="paged", kv_cache_dtype="int8",
-                  device="cpu")
-    pool = torch.zeros(4, 2, 64, 16, dtype=torch.bfloat16)
+    qeng = LLMEngine(tm, cache_impl="paged", kv_cache_dtype="int8",
+                     device="cpu")
+    assert qeng._k[0].dtype == torch.int8
+    pool = torch.zeros(4, 2, 64, 16, dtype=torch.int8)
+    scales = torch.zeros(4, 2, dtype=torch.float32)
     cache = PagedKVCache(pool, pool.clone(),
-                         torch.zeros(1, 2, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32), quant="int8")
-    with pytest.raises(NotImplementedError, match="B4"):
-        tm.llama.layers[0].self_attn(
-            torch.zeros(1, 1, 64, dtype=torch.bfloat16),
-            (tm.llama.rope_cos, tm.llama.rope_sin), kv_cache=cache)
+                         torch.tensor([[0, -1]], dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), None,
+                         scales, scales.clone(), quant="int8")
+    with torch.no_grad():
+        out, cache2 = tm.llama.layers[0].self_attn(
+            torch.ones(1, 1, 64, dtype=torch.bfloat16),
+            (tm.llama.rope_cos, tm.llama.rope_sin), kv_cache=cache,
+            position_offset=cache.seq_lens)
+    assert out.shape == (1, 1, 64) and bool(torch.isfinite(out).all())
+    assert cache2.quant == "int8" and int(cache2.seq_lens[0]) == 1
+    assert cache.k[0].any() and cache.k_scale[0].all()   # written in place
     with pytest.raises(NotImplementedError, match="generate"):
         tm.generate(torch.from_numpy(ids))
     eng = LLMEngine(tm, cache_impl="paged", max_seq_len=64, device="cpu")
