@@ -11,6 +11,8 @@ Phases:
   (b) parity  — each kernel against its plain PyTorch version on the card,
                 bf16, at the main path's shapes plus edge cases (both
                 AdamW kernels with bf16 and float32 grads, bit for bit;
+                B8, the int4 GEMM, at rows 1-128 on five shapes with bf16
+                and float32 x, run twice for the same bits;
                 B4's decode and append forms on int8 and int4 pools with
                 payload and scales bit for bit outside the scratch block, a
                 dirty block whose stale rows must not reach its scale, and
@@ -53,9 +55,30 @@ Phases:
                 effective blocks, TTFT p50/p90, stage shares, median step
                 ms, launches, and each quantized arm's drift against bf16
                 (information);
+  (d-iii) weight-only — the reference's llama_serve rung (Llama-2-7B
+                widths with ff 11264, 32 layers, seeded random bf16
+                weights): the same 12 requests through AsyncLLMServer over
+                the fused engine with a bf16 KV pool at the full demand
+                (256 blocks), in three arms: bf16 weights, a copy quantized
+                to weight-only int8 on the card, then the model quantized
+                to int4 in place. Gates: 225 swaps per quantization; every
+                request finishes with its 64 tokens; the int4 arm launches
+                B8 224 times (7 per layer) in every all-decode step and
+                never in a mixed step, the other arms never; no plain
+                version (paged or B8) runs; only B2/B3 attend; no
+                synchronizing call in step_begin; pool invariants and
+                server health hold; each arm's tokens equal a no-cache
+                forward of its own model where the top-2 margin exceeds
+                the arm's margin (the int4 arm's widened by the logit gap
+                between B8 and the split-nibble route, measured first).
+                Per arm: tokens/s, step ms, weight bytes, drift against
+                bf16, and four traced decode steps' device ms by class
+                (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
-                card's bound for the same work; then four decode steps of
+                card's bound for the same work (B8 at 8 rows on the four
+                7B-scale shapes, its weight out of L2, beside a bf16
+                torch.matmul of the same x); then four decode steps of
                 a fresh legacy engine traced with torch.profiler (device
                 time by kernel class, the device's idle share), and fused
                 mixed and all-decode windows at depth 1 and depth 2, untraced
@@ -103,6 +126,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import gc
 import json
 import os
 import subprocess
@@ -115,7 +140,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from paddle_tpu_torch.core.flags import set_flags
+from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -128,7 +153,12 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
     fused_adamw_update_plain, sr_seed, tile_plan)
+from paddle_tpu_torch.nn.quant import (quantize_linears_for_inference,
+                                       weight_quantize)
+from paddle_tpu_torch.ops.kernels import int4_matmul as i4_mod
 from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+from paddle_tpu_torch.ops.kernels.int4_matmul import (int4_matmul,
+                                                      int4_matmul_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     kv_block_scale, kv_packed_dim, kv_quantize, paged_attention_append,
     paged_attention_append_plain, paged_attention_decode,
@@ -154,6 +184,8 @@ ADAMW_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:40"
 ADAMW_SR_SRC = "paddle_tpu_torch/csrc/fused_adamw_sr.cu"
 ADAMW_SR_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:244"
 PAGED_Q_SRC = "paddle_tpu_torch/csrc/paged_attention_decode_quant.cu"
+INT4_SRC = "paddle_tpu_torch/csrc/int4_matmul.cu"
+INT4_REPLACES = "paddle_tpu/ops/kernels/int4_matmul.py:43"
 QUANTS = ("int8", "int4")
 KERNELS = _build.KERNELS
 
@@ -172,10 +204,36 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_SPIN = {}
+
+
+def spin_cycles_per_ms():
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card."""
+    if not _SPIN:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["per_ms"] = 10_000_000 / start.elapsed_time(end)
+    return _SPIN["per_ms"]
+
+
 def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events). A
+    spin kernel holds the card (up to 100 ms) while the host enqueues the
+    launches, so a call whose host side outlasts its device time is timed
+    on the device and not at the host's pace."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(min(1.2 * call_ms * reps, 100.0)
+                          * spin_cycles_per_ms()))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -678,8 +736,8 @@ def check_adamw_sr(dev):
 # (c) forward, (d) serving, (d') fused serving
 # ---------------------------------------------------------------------------
 
-def build_model(dev):
-    cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
+def build_model(dev, **over):
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16", **over)
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     model.eval()
     return model
@@ -743,7 +801,9 @@ def serving_prompts(vocab):
 
 SERVING_CLASSES = (("paged_decode_kernel", ("paged_decode_kernel",)),
                    ("append_kernels", ("append_attn_kernel",
-                                       "append_write_kernel")))
+                                       "append_write_kernel")),
+                   ("int4_gemm", ("int4_mm_partial_kernel",
+                                  "int4_mm_reduce_kernel")))
 TRAIN_CLASSES = (("flash_forward", ("flash_fwd_kernel",)),
                  ("flash_backward", ("flash_bwd_dkv_kernel",
                                      "flash_bwd_dq_kernel")),
@@ -865,9 +925,9 @@ def run_serving(model, dev):
     return paged_launches, [list(o.token_ids) for o in outs]
 
 
-def greedy_check(model, dev, prompts, outs):
+def greedy_check(model, dev, prompts, outs, margin=MARGIN):
     """Each token against a no-cache forward over its prefix: returns
-    (checked, excused near-ties, mismatched)."""
+    (checked, excused near-ties under ``margin``, mismatched)."""
     checked = excused = mismatched = 0
     with torch.no_grad():
         for p, o in zip(prompts, outs):
@@ -875,10 +935,10 @@ def greedy_check(model, dev, prompts, outs):
             logits = model(torch.from_numpy(seq[None]).to(dev))[0].float()
             rows = logits[len(p) - 1:len(p) - 1 + len(o.token_ids)]
             top2 = torch.topk(rows, 2, dim=-1)
-            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+            gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
             arg = top2.indices[:, 0].cpu().numpy()
             for i, tok in enumerate(o.token_ids):
-                if margin[i] > MARGIN:
+                if gap[i] > margin:
                     checked += 1
                     mismatched += int(arg[i] != tok)
                 else:
@@ -1340,6 +1400,132 @@ def time_append_quant(dev, quant):
 
 
 # ---------------------------------------------------------------------------
+# B8: the weight-only int4 GEMM
+# ---------------------------------------------------------------------------
+
+INT4_ROWS = (1, 5, 8, 16, 127, 128)
+# [n_in, n_out]: a small tile, q/k/v/o, fused q/k/v, gate/up and down at
+# hidden 4096, ff 11264
+INT4_SHAPES = ((2048, 512), (4096, 4096), (4096, 12288), (4096, 11264),
+               (11264, 4096))
+# one decoder layer's projections in the weight-only serving phase
+INT4_LAYER = ((4096, 4096),) * 4 + ((4096, 11264),) * 2 + ((11264, 4096),)
+
+
+def int4_weight(rng, n_in, n_out, dev):
+    """A packed int4 weight and its scales, quantized on the card from a
+    normal weight of std 1/sqrt(n_in) (outputs of magnitude ~1)."""
+    w = torch.from_numpy((rng.standard_normal((n_in, n_out))
+                          / np.sqrt(n_in)).astype(np.float32)).to(dev)
+    return weight_quantize(w, algo="weight_only_int4")
+
+
+def int4_tol(ref, dtype):
+    """bf16: one bf16 rounding step at the output's largest magnitude;
+    float32: 1e-5 of it (other fp32 summation orders)."""
+    top = ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        return 2.0 ** (np.floor(np.log2(top)) - 7)
+    return 1e-5 * top
+
+
+def check_int4_matmul(dev):
+    """B8 against int4_matmul_plain at every INT4_SHAPES x INT4_ROWS, bf16
+    and float32 x, each within int4_tol; a second run gives the same
+    bits. Returns the largest bf16 error."""
+    rng = np.random.default_rng(21)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for n_in, n_out in INT4_SHAPES:
+        packed, scales = int4_weight(rng, n_in, n_out, dev)
+        x_all = torch.from_numpy(rng.standard_normal((128, n_in)).astype(
+            np.float32)).to(dev)
+        for dtype in worst:
+            errs, tols, same = [], [], True
+            for rows in INT4_ROWS:
+                x = x_all[:rows].to(dtype)
+                out = int4_matmul(x, packed, scales)
+                again = int4_matmul(x, packed, scales)
+                ref = int4_matmul_plain(x, packed, scales)
+                torch.cuda.synchronize()
+                same = same and torch.equal(out, again)
+                errs.append((out.float() - ref.float()).abs().max().item())
+                tols.append(int4_tol(ref, dtype))
+            emit({"phase": "parity", "kernel": "int4_matmul",
+                  "shape": [n_in, n_out], "dtype": str(dtype),
+                  "rows": list(INT4_ROWS), "max_abs_err": errs, "tol": tols,
+                  "deterministic": same})
+            require(all(e <= t for e, t in zip(errs, tols)),
+                    f"int4_matmul {[n_in, n_out]} {dtype}: errors {errs} "
+                    f"over {tols}")
+            require(same, f"int4_matmul {[n_in, n_out]} {dtype}: two runs "
+                    f"differ")
+            worst[dtype] = max(worst[dtype], max(errs))
+    return worst[torch.bfloat16]
+
+
+def time_int4_matmul(dev, rows=8):
+    """B8 at ``rows`` on the four 7B-scale shapes, each launch on another
+    copy of the weight so no launch finds it in the 50 MB L2 (a decode
+    step reads each layer's weights once). Bound bytes: the packed weight,
+    x, the scales read once and the output written once. bf16_gemm_ms:
+    torch.matmul of the same x against a bf16 [n_in, n_out] weight (the
+    unquantized layer), timed the same way. wrapper_host_us: the host's
+    time per call of the wrapper (information: decode steps are paced by
+    the host). The ``layer`` entry sums one decoder layer's seven
+    projections (INT4_LAYER)."""
+    rng = np.random.default_rng(22)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {}
+    for n_in, n_out in INT4_SHAPES[1:]:
+        packed, scales = int4_weight(rng, n_in, n_out, dev)
+        copies = max(2, -(-120_000_000 // packed.numel()))
+        ws = [packed.clone() for _ in range(copies)]
+        x = torch.from_numpy(rng.standard_normal((rows, n_in)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        it = iter(range(1 << 30))
+        ms = cuda_ms(lambda: int4_matmul(x, ws[next(it) % copies], scales),
+                     200)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in ws * 2:
+            int4_matmul(x, w, scales)
+        host_us = (time.perf_counter() - t0) * 1e6 / (2 * copies)
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: int4_matmul_plain(x, packed, scales), 20)
+        del ws
+        wb = torch.from_numpy(rng.standard_normal((n_in, n_out)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        wcopies = max(2, -(-120_000_000 // (2 * wb.numel())))
+        wbs = [wb.clone() for _ in range(wcopies)]
+        it = iter(range(1 << 30))
+        gemm_ms = cuda_ms(lambda: torch.matmul(x, wbs[next(it) % wcopies]),
+                          200)
+        del wbs, wb
+        torch.cuda.empty_cache()
+        ops = 2 * rows * n_in * n_out
+        nbytes = n_in // 2 * n_out + 2 * rows * n_in + 4 * n_out \
+            + 2 * rows * n_out
+        res[f"{n_in}x{n_out}"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None, bf16_gemm_ms=gemm_ms,
+            wrapper_host_us=host_us,
+            bf16_gemm_bound_ms=(2 * n_in * n_out + 2 * rows * n_in
+                                + 2 * rows * n_out) / PEAK_BYTES * 1e3,
+            splits=i4_mod.split_count(n_in, n_out, n_sm),
+            **bound(ops, nbytes))
+    layer = [res[f"{a}x{b}"] for a, b in INT4_LAYER]
+    res["layer"] = {k: sum(t[k] for t in layer)
+                    for k in ("ms", "plain_ms", "bound_ms", "bf16_gemm_ms",
+                              "wrapper_host_us", "ops", "bytes")}
+    res["layer"].update(
+        bound_by=layer[0]["bound_by"], library_ms=None, rows=rows,
+        shapes=[list(s) for s in INT4_LAYER],
+        library_reason="no single PyTorch call computes this function: "
+                       "torch._weight_int4pack_mm takes grouped scales with "
+                       "zero points in its own tile layout")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # (d'') quantized KV served through AsyncLLMServer
 # ---------------------------------------------------------------------------
 
@@ -1348,11 +1534,14 @@ SERVE_POOL_FRAC = 0.5       # the bf16 arm holds half the full block demand
 
 @contextlib.contextmanager
 def counting_plain():
-    """Count calls of the four plain paged versions for the duration: on
-    the card no part of the serving path may reach them."""
+    """Count calls of the plain paged versions and B8's plain version for
+    the duration: on the card no part of the serving path may reach
+    them."""
     calls = collections.Counter()
-    names = ("paged_attention_decode_plain", "paged_attention_append_plain")
-    saved = {n: getattr(pa_mod, n) for n in names}
+    mods = {"paged_attention_decode_plain": pa_mod,
+            "paged_attention_append_plain": pa_mod,
+            "int4_matmul_plain": i4_mod}
+    saved = {n: getattr(m, n) for n, m in mods.items()}
 
     def wrap(name, fn):
         def counted(*a, **k):
@@ -1361,12 +1550,12 @@ def counting_plain():
         return counted
 
     for n, fn in saved.items():
-        setattr(pa_mod, n, wrap(n, fn))
+        setattr(mods[n], n, wrap(n, fn))
     try:
         yield calls
     finally:
         for n, fn in saved.items():
-            setattr(pa_mod, n, fn)
+            setattr(mods[n], n, fn)
 
 
 def kernel_counts():
@@ -1379,6 +1568,7 @@ def kernel_counts():
 
 
 def reset_kernel_counts():
+    int4_matmul.launches = 0
     paged_attention_decode.launches = 0
     paged_attention_append.launches = 0
     for q in QUANTS:
@@ -1407,23 +1597,28 @@ def drift(ref_toks, arm_toks):
             "token_parity": first_div is None}
 
 
-def serve_arm(model, dev, prompts, quant, n_blocks):
+def serve_arm(model, dev, prompts, quant, n_blocks, name=None):
     """One arm: the fused engine over ``n_blocks`` pool blocks of dtype
     ``quant``, the 12 requests through AsyncLLMServer (default depth),
-    every step_begin under the sync watch on the engine thread."""
+    every step_begin under the sync watch on the engine thread; B8's
+    launches are counted per step by kind."""
+    name = name or quant or "bf16"
     eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
                             kv_cache_dtype=quant)
     syncs, kinds, step_ms = [], {}, {"mixed": [], "decode": []}
+    b8_steps = {"mixed": collections.Counter(),
+                "decode": collections.Counter()}
     clock = {"prev": None}
     begin, finish = eng.step_begin, eng.step_finish
 
     def watched_begin():
-        f0 = eng.stats["fused_steps"]
+        f0, n8 = eng.stats["fused_steps"], int4_matmul.launches
         with sync_watch(syncs):
             pending = begin()
         if pending is not None and pending.toks is not None:
-            kinds[id(pending)] = ("mixed" if eng.stats["fused_steps"] > f0
-                                  else "decode")
+            kind = "mixed" if eng.stats["fused_steps"] > f0 else "decode"
+            kinds[id(pending)] = kind
+            b8_steps[kind][int4_matmul.launches - n8] += 1
         return pending
 
     def timed_finish(pending):
@@ -1450,13 +1645,14 @@ def serve_arm(model, dev, prompts, quant, n_blocks):
                     break
                 except TimeoutError:
                     require(time.perf_counter() - t0 < 600,
-                            f"{quant or 'bf16'} arm: no progress in 600 s")
+                            f"{name} arm: no progress in 600 s")
                     resident.append(sum(s is not None for s in eng.slots))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         health = server.health()
         server.stop()
     launches = kernel_counts()
+    b8 = int4_matmul.launches
     snap = server.telemetry.snapshot(wall_s=wall)
     L = model.config.num_hidden_layers
     n_mixed = eng.stats["fused_steps"]
@@ -1469,7 +1665,8 @@ def serve_arm(model, dev, prompts, quant, n_blocks):
     finally:
         eng._debug_pool = saved_debug
     n_tok = sum(len(o.token_ids) for o in outs)
-    arm = {"kv_cache_dtype": quant or "bf16", "pool_blocks": n_blocks,
+    arm = {"arm": name, "kv_cache_dtype": quant or "bf16",
+           "pool_blocks": n_blocks,
            "pool_bytes": eng.kv_pool_nbytes(),
            "bytes_per_block": eng.kv_bytes_per_block(),
            "effective_blocks": eng.kv_pool_effective_blocks(),
@@ -1487,32 +1684,35 @@ def serve_arm(model, dev, prompts, quant, n_blocks):
            "ttft_p50_s": snap["latency"]["ttft"]["p50_s"],
            "ttft_p90_s": snap["latency"]["ttft"]["p90_s"],
            "stage_shares": snap["attribution"],
-           "launches": launches, "plain_calls": dict(plain_calls),
+           "launches": launches, "b8_launches": b8,
+           "b8_launches_per_step": {k: dict(c) for k, c in b8_steps.items()},
+           "plain_calls": dict(plain_calls),
            "finish_reasons": sorted({o.finish_reason for o in outs}),
            "step_begin_syncs": len(syncs),
            "step_begin_sync_messages": sorted(set(syncs))[:5],
            "pool_invariants": invariants, "healthy_at_end": health["healthy"]}
     require(all(o.finished and o.finish_reason == "length" and
                 len(o.token_ids) == 64 for o in outs) and len(outs) == 12,
-            f"{arm['kv_cache_dtype']} arm: a request did not finish with its "
+            f"{name} arm: a request did not finish with its "
             f"64 tokens")
-    require(not syncs, f"{arm['kv_cache_dtype']} arm: step_begin made "
+    require(not syncs, f"{name} arm: step_begin made "
             f"{len(syncs)} synchronizing calls")
-    require(health["healthy"], f"{arm['kv_cache_dtype']} arm: server "
+    require(health["healthy"], f"{name} arm: server "
             f"{health['state']} at the end")
-    require(not plain_calls, f"{arm['kv_cache_dtype']} arm: plain versions "
+    require(not plain_calls, f"{name} arm: plain versions "
             f"ran on the card: {dict(plain_calls)}")
     dec = "b2_decode" if quant is None else f"b4_decode_{quant}"
     app = "b3_append" if quant is None else f"b4_append_{quant}"
     require(launches[app] == n_mixed * L and launches[app] > 0 and
             launches[dec] == n_decode * L and launches[dec] > 0,
-            f"{arm['kv_cache_dtype']} arm: launches {launches} against "
+            f"{name} arm: launches {launches} against "
             f"{n_mixed} mixed and {n_decode} all-decode steps x {L}")
     require(all(n == 0 for k, n in launches.items() if k not in (dec, app)),
-            f"{arm['kv_cache_dtype']} arm: other paged kernels launched: "
+            f"{name} arm: other paged kernels launched: "
             f"{launches}")
-    del eng, server
-    torch.cuda.empty_cache()
+    # the watch wrappers close over the engine: drop them so the engine's
+    # pool is freed with it, not at the next garbage collection
+    del eng.step_begin, eng.step_finish
     return arm, [list(o.token_ids) for o in outs]
 
 
@@ -1534,6 +1734,8 @@ def run_quant_serving(model, dev):
         n_blocks = min(budget // probe[q], full)
         arms[q or "bf16"], toks[q or "bf16"] = serve_arm(model, dev, prompts,
                                                          q, n_blocks)
+        gc.collect()
+        torch.cuda.empty_cache()
     checked, excused, mismatched = greedy_check(
         model, dev, prompts,
         [collections.namedtuple("Out", "token_ids")(t) for t in toks["bf16"]])
@@ -1549,6 +1751,117 @@ def run_quant_serving(model, dev):
             f"tokens disagree with the no-cache forward beyond {MARGIN}")
     return {q: (arms[q]["launches"][f"b4_decode_{q}"],
                 arms[q]["launches"][f"b4_append_{q}"]) for q in QUANTS}
+
+
+# ---------------------------------------------------------------------------
+# (d-iii) weight-only int8/int4 served through AsyncLLMServer (B8)
+# ---------------------------------------------------------------------------
+
+# the reference's llama_serve rung (bench.py:724-740): Llama-2-7B widths
+# with ff = hidden * 11 // 4, at which every decoder projection tiles for B8
+WO_FF = 11264
+
+
+def weight_bytes(model):
+    """Bytes of the model's parameters on the card, and of its projections
+    (Linear or WeightOnlyLinear) alone."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    proj = sum(p.numel() * p.element_size()
+               for n, p in model.named_parameters()
+               if "proj" in n or "lm_head" in n)
+    return {"all": total, "projections": proj}
+
+
+def route_gap(model, dev, prompts):
+    """The largest logit gap between B8 and the split-nibble path on the
+    same input: 8 sequences of 16 tokens (128 rows, the most a B8 GEMM
+    takes) through a no-cache forward, FLAGS_use_pallas_int4 on then off.
+    Also returns the B8 launches of the kernel run (7 per layer)."""
+    ids = torch.from_numpy(np.stack([p[:16] for p in prompts[:8]])).to(dev)
+    saved = get_flags("FLAGS_use_pallas_int4")
+    n0 = int4_matmul.launches
+    try:
+        with torch.no_grad():
+            on = model(ids).float()
+            n_on = int4_matmul.launches - n0
+            set_flags({"FLAGS_use_pallas_int4": False})
+            off = model(ids).float()
+    finally:
+        set_flags(saved)
+    return (on - off).abs().max().item(), n_on
+
+
+def wo_arm(model, dev, prompts, name, margin):
+    """One weight-only arm: the 12 requests through serve_arm over a bf16
+    pool at the full demand, then the greedy check against a no-cache
+    forward of the arm's own model, the weight bytes, and four traced
+    decode steps (device ms by class: B2, B8, GEMMs, other)."""
+    arm, toks = serve_arm(model, dev, prompts, None, 8 * (2048 // 64),
+                          name=name)
+    checked, excused, mismatched = greedy_check(
+        model, dev, prompts,
+        [collections.namedtuple("Out", "token_ids")(t) for t in toks],
+        margin)
+    arm.update(weight_bytes=weight_bytes(model), greedy_margin=margin,
+               greedy_checked=checked, greedy_excused_near_ties=excused,
+               greedy_mismatched=mismatched,
+               decode_window=profile_decode(model, dev))
+    require(mismatched == 0, f"{name} arm: {mismatched} greedy tokens "
+            f"disagree with its own no-cache forward beyond {margin}")
+    return arm, toks
+
+
+def run_weight_only_serving(model, dev):
+    """The slice's path at full width and depth (the reference's
+    llama_serve rung, 32 layers): the 12 requests through AsyncLLMServer
+    over the fused engine with bf16 weights, then a copy quantized to
+    weight-only int8, then the model itself quantized to int4 in place
+    (after the int8 copy is freed), each over a bf16 KV pool at the full
+    demand. The int4 arm launches B8 for every decoder projection of every
+    all-decode step (8 rows) and never in a mixed step (2,048 rows); the
+    other arms never. Returns the int4 arm's B8 launches."""
+    t_phase = time.perf_counter()
+    prompts = serving_prompts(model.config.vocab_size)
+    L = model.config.num_hidden_layers
+    arms, toks, swaps, gap = {}, {}, {}, None
+    for name in ("bf16", "int8", "int4"):
+        m = copy.deepcopy(model) if name == "int8" else model
+        margin = MARGIN
+        if name != "bf16":
+            t0 = time.perf_counter()
+            _, n = quantize_linears_for_inference(m, weight_dtype=name)
+            torch.cuda.synchronize()
+            swaps[name] = {"swaps": n, "seconds": time.perf_counter() - t0}
+            require(n == 7 * L + 1, f"{name}: {n} swaps, expected "
+                    f"{7 * L + 1}")
+        if name == "int4":
+            gap, n_on = route_gap(m, dev, prompts)
+            require(n_on == 7 * L, f"route gap: {n_on} B8 launches in the "
+                    f"kernel-route forward, expected {7 * L}")
+            # an argmax flips only where top-1 minus top-2 is under twice
+            # the largest logit move; doubled again since the gap is
+            # sampled on one input
+            margin = MARGIN + 4 * gap
+        arms[name], toks[name] = wo_arm(m, dev, prompts, name, margin)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("int8", "int4"):
+        arms[name]["drift_vs_bf16"] = drift(toks["bf16"], toks[name])
+    emit({"phase": "weight_only_serving", "layers": L, "ff": WO_FF,
+          "swaps": swaps, "route_logit_gap": gap, "arms": arms,
+          "seconds": time.perf_counter() - t_phase})
+    want = 7 * L
+    for name, arm in arms.items():
+        per = arm["b8_launches_per_step"]
+        if name == "int4":
+            require(set(per["decode"]) == {want} and set(per["mixed"]) == {0},
+                    f"int4 arm: B8 launches per step {per}, expected "
+                    f"{want} per all-decode step and 0 per mixed step")
+        else:
+            require(arm["b8_launches"] == 0, f"{name} arm launched B8 "
+                    f"{arm['b8_launches']} times")
+    return arms["int4"]["b8_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2021,6 +2334,7 @@ def main():
     bwd_err = check_flash_bwd(dev)
     adamw_err = check_adamw(dev)
     adamw_sr_err = check_adamw_sr(dev)
+    int4_err = check_int4_matmul(dev)
     torch.cuda.empty_cache()
 
     model = build_model(dev)
@@ -2046,6 +2360,14 @@ def main():
     torch.cuda.empty_cache()
     emit({"phase": "fused_profile", "windows": profile_fused(model, dev)})
     del model
+    torch.cuda.empty_cache()
+    model = build_model(dev, intermediate_size=WO_FF)
+    int4_launches = run_weight_only_serving(model, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    i4t = time_int4_matmul(dev)
+    emit({"phase": "timing", "int4_matmul": i4t})
     torch.cuda.empty_cache()
 
     train_launches = collections.Counter()
@@ -2125,6 +2447,13 @@ def main():
                  "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})
+    lt = i4t["layer"]
+    kernels.append(
+        {"name": "int4_matmul", "route": "cuda", "source": INT4_SRC,
+         "replaces": INT4_REPLACES, "launches": int4_launches,
+         "max_abs_err": int4_err, "ms": lt["ms"], "plain_ms": lt["plain_ms"],
+         "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+         "library_ms": lt["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

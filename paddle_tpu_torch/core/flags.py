@@ -96,3 +96,8 @@ define_flag("adamw_stochastic_rounding", False,
             "master-weight-free AdamW for bf16 params with a stochastically "
             "rounded param write (the stochastic-rounding kernel where the "
             "reference's kernel tiles the shape, else the plain chain)")
+define_flag("use_pallas_int4", True,
+            "route tileable weight-only int4 GEMMs of at most 128 rows on a "
+            "CUDA tensor to the hand-written int4 GEMM kernel (the "
+            "reference's name; CPU tensors always take the split-nibble "
+            "path)")

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: :func:`build_all` compiles for a run that drives all the paths
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
            "paged_attention_decode", "paged_attention_append",
-           "paged_attention_decode_quant", "fused_adamw", "fused_adamw_sr")
+           "paged_attention_decode_quant", "fused_adamw", "fused_adamw_sr",
+           "int4_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -8,7 +8,10 @@ bf16 rounding of the output (~4e-3 relative) plus a different fp32
 summation order, against values of magnitude ~1; the flash backward's
 grads within 2e-2 of their largest magnitude; the AdamW kernels bit for
 bit; the quantized paged kernels' payload and scales bit for bit (their
-outputs within the unquantized forms' tolerances)."""
+outputs within the unquantized forms' tolerances); the int4 GEMM within one
+bf16 step of its output's magnitude (bf16) or 1e-5 of it (float32), the
+same bits on every run, and weights quantized on the card bit for bit as on
+the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,10 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
     fused_adamw_update_plain, sr_seed)
+from paddle_tpu_torch.nn.quant import (WeightOnlyLinear, weight_only_linear,
+                                       weight_quantize)
+from paddle_tpu_torch.ops.kernels.int4_matmul import (int4_matmul,
+                                                      int4_matmul_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     kv_block_scale, kv_quantize, paged_attention_append,
     paged_attention_append_plain, paged_attention_decode,
@@ -452,3 +459,117 @@ def test_adamw_sr_kernel_bit_identical_to_plain(cuda, g_dtype, n, step,
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert not torch.equal(a[0], before)
+
+
+# ---------------------------------------------------------------------------
+# B8: the weight-only int4 GEMM
+# ---------------------------------------------------------------------------
+
+INT4_SHAPES = [(2048, 512), (4096, 4096), (4096, 12288), (4096, 11264),
+               (11264, 4096)]
+
+
+def _int4_case(rng, n_in, n_out, dev):
+    packed = torch.from_numpy(rng.integers(-128, 128, (n_in // 2, n_out),
+                                           dtype=np.int8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(1e-3, 2e-2, n_out)
+                              .astype(np.float32)).to(dev)
+    return packed, scales
+
+
+def _int4_tol(ref, dtype):
+    top = ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        return 2.0 ** (np.floor(np.log2(top)) - 7)
+    return 1e-5 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_in,n_out", INT4_SHAPES)
+def test_int4_matmul_kernel_matches_plain(cuda, n_in, n_out, dtype):
+    rng = np.random.default_rng(n_in + n_out)
+    packed, scales = _int4_case(rng, n_in, n_out, cuda)
+    x_all = torch.from_numpy(rng.standard_normal((128, n_in))
+                             .astype(np.float32)).to(cuda).to(dtype)
+    for rows in (1, 5, 8, 16, 127, 128):
+        x = x_all[:rows]
+        n0 = int4_matmul.launches
+        out = int4_matmul(x, packed, scales)
+        again = int4_matmul(x, packed, scales)
+        torch.cuda.synchronize()
+        assert int4_matmul.launches == n0 + 2
+        assert out.dtype == dtype and out.shape == (rows, n_out)
+        assert torch.equal(out, again), rows            # deterministic
+        ref = int4_matmul_plain(x, packed, scales)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= _int4_tol(ref, dtype), (rows, err)
+
+
+def test_int4_matmul_kernel_out_dtype(cuda):
+    rng = np.random.default_rng(3)
+    packed, scales = _int4_case(rng, 4096, 4096, cuda)
+    x = torch.from_numpy(rng.standard_normal((8, 4096)).astype(np.float32)) \
+        .to(cuda).to(torch.bfloat16)
+    out = int4_matmul(x, packed, scales, out_dtype=torch.float32)
+    ref = int4_matmul_plain(x, packed, scales, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= _int4_tol(ref, torch.float32)
+
+
+def test_int4_matmul_wrapper_raises(cuda):
+    rng = np.random.default_rng(4)
+    packed, scales = _int4_case(rng, 2048, 512, cuda)
+    x = torch.zeros((129, 2048), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 128 rows"):
+        int4_matmul(x, packed, scales)
+    with pytest.raises(ValueError, match="n_out % 512"):
+        int4_matmul(x[:8], packed[:, :500].contiguous(), scales[:500])
+    with pytest.raises(ValueError, match="n_in == 2"):
+        int4_matmul(x[:8, :2047], packed, scales)
+    with pytest.raises(TypeError, match="scales"):
+        int4_matmul(x[:8], packed, scales.to(torch.bfloat16))
+
+
+def test_int4_linear_routes_decode_rows_to_the_kernel(cuda):
+    """A tileable int4 layer takes B8 for <= 128 rows and the split path
+    above, each within its own tolerance of the dequantized product."""
+    lin = torch.nn.Module()
+    lin.weight = torch.nn.Parameter(torch.from_numpy(
+        np.random.default_rng(5).standard_normal((4096, 1024))
+        .astype(np.float32)).to(cuda).to(torch.bfloat16))
+    lin.bias = None
+    layer = WeightOnlyLinear(lin, "int4")
+    for rows, launched in ((8, 1), (128, 1), (129, 0)):
+        x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+            (rows, 4096)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+        n0 = int4_matmul.launches
+        y = layer(x)
+        assert int4_matmul.launches == n0 + launched, rows
+        ref = int4_matmul_plain(x, layer.quant_weight, layer.weight_scale)
+        # the split path rounds each dequantized weight to bf16 first
+        assert (y.float() - ref.float()).abs().max().item() <= \
+            4 * _int4_tol(ref, torch.bfloat16), rows
+
+
+@pytest.mark.parametrize("algo", ["weight_only_int8", "weight_only_int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 4096), (1001, 512)])
+def test_weight_quantize_on_card_matches_cpu(cuda, algo, dtype, shape):
+    w = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    w[:, 7] = 0.0
+    cpu = torch.from_numpy(w).to(dtype)
+    q_cpu, s_cpu = weight_quantize(cpu, algo=algo)
+    q_gpu, s_gpu = weight_quantize(cpu.to(cuda), algo=algo)
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+    assert torch.equal(s_gpu.cpu().view(torch.int32), s_cpu.view(torch.int32))
+
+
+def test_int8_linear_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(8)
+    q, s = weight_quantize(torch.from_numpy(
+        rng.standard_normal((512, 256)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((4, 512)).astype(np.float32))
+    want = weight_only_linear(x, q, None, s, "int8")
+    got = weight_only_linear(x.to(cuda), q.to(cuda), None, s.to(cuda), "int8")
+    assert (got.cpu() - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
