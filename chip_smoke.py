@@ -7,9 +7,11 @@ any phase fails, if CUDA is absent, or if the package is not beside it.
 
 Phases:
   (a) build   — compile every kernel of the path from paddle_tpu_torch/csrc
-                with nvcc for sm_90a, all nvcc processes at once;
+                with nvcc for sm_90a, all nvcc processes at once, and print
+                B1's ptxas lines (registers, barriers, spills);
   (b) parity  — each kernel against its plain PyTorch version on the card,
-                bf16, at the main path's shapes plus edge cases (both
+                bf16, at the main path's shapes plus edge cases (B1 at
+                D 128 and 64, GQA and one kv head, S 2048, 1000 and 17; both
                 AdamW kernels with bf16 and float32 grads, bit for bit;
                 B8, the int4 GEMM, at rows 1-128 on five shapes with bf16
                 and float32 x, run twice for the same bits;
@@ -76,7 +78,8 @@ Phases:
                 (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
-                card's bound for the same work (B8 at 8 rows on the four
+                card's bound for the same work (B1's host µs per call
+                beside its device time; B8 at 8 rows on the four
                 7B-scale shapes, its weight out of L2, beside a bf16
                 torch.matmul of the same x); then four decode steps of
                 a fresh legacy engine traced with torch.profiler (device
@@ -165,6 +168,7 @@ from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_decode_plain)
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.serving import AsyncLLMServer
+from paddle_tpu_torch.tools.cuda_timing import cuda_ms, host_us
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -204,46 +208,6 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-_SPIN = {}
-
-
-def spin_cycles_per_ms():
-    """Clock cycles of ``torch.cuda._sleep`` per ms on this card."""
-    if not _SPIN:
-        torch.cuda._sleep(1000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(10_000_000)
-        end.record()
-        end.synchronize()
-        _SPIN["per_ms"] = 10_000_000 / start.elapsed_time(end)
-    return _SPIN["per_ms"]
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events). A
-    spin kernel holds the card (up to 100 ms) while the host enqueues the
-    launches, so a call whose host side outlasts its device time is timed
-    on the device and not at the host's pace."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    call_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda._sleep(int(min(1.2 * call_ms * reps, 100.0)
-                          * spin_cycles_per_ms()))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def randn(rng, shape, dev):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
         .to(dev).to(torch.bfloat16)
@@ -261,19 +225,22 @@ def flash_case(rng, dev, B, S, Hq, Hkv, D=128):
 def check_flash(dev):
     rng = np.random.default_rng(1)
     worst = 0.0
-    for name, B, S, Hq, Hkv, causal in (
-            ("main_causal", 2, 2048, 32, 32, True),
-            ("main_full", 2, 2048, 32, 32, False),
-            ("gqa_causal", 2, 2048, 32, 8, True),
-            ("ragged_causal", 2, 1000, 32, 32, True),
-            ("ragged_full", 1, 1000, 32, 8, False)):
-        q, k, v = flash_case(rng, dev, B, S, Hq, Hkv)
+    for name, B, S, Hq, Hkv, D, causal in (
+            ("main_causal", 2, 2048, 32, 32, 128, True),
+            ("main_full", 2, 2048, 32, 32, 128, False),
+            ("gqa_causal", 2, 2048, 32, 8, 128, True),
+            ("ragged_causal", 2, 1000, 32, 32, 128, True),
+            ("ragged_full", 1, 1000, 32, 8, 128, False),
+            ("d64_causal", 2, 2048, 32, 8, 64, True),
+            ("mqa_causal", 2, 2048, 32, 1, 128, True),
+            ("s17_causal", 2, 17, 32, 32, 128, True)):
+        q, k, v = flash_case(rng, dev, B, S, Hq, Hkv, D)
         out, lse = flash_attention_fwd(q, k, v, causal)
         ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         emit({"phase": "parity", "kernel": "flash_attention_fwd",
-              "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": 128,
+              "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
               "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
               "tol": FLASH_TOL, "lse_tol": LSE_TOL})
         require(err <= FLASH_TOL and lse_err <= LSE_TOL,
@@ -1269,6 +1236,8 @@ def time_flash(dev):
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, True), 20)
     dropout_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, True, None, 0.1,
                                                      7), 20)
+    # the wrapper's host cost: checks, three tensor maps encoded, the launch
+    call_us = host_us(lambda: flash_attention_fwd(q, k, v, True))
     plain_ms = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, True), 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1281,7 +1250,7 @@ def time_flash(dev):
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 shape=[B, S, H, D], causal=True, ops=ops, bytes=nbytes,
-                dropout_0_1_ms=dropout_ms)
+                dropout_0_1_ms=dropout_ms, host_us_per_call=call_us)
 
 
 def time_paged(dev):
@@ -2325,6 +2294,10 @@ def main():
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
+    # B1's own lines: each instantiation's registers, shared memory, spills
+    emit({"phase": "ptxas", "kernel": "flash_attention_fwd",
+          "lines": [ln.strip() for ln in logs["flash_attention_fwd"]
+                    .splitlines() if "ptxas" in ln or "spill" in ln]})
 
     flash_err = check_flash(dev)
     paged_err = check_paged(dev)

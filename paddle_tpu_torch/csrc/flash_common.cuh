@@ -1,9 +1,10 @@
-// What the flash-attention forward (flash_attention_fwd.cu) and backward
-// (flash_attention_bwd.cu) share: the tile shape, the mma.sync fragment
-// helpers, the shared-memory tile copy, and the dropout hash. The backward
-// is right only if it rebuilds the forward's dropout mask bit for bit, so
-// `keep_elem` lives here once (its plain twin is `keep_mask` in
-// ops/kernels/flash_attention.py).
+// What the flash-attention kernels share: the tile shape, the mma.sync
+// fragment helpers and the shared-memory tile copy of the backward
+// (flash_attention_bwd.cu) and the paged append, and the dropout hash and
+// bf16 packing that the forward (flash_attention_fwd.cu, built on
+// sm90_common.cuh) uses too. The backward is right only if it rebuilds the
+// forward's dropout mask bit for bit, so `keep_elem` lives here once (its
+// plain twin is `keep_mask` in ops/kernels/flash_attention.py).
 #pragma once
 
 #include <cuda_bf16.h>

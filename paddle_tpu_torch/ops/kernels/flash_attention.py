@@ -21,6 +21,8 @@ its float32 ``seed_f``; forward and backward rebuild the same mask.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -234,6 +236,74 @@ def _device(q, what):
     return q.device.type
 
 
+#: the forward kernel's geometry (``csrc/flash_attention_fwd.cu``): q rows
+#: per CTA, kv rows per ring stage, ring stages, threads (a producer and two
+#: consumer warpgroups), heads per launch group, and the shared memory a CTA
+#: may take on the H100
+FWD_BLOCK_Q, FWD_BLOCK_K, FWD_STAGES, FWD_THREADS = 128, 128, 2, 384
+FWD_HEAD_GROUP = 16
+SMEM_PER_BLOCK = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdLaunch:
+    """One launch of the forward kernel: the tile sizes, the ring's stages,
+    threads per CTA, the grid ``(q tiles, B * Hq)``, the dynamic shared
+    memory in bytes, the heads per launch group, and for each q tile the
+    kv tiles it walks (the causal limit)."""
+    block_q: int
+    block_k: int
+    stages: int
+    threads: int
+    grid: tuple
+    smem_bytes: int
+    head_group: int
+    kv_tiles: tuple
+
+    def tile(self, rank):
+        """The ``(bh, q tile)`` of the CTA launched ``rank``-th (blocks
+        launch x fastest): heads in groups of ``head_group``, and inside a
+        group the q tiles heaviest first across its heads."""
+        n_qt, n_bh = self.grid
+        group, r = divmod(rank, self.head_group * n_qt)
+        heads = min(self.head_group, n_bh - group * self.head_group)
+        return group * self.head_group + r % heads, n_qt - 1 - r // heads
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_launch_config(B, Sq, Sk, Hq, Hkv, D, causal):
+    """The forward kernel's launch geometry for these shapes (the kernel
+    states the same constants and checks them against these numbers).
+    Shared memory: Q, then ``stages`` pairs of K and V tiles, 8-byte
+    mbarriers (Q full; K full, V full, K empty, V empty per stage), and
+    1024 bytes of slack to align the 128-byte-swizzled tiles to 1024
+    bytes."""
+    del Hkv     # GQA maps heads inside the CTA; the geometry ignores it
+    bq, bk = FWD_BLOCK_Q, FWD_BLOCK_K
+    n_qt, n_kt = -(-Sq // bq), -(-Sk // bk)
+    tiles = tuple(min(n_kt, -(-(qt * bq + bq) // bk)) if causal else n_kt
+                  for qt in range(n_qt))
+    smem = 1024 + bq * D * 2 + FWD_STAGES * 2 * bk * D * 2 \
+        + 8 * (1 + 4 * FWD_STAGES)
+    return FwdLaunch(bq, bk, FWD_STAGES, FWD_THREADS, (n_qt, B * Hq), smem,
+                     FWD_HEAD_GROUP, tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def _check_fwd_launch(B, Sq, Sk, Hq, Hkv, D, causal):
+    """Hold the kernel's constants against :func:`fwd_launch_config` for
+    these shapes, once per distinct geometry; raises on a mismatch."""
+    cfg = fwd_launch_config(B, Sq, Sk, Hq, Hkv, D, causal)
+    lib = _build.load(KERNEL)
+    chk = lib.pt_flash_attention_fwd_check_launch
+    chk.argtypes = [ctypes.c_int] * 15
+    chk.restype = ctypes.c_int
+    code = chk(B, Sq, Sk, Hq, D, int(causal), cfg.block_q, cfg.block_k,
+               cfg.stages, cfg.threads, cfg.smem_bytes, cfg.grid[0],
+               cfg.grid[1], cfg.head_group, cfg.kv_tiles[-1])
+    _build.check(lib, code, "flash_attention_fwd launch geometry")
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
                         seed=0):
     """Flash attention forward over ``[B, S, H, D]`` tensors; returns
@@ -260,6 +330,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
     thr, inv = _dropout_consts(dropout_p)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
+    _check_fwd_launch(B, Sq, Sk, Hq, Hkv, D, bool(causal))
     lib = _build.load(KERNEL)
     fn = lib.pt_flash_attention_fwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \

@@ -2,16 +2,19 @@
 one process, alternating, on the card.
 
     python -m paddle_tpu_torch.tools.ab_flash_fwd OTHER_ROOT [--rounds 3]
+        [--shape B,S,H,D ...]
 
 ``OTHER_ROOT`` holds another checkout's ``paddle_tpu_torch`` (for example
 ``git archive <commit> paddle_tpu_torch`` unpacked into an ignored
 directory). Both packages load side by side under their own module names
-and build their own kernels; both run on the same bf16 inputs at
-``[2, 2048, 32, 128]`` causal, the forward timing shape of
-``chip_smoke.py``. Each round times other, this, this, other; each timing
-is the mean of 20 launches between CUDA events. Prints one JSON line per
-timing, then a summary with each side's median, the largest difference
-between the two outputs, and the card's name and power limit.
+and build their own kernels; both run on the same bf16 inputs, causal, at
+each ``--shape`` (default ``2,2048,32,128``, the forward timing shape of
+``chip_smoke.py``, and ``4,2048,32,128``, the training shape). Each round
+times other, this, this, other; each timing is the device time of 20
+launches held behind a spin kernel (:func:`cuda_timing.cuda_ms`), so the
+host's pace does not enter it. Prints one JSON line per timing, then per
+shape a summary with each side's median, the largest difference between
+the two outputs, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from paddle_tpu_torch.tools.cuda_timing import cuda_ms
+
 THIS_ROOT = Path(__file__).resolve().parents[2]
-SHAPE = (2, 2048, 32, 128)
+SHAPES = ((2, 2048, 32, 128), (4, 2048, 32, 128))
 REPS = 20
 
 
@@ -44,49 +49,51 @@ def load_flash(root: Path, alias: str):
     return importlib.import_module(f"{alias}.ops.kernels.flash_attention")
 
 
-def mean_ms(fn):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
+def shape_arg(text):
+    shape = tuple(int(x) for x in text.split(","))
+    if len(shape) != 4:
+        raise argparse.ArgumentTypeError(f"want B,S,H,D, got {text!r}")
+    return shape
+
+
+def ab(sides, shape, rounds, card):
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to("cuda").to(torch.bfloat16) for _ in range(3))
+    outs = {name: mod.flash_attention_fwd(q, k, v, True)[0]
+            for name, mod in sides.items()}
+    diff = (outs["this"].float() - outs["other"].float()).abs().max().item()
+    times = {name: [] for name in sides}
+    for r in range(rounds):
+        for name in ("other", "this", "this", "other"):
+            fwd = sides[name].flash_attention_fwd
+            ms = cuda_ms(lambda: fwd(q, k, v, True), REPS)
+            times[name].append(ms)
+            print(json.dumps({"shape": list(shape), "round": r, "side": name,
+                              "ms": ms}), flush=True)
+    print(json.dumps({
+        "shape": list(shape), "causal": True, "dropout_p": 0.0,
+        "median_ms": {n: statistics.median(t) for n, t in times.items()},
+        "max_abs_out_diff": diff, "card": card}), flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other_root", type=Path)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--shape", type=shape_arg, action="append",
+                    help="B,S,H,D (repeatable; default both of SHAPES)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_flash_fwd: CUDA is not available")
     sides = {"other": load_flash(args.other_root.resolve(), "ptt_other"),
              "this": load_flash(THIS_ROOT, "ptt_this")}
-    rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(rng.standard_normal(SHAPE).astype(np.float32))
-               .to("cuda").to(torch.bfloat16) for _ in range(3))
-    outs = {name: mod.flash_attention_fwd(q, k, v, True)[0]
-            for name, mod in sides.items()}
-    diff = (outs["this"].float() - outs["other"].float()).abs().max().item()
-    times = {name: [] for name in sides}
-    for r in range(args.rounds):
-        for name in ("other", "this", "this", "other"):
-            fwd = sides[name].flash_attention_fwd
-            ms = mean_ms(lambda: fwd(q, k, v, True))
-            times[name].append(ms)
-            print(json.dumps({"round": r, "side": name, "ms": ms}), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip().splitlines()[0]
-    print(json.dumps({
-        "shape": list(SHAPE), "causal": True, "dropout_p": 0.0,
-        "median_ms": {n: statistics.median(t) for n, t in times.items()},
-        "max_abs_out_diff": diff, "card": card}), flush=True)
+    for shape in args.shape or SHAPES:
+        ab(sides, shape, args.rounds, card)
 
 
 if __name__ == "__main__":

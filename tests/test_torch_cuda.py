@@ -47,14 +47,18 @@ def _randn(rng, shape, dev):
         .to(dev).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
-    (1, 128, 2, 2, 128, True), (2, 200, 4, 2, 128, False),
-    (1, 77, 8, 2, 64, True), (2, 256, 4, 4, 64, False)])
-def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", [
+    (1, 128, 128, 2, 2, 128, True), (2, 200, 200, 4, 2, 128, False),
+    (1, 77, 77, 8, 2, 64, True), (2, 256, 256, 4, 4, 64, False),
+    (1, 1, 1, 4, 4, 128, True), (2, 17, 17, 4, 2, 128, True),
+    (1, 129, 129, 4, 4, 128, False), (1, 1000, 1000, 4, 1, 128, True),
+    (1, 2048, 2048, 8, 8, 128, True), (1, 2048, 2048, 4, 1, 64, True),
+    (2, 129, 1000, 4, 2, 128, False), (1, 1000, 17, 2, 1, 64, False)])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal):
     rng = np.random.default_rng(0)
-    q = _randn(rng, (B, S, Hq, D), cuda)
-    k = _randn(rng, (B, S, Hkv, D), cuda)
-    v = _randn(rng, (B, S, Hkv, D), cuda)
+    q = _randn(rng, (B, Sq, Hq, D), cuda)
+    k = _randn(rng, (B, Sk, Hkv, D), cuda)
+    v = _randn(rng, (B, Sk, Hkv, D), cuda)
     n0 = flash_attention_fwd.launches
     out, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
@@ -62,6 +66,59 @@ def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
     ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("S,Hkv,D,causal", [(200, 2, 128, True),
+                                            (129, 1, 64, False)])
+def test_flash_kernel_dropout_matches_plain(cuda, S, Hkv, D, causal):
+    """p = 0.1: the kernel's mask is the plain version's position hash, so
+    out agrees within the dropout-free tolerance and lse, dropout-free by
+    construction, within 1e-2."""
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (2, S, 4, D), cuda)
+    k = _randn(rng, (2, S, Hkv, D), cuda)
+    v = _randn(rng, (2, S, Hkv, D), cuda)
+    out, lse = flash_attention_fwd(q, k, v, causal, None, 0.1, 1234)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal, None, 0.1, 1234)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-2
+    nodrop, _ = flash_attention_fwd(q, k, v, causal)
+    assert not torch.equal(out, nodrop)
+
+
+def test_flash_kernel_checks_launch_geometry(cuda):
+    """The kernel holds the wrapper's launch geometry against its own
+    constants: the wrapper's numbers pass, any other block size, stage
+    count, head group or shared-memory size is refused."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        KERNEL, fwd_launch_config)
+    chk = _build.load(KERNEL).pt_flash_attention_fwd_check_launch
+    chk.argtypes = [ctypes.c_int] * 15
+    chk.restype = ctypes.c_int
+    for D in (64, 128):
+        cfg = fwd_launch_config(2, 1000, 1000, 32, 8, D, True)
+        args = [2, 1000, 1000, 32, D, 1, cfg.block_q, cfg.block_k,
+                cfg.stages, cfg.threads, cfg.smem_bytes, cfg.grid[0],
+                cfg.grid[1], cfg.head_group, cfg.kv_tiles[-1]]
+        assert chk(*args) == 0
+        for i in range(6, 15):
+            bad = list(args)
+            bad[i] += 1
+            assert chk(*bad) != 0
+
+
+def test_flash_kernel_same_bits_twice(cuda):
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2, 1000, 8, 128), cuda)
+    k = _randn(rng, (2, 1000, 2, 128), cuda)
+    v = _randn(rng, (2, 1000, 2, 128), cuda)
+    a, la = flash_attention_fwd(q, k, v, True, None, 0.1, 9)
+    b, lb = flash_attention_fwd(q, k, v, True, None, 0.1, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(la, lb)
 
 
 @pytest.mark.parametrize("Hq,Hkv,D,bs", [(4, 4, 128, 64), (8, 2, 128, 16),
