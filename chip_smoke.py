@@ -8,10 +8,13 @@ any phase fails, if CUDA is absent, or if the package is not beside it.
 Phases:
   (a) build   — compile every kernel of the path from paddle_tpu_torch/csrc
                 with nvcc for sm_90a, all nvcc processes at once, and print
-                B1's ptxas lines (registers, barriers, spills);
+                B1's and B5's ptxas lines (registers, barriers, spills); B5
+                may neither spill nor have a warpgroup.arrive injected;
   (b) parity  — each kernel against its plain PyTorch version on the card,
                 bf16, at the main path's shapes plus edge cases (B1 at
-                D 128 and 64, GQA and one kv head, S 2048, 1000 and 17; both
+                D 128 and 64, GQA and one kv head, S 2048, 1000 and 17; B5
+                at D 128 and 64, causal and full, GQA, one kv head under 32
+                q heads, dropout, S 2048, 1000 and 512; both
                 AdamW kernels with bf16 and float32 grads, bit for bit;
                 B8, the int4 GEMM, at rows 1-128 on five shapes with bf16
                 and float32 x, run twice for the same bits;
@@ -78,8 +81,8 @@ Phases:
                 (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
-                card's bound for the same work (B1's host µs per call
-                beside its device time; B8 at 8 rows on the four
+                card's bound for the same work (B1's and B5's host µs per
+                call beside their device time; B8 at 8 rows on the four
                 7B-scale shapes, its weight out of L2, beside a bf16
                 torch.matmul of the same x); then four decode steps of
                 a fresh legacy engine traced with torch.profiler (device
@@ -555,19 +558,23 @@ def rel_err(a, b):
 def check_flash_bwd(dev):
     """The dK/dV and dQ kernels against their plain versions on one lse and
     delta from the forward kernel: the training shape (causal MHA), a GQA
-    case, and a dropout case whose forward is checked too (same seed)."""
+    case, a dropout case whose forward is checked too (same seed), head dim
+    64, one kv head under a group of 32, and a ragged full case."""
     rng = np.random.default_rng(11)
     worst = {"flash_attention_bwd_dkv": 0.0, "flash_attention_bwd_dq": 0.0}
-    for name, B, S, Hq, Hkv, causal, p in (
-            ("train_causal", 4, 2048, 32, 32, True, 0.0),
-            ("gqa_causal", 2, 2048, 32, 8, True, 0.0),
-            ("dropout_causal", 1, 512, 8, 8, True, 0.1)):
-        q, k, v = flash_case(rng, dev, B, S, Hq, Hkv)
-        do = randn(rng, (B, S, Hq, 128), dev)
+    for name, B, S, Hq, Hkv, D, causal, p in (
+            ("train_causal", 4, 2048, 32, 32, 128, True, 0.0),
+            ("gqa_causal", 2, 2048, 32, 8, 128, True, 0.0),
+            ("dropout_causal", 1, 512, 8, 8, 128, True, 0.1),
+            ("d64_gqa_causal", 2, 2048, 32, 8, 64, True, 0.0),
+            ("mqa_causal", 1, 2048, 32, 1, 128, True, 0.0),
+            ("ragged_full", 2, 1000, 16, 4, 128, False, 0.0)):
+        q, k, v = flash_case(rng, dev, B, S, Hq, Hkv, D)
+        do = randn(rng, (B, S, Hq, D), dev)
         seed = 20261016
         out, lse = flash_attention_fwd(q, k, v, causal, None, p, seed)
         line = {"phase": "parity", "kernel": "flash_attention_bwd",
-                "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": 128,
+                "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
                 "causal": causal, "dropout_p": p, "tol_rel": BWD_REL_TOL}
         if p > 0.0:
             ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal, None, p,
@@ -2234,6 +2241,8 @@ def time_flash_bwd(dev):
     args = (q, k, v, do, lse, delta, True)
     dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(*args), 10)
     dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(*args), 10)
+    dkv_us = host_us(lambda: flash_attention_bwd_dkv(*args))
+    dq_us = host_us(lambda: flash_attention_bwd_dq(*args))
     total_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
                                                    True), 10)
     dkv_plain = cuda_ms(lambda: flash_attention_bwd_dkv_plain(*args), 2)
@@ -2261,10 +2270,10 @@ def time_flash_bwd(dev):
     return {"shape": [B, S, H, D], "causal": True,
             "flash_attention_bwd_dkv": dict(
                 ms=dkv_ms, plain_ms=dkv_plain, library_ms=None,
-                **bound(4, 6 * elem + 2 * stat)),
+                host_us_per_call=dkv_us, **bound(4, 6 * elem + 2 * stat)),
             "flash_attention_bwd_dq": dict(
                 ms=dq_ms, plain_ms=dq_plain, library_ms=None,
-                **bound(3, 5 * elem + 2 * stat)),
+                host_us_per_call=dq_us, **bound(3, 5 * elem + 2 * stat)),
             "whole_backward": dict(ms=total_ms, library_ms=lib_ms,
                                    **bound(5, 8 * elem + stat))}
 
@@ -2294,10 +2303,19 @@ def main():
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
-    # B1's own lines: each instantiation's registers, shared memory, spills
-    emit({"phase": "ptxas", "kernel": "flash_attention_fwd",
-          "lines": [ln.strip() for ln in logs["flash_attention_fwd"]
-                    .splitlines() if "ptxas" in ln or "spill" in ln]})
+    # B1's and B5's own lines: each instantiation's registers, shared
+    # memory, spills, and any wgmma the compiler serialised (C75xx notes);
+    # B5 may neither spill nor have a warpgroup.arrive injected
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        emit({"phase": "ptxas", "kernel": name,
+              "lines": [ln.strip() for ln in logs[name].splitlines()
+                        if "ptxas" in ln or "spill" in ln]})
+    bwd_log = logs["flash_attention_bwd"]
+    require("C7519" not in bwd_log and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln
+        for ln in bwd_log.splitlines() if "spill" in ln),
+        "flash_attention_bwd: ptxas reports a spill or an injected "
+        "warpgroup.arrive")
 
     flash_err = check_flash(dev)
     paged_err = check_paged(dev)

@@ -84,6 +84,22 @@ def flag_value(name: str):
     return _REGISTRY[name].get()
 
 
+define_flag("use_pallas_flash_attention", True,
+            "route scaled_dot_product_attention to the flash-attention "
+            "kernels where the reference's rule admits the call (no mask, "
+            "dropout_p < 1, equal lengths when causal) and, on a CUDA "
+            "tensor, the kernels take it (bf16, head_dim 64 or 128); every "
+            "other call takes the plain attention math (the reference's "
+            "name and default)")
+define_flag("use_paged_attention", True,
+            "route block_multihead_attention to the paged-attention kernels "
+            "where they take the call (bf16 rows, a bf16 or int8 pool, "
+            "head_dim 64 or 128, 1, 2, 4 or 8 query heads per kv head, "
+            "block_size <= 128); otherwise, or with the flag off, the plain "
+            "paged versions run (the reference's dense-gather fallback). "
+            "CPU tensors always take the plain versions. Set "
+            "FLAGS_use_paged_attention=0 to A/B against them (the "
+            "reference's name and default)")
 define_flag("use_fused_adamw", True,
             "accepted for Paddle's surface and read nowhere in the port: "
             "multi-precision Adam/AdamW updates (fp32 master and moments, "

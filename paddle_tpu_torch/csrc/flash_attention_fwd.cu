@@ -81,21 +81,6 @@ constexpr int FWD_THREADS = 384;  // producer + two consumer warpgroups
 constexpr int ROW_BYTES = 128;    // one 64-column block of a tile row
 constexpr float LN2 = 0.6931471805599453f;
 
-// The (b*Hq + h, q tile) of the CTA launched `rank`-th (blocks launch in
-// x-fastest order): heads in groups of HEAD_GROUP, and inside a group the
-// q tiles heaviest first across its heads (the note above says why).
-constexpr int HEAD_GROUP = 16;
-
-__device__ __forceinline__ void fwd_tile(int rank, int n_qt, int n_bh,
-                                         int& bh, int& qt) {
-  const int per_group = HEAD_GROUP * n_qt;
-  const int group = rank / per_group, r = rank % per_group;
-  const int left = n_bh - group * HEAD_GROUP;
-  const int heads = left < HEAD_GROUP ? left : HEAD_GROUP;
-  bh = group * HEAD_GROUP + r % heads;
-  qt = n_qt - 1 - r / heads;
-}
-
 // Byte offsets of the dynamic shared memory, from its 1024-byte-aligned
 // start; the first 1024 bytes of the allocation are alignment slack.
 template <int D>
@@ -122,20 +107,6 @@ __device__ __forceinline__ uint32_t empty_k(uint32_t bars, int s) {
 }
 __device__ __forceinline__ uint32_t empty_v(uint32_t bars, int s) {
   return bars + 8 * (1 + 3 * FWD_STAGES + s);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int N>
-__device__ __forceinline__ void fence_pack(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i]) :: "memory");
 }
 
 // S = Q K^T for this warpgroup's 64 rows and a 128-row K tile; issued,
@@ -260,7 +231,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int n_qt = (Sq + FWD_BQ - 1) / FWD_BQ;
   int bh, qt;
-  fwd_tile(blockIdx.y * n_qt + blockIdx.x, n_qt, gridDim.y, bh, qt);
+  // heaviest q tile (the last) first, in groups of heads (the note says why)
+  group_tile(blockIdx.y * n_qt + blockIdx.x, n_qt, gridDim.y, true, bh, qt);
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * FWD_BQ;

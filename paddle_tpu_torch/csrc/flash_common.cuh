@@ -1,10 +1,11 @@
-// What the flash-attention kernels share: the tile shape, the mma.sync
-// fragment helpers and the shared-memory tile copy of the backward
-// (flash_attention_bwd.cu) and the paged append, and the dropout hash and
-// bf16 packing that the forward (flash_attention_fwd.cu, built on
-// sm90_common.cuh) uses too. The backward is right only if it rebuilds the
-// forward's dropout mask bit for bit, so `keep_elem` lives here once (its
-// plain twin is `keep_mask` in ops/kernels/flash_attention.py).
+// What the attention kernels share: the tile shape and the mma.sync
+// fragment helpers of the paged append, and the bf16 packing, the launch
+// order and the dropout hash that the flash forward and backward
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, built on
+// sm90_common.cuh) use too. The backward
+// is right only if it rebuilds the forward's dropout mask bit for bit, so
+// `keep_elem` lives here once (its plain twin is `keep_mask` in
+// ops/kernels/flash_attention.py).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,21 +45,23 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Copy rows [r0, r0 + 64) of a [rows, D] matrix (row stride `stride`
-// elements) into shared memory, zero-filling rows past `nrows`.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long stride, int r0, int nrows) {
-  constexpr int LD = D + PAD;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BK * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
+// Heads per launch group of the flash kernels: a group's operands stay in L2.
+constexpr int HEAD_GROUP = 16;
+
+// The (head, tile) of the CTA launched `rank`-th (blocks launch in x-fastest
+// order) over n_t tiles of each of n_h heads: heads in groups of HEAD_GROUP,
+// and inside a group the tiles heaviest first across its heads, so that the
+// long causal walks start early. The heaviest tile is the last if
+// `heavy_last` (a q tile, whose causal walk grows with its index), else the
+// first (a kv tile of the dK/dV walk).
+__device__ __forceinline__ void group_tile(int rank, int n_t, int n_h,
+                                           bool heavy_last, int& bh, int& t) {
+  const int per_group = HEAD_GROUP * n_t;
+  const int group = rank / per_group, r = rank % per_group;
+  const int left = n_h - group * HEAD_GROUP;
+  const int heads = left < HEAD_GROUP ? left : HEAD_GROUP;
+  bh = group * HEAD_GROUP + r % heads;
+  t = heavy_last ? n_t - 1 - r / heads : r / heads;
 }
 
 // The reference's `_keep_mask` (paddle_tpu/ops/kernels/flash_attention.py:48):

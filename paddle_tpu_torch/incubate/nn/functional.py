@@ -7,10 +7,13 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.kernels.paged_attention import (kv_block_scale, kv_dequantize,
-                                            kv_quantize,
+from ...core.flags import flag_value
+from ...ops.kernels.paged_attention import (kernel_takes, kv_block_scale,
+                                            kv_dequantize, kv_quantize,
                                             paged_attention_append,
-                                            paged_attention_decode)
+                                            paged_attention_append_plain,
+                                            paged_attention_decode,
+                                            paged_attention_decode_plain)
 
 
 def _kv_quant_scatter(pool, scales, wblk, slot, rows, quant, D, end_rows):
@@ -94,7 +97,11 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
 
     The pools (and scales) are updated IN PLACE and returned for the
     reference's call shape. CUDA tensors run the paged kernels (B2/B3, or
-    B4 on quantized pools), CPU tensors their plain versions."""
+    B4 on quantized pools) while the ``use_paged_attention`` flag is on and
+    the kernels take the call (``paged_attention.kernel_takes``: dtypes,
+    head dim, query heads per kv head, block size), a rule decided before
+    anything launches; every other call runs their plain versions (the
+    reference's dense-gather fallback), as every CPU call does."""
     if block_tables is None:
         raise ValueError("block_mha requires block_tables")
     quant = cache_quant_type
@@ -106,6 +113,17 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
     D = _quant_head_dim(qkv.shape[-1], Hkv, Dp, quant) if quant else Dp
     qargs = dict(k_scale=cache_k_quant_scales, v_scale=cache_v_quant_scales,
                  quant=quant) if quant else {}
+    Hq = qkv.shape[-1] // D - 2 * Hkv
+    # the kernels' wrappers (which run the plain versions on the CPU) while
+    # the flag is on and, on the card, the kernels take the call
+    routed = flag_value("use_paged_attention") and (
+        qkv.device.type == "cpu" or kernel_takes(
+            qkv.dtype, key_cache.dtype, D, Hq // Hkv if Hq % Hkv == 0 else 0,
+            key_cache.shape[2], quant))
+    decode = paged_attention_decode if routed else \
+        paged_attention_decode_plain
+    append = paged_attention_append if routed else \
+        paged_attention_append_plain
     tables = block_tables.to(torch.int32).contiguous()
     lens = seq_lens_decoder.to(torch.int32).contiguous()
     if qkv.dim() == 3:
@@ -113,23 +131,21 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
             raise ValueError("append-step block_mha (3-D qkv) requires "
                              "seq_lens_this_time (per-sequence q_lens)")
         b, S = qkv.shape[0], qkv.shape[1]
-        Hq = qkv.shape[2] // D - 2 * Hkv
         q = qkv[:, :, :Hq * D].view(b, S, Hq, D)
         knew = qkv[:, :, Hq * D:(Hq + Hkv) * D].view(b, S, Hkv, D)
         vnew = qkv[:, :, (Hq + Hkv) * D:].view(b, S, Hkv, D)
         qlens = seq_lens_this_time.to(torch.int32).contiguous()
-        res = paged_attention_append(q, key_cache, value_cache, tables, lens,
-                                     qlens, knew, vnew, **qargs)
+        res = append(q, key_cache, value_cache, tables, lens, qlens, knew,
+                     vnew, **qargs)
         out = res[0] if quant else res
         out = out.reshape(b, S, Hq * D)
     else:
         b = qkv.shape[0]
-        Hq = qkv.shape[1] // D - 2 * Hkv
         q = qkv[:, :Hq * D].view(b, Hq, D)
         knew = qkv[:, Hq * D:(Hq + Hkv) * D].view(b, Hkv, D)
         vnew = qkv[:, (Hq + Hkv) * D:].view(b, Hkv, D)
-        res = paged_attention_decode(q, key_cache, value_cache, tables, lens,
-                                     knew, vnew, **qargs)
+        res = decode(q, key_cache, value_cache, tables, lens, knew, vnew,
+                     **qargs)
         out = res[0] if quant else res
         out = out.reshape(b, Hq * D)
     if quant:

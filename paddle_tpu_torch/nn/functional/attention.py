@@ -2,13 +2,17 @@
 ``paddle_tpu/nn/functional/attention.py``).
 
 Paddle's ``[batch, seq, heads, head_dim]`` layout at the public API. The
-routing rule is the reference's on its accelerator (``attention.py:68-102``):
-flash attention takes a call when there is no mask, ``dropout_p < 1``, and —
-causal — ``sq == sk``, because the kernels mask top-left and Paddle's causal
-mask is bottom-right; the two agree only for equal lengths. It goes through
-the differentiable :class:`FlashAttention`, so training reaches the
-backward kernels; dropout runs inside the kernels from an int32 seed
-(:func:`paddle_tpu_torch.core.random.draw_seed`: from the innermost
+routing rule is the reference's on its accelerator (``attention.py:56-102``):
+flash attention takes a call while the ``use_pallas_flash_attention`` flag
+is on, there is no mask, ``dropout_p < 1``, and — causal — ``sq == sk``,
+because the kernels mask top-left and Paddle's causal mask is bottom-right;
+the two agree only for equal lengths. On a CUDA tensor the kernels must
+also take the call (bf16, head dim 64 or 128: :func:`kernel_takes`). The
+rule is decided from these before anything launches; a call the kernels
+take and that fails raises. CPU tensors run the flash path's plain version.
+It goes through the differentiable :class:`FlashAttention`, so training
+reaches the backward kernels; dropout runs inside the kernels from an int32
+seed (:func:`paddle_tpu_torch.core.random.draw_seed`: from the innermost
 ``provide_seed`` scope on the host, else from the caller's generator).
 Every other call takes the plain ``_sdpa_reference`` math, whose dropout
 draws from a generator seeded the same way inside a scope.
@@ -17,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from ...core.flags import flag_value
 from ...core.random import draw_seed, in_seed_scope, make_generator
-from ...ops.kernels.flash_attention import flash_attention
+from ...ops.kernels.flash_attention import flash_attention, kernel_takes
 
 
 def _sdpa_reference(q, k, v, mask, causal, dropout_p=0.0, generator=None,
@@ -53,14 +58,26 @@ def _sdpa_reference(q, k, v, mask, causal, dropout_p=0.0, generator=None,
     return out.transpose(1, 2)
 
 
+def _takes_flash(q, k, v, mask, dropout_p, causal):
+    """The routing rule (module docstring): the flag, the reference's
+    conditions, and on a CUDA tensor the kernels' dtype and head dim."""
+    if not flag_value("use_pallas_flash_attention"):
+        return False
+    if mask is not None or dropout_p >= 1.0 or (causal and
+                                                q.shape[1] != k.shape[1]):
+        return False
+    if q.device.type != "cuda":
+        return True
+    return all(kernel_takes(t.dtype, q.shape[-1]) for t in (q, k, v))
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
     """paddle.nn.functional.scaled_dot_product_attention, ``[B, S, H, D]``."""
     if not training:
         dropout_p = 0.0
-    if (attn_mask is None and dropout_p < 1.0
-            and (not is_causal or query.shape[1] == key.shape[1])):
+    if _takes_flash(query, key, value, attn_mask, dropout_p, is_causal):
         seed = draw_seed(generator) if dropout_p > 0.0 else 0
         return flash_attention(query, key, value, causal=is_causal,
                                dropout_p=dropout_p, seed=seed)

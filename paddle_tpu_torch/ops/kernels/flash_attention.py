@@ -175,8 +175,10 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
 
 def attention_delta(out, do):
     """``delta = rowsum(dO * O)`` in float32, ``[B, Hq, Sq]`` (the reference
-    computes it outside its kernels too, ``flash_attention.py:276``)."""
-    return (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    computes it outside its kernels too, ``flash_attention.py:276``). Only
+    ``out`` is copied to float32: the product casts ``do``'s elements as it
+    reads them, the same values without a second copy."""
+    return (out.float() * do).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
@@ -219,10 +221,21 @@ def _check_bwd(q, k, v, do, lse, delta, causal):
                              f"device, got {tuple(t.shape)} {t.dtype}")
 
 
+#: the dtype and head dims the flash kernels take
+KERNEL_DTYPE, KERNEL_HEAD_DIMS = torch.bfloat16, (64, 128)
+
+
+def kernel_takes(dtype, head_dim):
+    """Whether the flash kernels take a call of this dtype and head dim (the
+    routing rule of ``scaled_dot_product_attention`` on a CUDA tensor; the
+    wrappers raise on anything else)."""
+    return dtype == KERNEL_DTYPE and head_dim in KERNEL_HEAD_DIMS
+
+
 def _check_kernel(what, dtype, D, tensors):
-    if dtype != torch.bfloat16:
+    if dtype != KERNEL_DTYPE:
         raise TypeError(f"{what} kernel takes bfloat16, got {dtype}")
-    if D not in (64, 128):
+    if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
     for name, t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -245,6 +258,17 @@ FWD_HEAD_GROUP = 16
 SMEM_PER_BLOCK = 232_448
 
 
+def _group_tile(rank, n_t, n_h, head_group, heavy_last):
+    """The ``(head, tile)`` of the CTA launched ``rank``-th: heads in groups
+    of ``head_group``, inside a group the tiles heaviest first across its
+    heads (the heaviest is the last tile if ``heavy_last``, else the
+    first)."""
+    group, r = divmod(rank, head_group * n_t)
+    heads = min(head_group, n_h - group * head_group)
+    t = r // heads
+    return group * head_group + r % heads, (n_t - 1 - t if heavy_last else t)
+
+
 @dataclasses.dataclass(frozen=True)
 class FwdLaunch:
     """One launch of the forward kernel: the tile sizes, the ring's stages,
@@ -265,9 +289,7 @@ class FwdLaunch:
         launch x fastest): heads in groups of ``head_group``, and inside a
         group the q tiles heaviest first across its heads."""
         n_qt, n_bh = self.grid
-        group, r = divmod(rank, self.head_group * n_qt)
-        heads = min(self.head_group, n_bh - group * self.head_group)
-        return group * self.head_group + r % heads, n_qt - 1 - r // heads
+        return _group_tile(rank, n_qt, n_bh, self.head_group, True)
 
 
 @functools.lru_cache(maxsize=256)
@@ -349,6 +371,111 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
 flash_attention_fwd.launches = 0
 
 
+#: the backward kernels' geometry (``csrc/flash_attention_bwd.cu``): the
+#: dK/dV kernel's kv rows per CTA, q rows per ring stage and stages, the dQ
+#: kernel's q rows per CTA, kv rows per ring stage and stages; both run
+#: ``FWD_THREADS`` threads and heads in groups of ``FWD_HEAD_GROUP``
+DKV_BLOCK_KV, DKV_BLOCK_Q, DKV_STAGES = 128, 64, 2
+DQ_BLOCK_Q, DQ_BLOCK_K, DQ_STAGES = 128, 128, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdLaunch:
+    """The launches of the backward kernels. dK/dV: a CTA per ``(b * Hkv +
+    hk, kv tile)`` over ``dkv_grid = (kv tiles, B * Hkv)``, two consumers
+    of 64 kv rows each, walking ``dkv_block_q``-row q tiles of every q head
+    of the group from ``dkv_q_start[kv tile]``. dQ: a CTA per ``(b * Hq + h,
+    q tile)`` over ``dq_grid``, walking ``dq_kv_tiles[q tile]`` kv tiles.
+    Both: ``threads`` per CTA, rings of ``*_stages``, heads in groups of
+    ``head_group``, dynamic shared memory ``*_smem`` bytes."""
+    threads: int
+    dkv_stages: int
+    dq_stages: int
+    head_group: int
+    dkv_block_kv: int
+    dkv_block_q: int
+    dkv_grid: tuple
+    dkv_smem: int
+    dkv_q_start: tuple
+    dq_block_q: int
+    dq_block_k: int
+    dq_grid: tuple
+    dq_smem: int
+    dq_kv_tiles: tuple
+    causal: bool
+
+    def dkv_tile(self, rank):
+        """``(b * Hkv + hk, kv tile)`` of the dK/dV CTA launched
+        ``rank``-th; the first kv tile walks the most q tiles."""
+        n, n_h = self.dkv_grid
+        return _group_tile(rank, n, n_h, self.head_group, False)
+
+    def dq_tile(self, rank):
+        """``(b * Hq + h, q tile)`` of the dQ CTA launched ``rank``-th."""
+        n, n_h = self.dq_grid
+        return _group_tile(rank, n, n_h, self.head_group, True)
+
+    def dkv_q_tiles(self, kv_tile, consumer, n_q_tiles):
+        """The q tiles that consumer ``consumer`` (0 or 1) of a dK/dV CTA
+        multiplies, per q head: the CTA's walk without the tiles wholly
+        above the diagonal of its 64 kv rows."""
+        kvc0 = kv_tile * self.dkv_block_kv + 64 * consumer
+        return [qt for qt in range(self.dkv_q_start[kv_tile], n_q_tiles)
+                if not (self.causal and
+                        qt * self.dkv_block_q + self.dkv_block_q - 1 < kvc0)]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_config(B, Sq, Sk, Hq, Hkv, D, causal):
+    """The backward kernels' launch geometry for these shapes (the kernels
+    state the same constants and check them against these numbers). Shared
+    memory, after 1024 bytes of slack to align the 128-byte-swizzled tiles:
+    dK/dV K and V, then ``dkv_stages`` pairs of Q and dO tiles, each
+    stage's lse and delta (float32), and 8-byte mbarriers (K/V full; full
+    and empty per stage); dQ Q and dO, then ``dq_stages`` pairs of K and V
+    tiles, and mbarriers (Q/dO full; K full, V full, K empty, V empty per
+    stage)."""
+    st, st_q = DKV_STAGES, DQ_STAGES
+    n_kvt = -(-Sk // DKV_BLOCK_KV)
+    q_start = tuple(kvt * DKV_BLOCK_KV // DKV_BLOCK_Q if causal else 0
+                    for kvt in range(n_kvt))
+    dkv_smem = 1024 + 2 * DKV_BLOCK_KV * D * 2 + st * 2 * DKV_BLOCK_Q * D * 2 \
+        + st * 2 * DKV_BLOCK_Q * 4 + 8 * (1 + 2 * st)
+    n_qt, n_kt = -(-Sq // DQ_BLOCK_Q), -(-Sk // DQ_BLOCK_K)
+    kv_tiles = tuple(min(n_kt, -(-(qt * DQ_BLOCK_Q + DQ_BLOCK_Q)
+                                 // DQ_BLOCK_K)) if causal else n_kt
+                     for qt in range(n_qt))
+    dq_smem = 1024 + 2 * DQ_BLOCK_Q * D * 2 + st_q * 2 * DQ_BLOCK_K * D * 2 \
+        + 8 * (1 + 4 * st_q)
+    return BwdLaunch(FWD_THREADS, st, st_q, FWD_HEAD_GROUP, DKV_BLOCK_KV,
+                     DKV_BLOCK_Q, (n_kvt, B * Hkv), dkv_smem, q_start,
+                     DQ_BLOCK_Q, DQ_BLOCK_K, (n_qt, B * Hq), dq_smem,
+                     kv_tiles, bool(causal))
+
+
+def bwd_check_args(B, Sq, Sk, Hq, Hkv, D, causal):
+    """The arguments of ``pt_flash_attention_bwd_check_launch`` for these
+    shapes, from :func:`bwd_launch_config`."""
+    c = bwd_launch_config(B, Sq, Sk, Hq, Hkv, D, causal)
+    return [B, Sq, Sk, Hq, Hkv, D, int(causal), c.threads, c.dkv_stages,
+            c.dq_stages, c.head_group, c.dkv_block_kv, c.dkv_block_q,
+            c.dkv_smem, c.dkv_grid[0], c.dkv_grid[1], c.dkv_q_start[-1],
+            c.dq_block_q, c.dq_block_k, c.dq_smem, c.dq_grid[0],
+            c.dq_grid[1], c.dq_kv_tiles[-1]]
+
+
+@functools.lru_cache(maxsize=256)
+def _check_bwd_launch(B, Sq, Sk, Hq, Hkv, D, causal):
+    """Hold the kernels' constants against :func:`bwd_launch_config` for
+    these shapes, once per distinct geometry; raises on a mismatch."""
+    lib = _build.load(BWD_KERNEL)
+    chk = lib.pt_flash_attention_bwd_check_launch
+    chk.argtypes = [ctypes.c_int] * 23
+    chk.restype = ctypes.c_int
+    code = chk(*bwd_check_args(B, Sq, Sk, Hq, Hkv, D, causal))
+    _build.check(lib, code, "flash_attention_bwd launch geometry")
+
+
 def _seed32(seed):
     """The seed's low 32 bits as a C int."""
     s = int(seed) & _M32
@@ -363,6 +490,7 @@ def _bwd_launch(entry, q, k, v, do, lse, delta, outs, causal, scale,
                                       ("dout", do), ("lse", lse),
                                       ("delta", delta)))
     thr, inv = _dropout_consts(dropout_p)
+    _check_bwd_launch(B, Sq, Sk, Hq, Hkv, D, bool(causal))
     lib = _build.load(BWD_KERNEL)
     fn = getattr(lib, f"pt_{entry}_bf16")
     fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + \

@@ -301,6 +301,24 @@ def _rows_ok(t):
         t.data_ptr() % 16 == 0
 
 
+#: the head dims, query heads per kv head and largest block size the paged
+#: kernels take
+KERNEL_HEAD_DIMS, KERNEL_GROUPS = (64, 128), (1, 2, 4, 8)
+KERNEL_MAX_BLOCK = 128
+
+
+def kernel_takes(row_dtype, pool_dtype, D, G, bs, quant=None):
+    """Whether the paged kernels (B2/B3, or B4 on a quantized pool) take a
+    call: bf16 rows, a bf16 pool (int8 payload when quantized), head dim 64
+    or 128, 1, 2, 4 or 8 query heads per kv head, block size <= 128 (the
+    routing rule of ``block_multihead_attention`` on a CUDA tensor; the
+    wrappers raise on anything else)."""
+    pool_want = torch.int8 if quant else torch.bfloat16
+    return row_dtype == torch.bfloat16 and pool_dtype == pool_want and \
+        D in KERNEL_HEAD_DIMS and G in KERNEL_GROUPS and \
+        bs <= KERNEL_MAX_BLOCK
+
+
 def _check_kernel_args(what, rows, pools, ints, D, G, bs, quant=None,
                        scales=None):
     """What the paged kernels take, raising on anything else: bf16
@@ -323,13 +341,13 @@ def _check_kernel_args(what, rows, pools, ints, D, G, bs, quant=None,
     for name, t in ints.items():
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{what}: {name} must be contiguous int32")
-    if D not in (64, 128):
+    if D not in KERNEL_HEAD_DIMS:
         # odd head dims (int4 nibble padding) stay with the plain version
         raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
-    if G not in (1, 2, 4, 8):
+    if G not in KERNEL_GROUPS:
         raise ValueError(f"{what} kernel takes 1, 2, 4 or 8 query heads "
                          f"per kv head")
-    if bs > 128:
+    if bs > KERNEL_MAX_BLOCK:
         raise ValueError(f"{what} kernel takes block_size <= 128")
     if not all(t.is_contiguous() for t in pools.values()):
         raise ValueError(f"{what}: pools must be contiguous")

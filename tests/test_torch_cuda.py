@@ -391,18 +391,23 @@ def _rel(a, b):
             b.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,p", [
-    (1, 128, 2, 2, 128, True, 0.0), (2, 200, 4, 2, 128, False, 0.0),
-    (1, 77, 8, 2, 64, True, 0.0), (2, 256, 4, 4, 64, False, 0.0),
-    (1, 256, 4, 2, 128, True, 0.1), (1, 130, 2, 1, 64, False, 0.2)])
-def test_flash_bwd_kernels_match_plain(cuda, B, S, Hq, Hkv, D, causal, p):
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,p", [
+    (1, 128, 128, 2, 2, 128, True, 0.0), (2, 200, 200, 4, 2, 128, False, 0.0),
+    (1, 77, 77, 8, 2, 64, True, 0.0), (2, 256, 256, 4, 4, 64, False, 0.0),
+    (1, 256, 256, 4, 2, 128, True, 0.1), (1, 130, 130, 2, 1, 64, False, 0.2),
+    (2, 17, 17, 4, 2, 128, True, 0.0), (1, 1000, 1000, 8, 1, 128, True, 0.0),
+    (1, 200, 200, 4, 2, 64, True, 0.1), (2, 129, 1000, 4, 2, 128, False, 0.0)])
+def test_flash_bwd_kernels_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
+                                       p):
     """The forward (with dropout where p > 0), then the dK/dV and dQ
-    kernels against their plain versions on the same lse and delta."""
+    kernels against their plain versions on the same lse and delta: ragged
+    lengths (17, 77, 130, 200, 1000), one kv head under a group of 8,
+    dropout at both head dims, unequal non-causal lengths."""
     rng = np.random.default_rng(3)
-    q = _randn(rng, (B, S, Hq, D), cuda)
-    k = _randn(rng, (B, S, Hkv, D), cuda)
-    v = _randn(rng, (B, S, Hkv, D), cuda)
-    do = _randn(rng, (B, S, Hq, D), cuda)
+    q = _randn(rng, (B, Sq, Hq, D), cuda)
+    k = _randn(rng, (B, Sk, Hkv, D), cuda)
+    v = _randn(rng, (B, Sk, Hkv, D), cuda)
+    do = _randn(rng, (B, Sq, Hq, D), cuda)
     seed = 1234567
     out, lse = flash_attention_fwd(q, k, v, causal, None, p, seed)
     ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal, None, p, seed)
@@ -424,6 +429,46 @@ def test_flash_bwd_kernels_match_plain(cuda, B, S, Hq, Hkv, D, causal, p):
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     for got, want in ((dq, rq), (dk, rk), (dv, rv)):
         assert _rel(got, want) <= 2e-2
+
+
+def test_flash_bwd_same_bits_twice(cuda):
+    """Every sum of both kernels runs in one fixed order (no atomics): two
+    runs give the same bits, here with dropout, GQA and a ragged length."""
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (2, 1000, 8, 128), cuda)
+    k = _randn(rng, (2, 1000, 2, 128), cuda)
+    v = _randn(rng, (2, 1000, 2, 128), cuda)
+    do = _randn(rng, (2, 1000, 8, 128), cuda)
+    out, lse = flash_attention_fwd(q, k, v, True, None, 0.1, 9)
+    delta = attention_delta(out, do)
+    runs = [(*flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, None,
+                                      0.1, 9),
+             flash_attention_bwd_dq(q, k, v, do, lse, delta, True, None, 0.1,
+                                    9)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_bwd_checks_launch_geometry(cuda):
+    """The backward kernels hold the wrapper's launch geometry against
+    their own constants: the wrapper's numbers pass, any other thread
+    count, stage count, head group, tile size, shared-memory size, grid or
+    walk is refused."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        BWD_KERNEL, bwd_check_args)
+    chk = _build.load(BWD_KERNEL).pt_flash_attention_bwd_check_launch
+    chk.argtypes = [ctypes.c_int] * 23
+    chk.restype = ctypes.c_int
+    for D in (64, 128):
+        for causal in (True, False):
+            args = bwd_check_args(2, 1000, 1000, 32, 8, D, causal)
+            assert chk(*args) == 0
+            for i in range(7, 23):
+                bad = list(args)
+                bad[i] += 1
+                assert chk(*bad) != 0, i
 
 
 @pytest.mark.parametrize("n", [4096 * 37, 1000 * 37 + 5, 3])
@@ -630,3 +675,117 @@ def test_int8_linear_on_card_matches_cpu(cuda):
     got = weight_only_linear(x.to(cuda), q.to(cuda), None, s.to(cuda), "int8")
     assert (got.cpu() - want).abs().max().item() <= \
         1e-5 * want.abs().max().item()
+
+
+def _card_and_cpu(cfg, cuda, seed=3):
+    """The same seeded weights on the CPU and, copied, on the card."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed).eval()
+    card = LlamaForCausalLM(cfg, device=cuda, seed=seed).eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _flash_launches():
+    return (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches)
+
+
+def _paged_launches():
+    return (paged_attention_decode.launches, paged_attention_append.launches,
+            dict(paged_attention_decode.quant_launches),
+            dict(paged_attention_append.quant_launches))
+
+
+# (dtype, heads): float32 at D 64 and D 32 (LlamaConfig.tiny), bf16 at D 32;
+# float32 within 1e-4 of the logits' magnitude (both sides full float32
+# products, different summation orders), bf16 within 3e-2 (two layers of
+# bf16 rounding at different places)
+C2_MODELS = [("float32", 2, 1e-4), ("float32", 4, 1e-4),
+             ("bfloat16", 4, 3e-2)]
+
+
+@pytest.mark.parametrize("dtype,heads,tol", C2_MODELS)
+def test_llama_forward_outside_kernel_shapes_on_card(cuda, dtype, heads, tol):
+    """A float32 model and a D-32 model (the flash kernels take neither)
+    run their forward on the card through the plain attention math, launch
+    no flash kernel, and match the CPU run of the same weights."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.tiny(dtype=dtype, num_attention_heads=heads,
+                           num_key_value_heads=heads // 2)
+    cpu, card = _card_and_cpu(cfg, cuda)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 48))
+    n0 = _flash_launches()
+    with torch.no_grad():
+        got = card(torch.from_numpy(ids).to(cuda))
+        want = cpu(torch.from_numpy(ids))
+    torch.cuda.synchronize()
+    assert _flash_launches() == n0
+    assert torch.isfinite(got).all()
+    assert _rel(got.cpu(), want) <= tol
+
+
+@pytest.mark.parametrize("scheduler", ["legacy", "fused"])
+def test_llm_engine_outside_kernel_shapes_on_card(cuda, scheduler):
+    """A float32 D-32 model (LlamaConfig.tiny) served greedily by LLMEngine
+    on the card: the paged kernels take neither its dtype nor its head dim,
+    so the plain paged versions run, no kernel launches, and the tokens
+    equal the CPU engine's on the same weights."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.tiny()
+    cpu, card = _card_and_cpu(cfg, cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 23, 40)]
+    kw = dict(cache_impl="paged", scheduler=scheduler, max_batch=2,
+              max_seq_len=96, chunk_size=16, block_size=8)
+    n0 = (_flash_launches(), _paged_launches())
+    got = LLMEngine(card, device=cuda, **kw).generate(prompts,
+                                                      max_new_tokens=12)
+    torch.cuda.synchronize()
+    assert (_flash_launches(), _paged_launches()) == n0
+    want = LLMEngine(cpu, device="cpu", **kw).generate(prompts,
+                                                       max_new_tokens=12)
+    assert [list(o.token_ids) for o in got] == \
+        [list(o.token_ids) for o in want]
+    assert all(len(o.token_ids) == 12 for o in got)
+
+
+def test_attention_routing_flags_on_card(cuda):
+    """A bf16 D-128 call the kernels take launches them while the flags are
+    on; with ``use_pallas_flash_attention`` or ``use_paged_attention`` off
+    the same call takes the plain math and launches nothing."""
+    from paddle_tpu_torch.core.flags import get_flags, set_flags
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (1, 64, 2, 128), cuda)
+    NB, Hkv, bs, D = 5, 1, 16, 128
+    qkv = _randn(rng, (2, (2 + 2 * Hkv) * D), cuda)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    saved = get_flags(["use_pallas_flash_attention", "use_paged_attention"])
+    try:
+        outs = {}
+        for on in (True, False):
+            set_flags({"use_pallas_flash_attention": on,
+                       "use_paged_attention": on})
+            n0 = (flash_attention_fwd.launches,
+                  paged_attention_decode.launches)
+            sdpa = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+            pools = [_randn(np.random.default_rng(5), (NB, Hkv, bs, D), cuda)
+                     for _ in range(2)]
+            dec = IF.block_multihead_attention(qkv, *pools, None, lens, None,
+                                               block_tables=tables)[0]
+            torch.cuda.synchronize()
+            n1 = (flash_attention_fwd.launches,
+                  paged_attention_decode.launches)
+            assert n1 == ((n0[0] + 1, n0[1] + 1) if on else n0)
+            outs[on] = (sdpa, dec, pools)
+        for got, want in zip(outs[True][:2], outs[False][:2]):
+            assert (got.float() - want.float()).abs().max().item() <= 2e-2
+        for got, want in zip(outs[True][2], outs[False][2]):
+            assert torch.equal(got, want)
+    finally:
+        set_flags(saved)
