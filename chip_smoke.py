@@ -8,13 +8,16 @@ any phase fails, if CUDA is absent, or if the package is not beside it.
 Phases:
   (a) build   — compile every kernel of the path from paddle_tpu_torch/csrc
                 with nvcc for sm_90a, all nvcc processes at once, and print
-                B1's and B5's ptxas lines (registers, barriers, spills); B5
-                may neither spill nor have a warpgroup.arrive injected;
+                B1's, B5's, B2's and B3's ptxas lines (registers, barriers,
+                spills); B5 may neither spill nor have a warpgroup.arrive
+                injected, B2 and B3 may not spill;
   (b) parity  — each kernel against its plain PyTorch version on the card,
                 bf16, at the main path's shapes plus edge cases (B1 at
                 D 128 and 64, GQA and one kv head, S 2048, 1000 and 17; B5
                 at D 128 and 64, causal and full, GQA, one kv head under 32
-                q heads, dropout, S 2048, 1000 and 512; both
+                q heads, dropout, S 2048, 1000 and 512; B2 and B3 at the
+                serving shapes with MHA and G 4, and over long contexts
+                (MB 128, lens up to 8,191) where their walks split; both
                 AdamW kernels with bf16 and float32 grads, bit for bit;
                 B8, the int4 GEMM, at rows 1-128 on five shapes with bf16
                 and float32 x, run twice for the same bits;
@@ -280,11 +283,20 @@ PAGED_LENS = [1, 63, 64, 1024, 1500, 2000, 777, 500]   # 64, 1024: boundaries
 PAGED_WIPED = (7,)
 
 
+# a long-context decode batch (MB 128): walks split up to 16 ways, a wiped
+# slot, lengths on block edges
+PAGED_LONG_LENS = [8191, 5000, 1, 4096, 3000, 777, 8000, 64]
+PAGED_LONG_WIPED = (2,)
+
+
 def check_paged(dev):
     rng = np.random.default_rng(2)
     worst = 0.0
-    for Hkv in (32, 8):
-        c = paged_case(rng, dev, Hkv, PAGED_LENS, PAGED_WIPED)
+    for name, Hkv, lens, wiped, MB in (
+            ("Hkv32", 32, PAGED_LENS, PAGED_WIPED, 32),
+            ("Hkv8", 8, PAGED_LENS, PAGED_WIPED, 32),
+            ("long_Hkv8", 8, PAGED_LONG_LENS, PAGED_LONG_WIPED, 128)):
+        c = paged_case(rng, dev, Hkv, lens, wiped, MB=MB)
         kk, vk = c["k"].clone(), c["v"].clone()
         kp, vp = c["k"].clone(), c["v"].clone()
         out = paged_attention_decode(c["q"], kk, vk, c["tables"], c["lens"],
@@ -296,15 +308,19 @@ def check_paged(dev):
         pools_exact = bool(torch.equal(kk[:nb - 1], kp[:nb - 1]) and
                            torch.equal(vk[:nb - 1], vp[:nb - 1]))
         written = not torch.equal(kk[:nb - 1], c["k"][:nb - 1])
+        span = pa_mod.decode_launch_config(len(lens), 32, Hkv, 128, 64,
+                                           MB).span
         emit({"phase": "parity", "kernel": "paged_attention_decode",
-              "case": f"Hkv{Hkv}", "B": len(PAGED_LENS), "Hq": 32,
-              "Hkv": Hkv, "D": 128, "block_size": 64, "lens": PAGED_LENS,
-              "wiped_rows": list(PAGED_WIPED), "max_abs_err": err,
+              "case": name, "B": len(lens), "Hq": 32, "Hkv": Hkv, "D": 128,
+              "block_size": 64, "MB": MB, "lens": lens,
+              "wiped_rows": list(wiped), "max_abs_err": err,
               "tol": PAGED_TOL, "pools_exact_except_scratch": pools_exact,
-              "new_rows_written": written})
-        require(err <= PAGED_TOL, f"paged Hkv={Hkv}: err {err}")
+              "new_rows_written": written,
+              "splits": [len(pa_mod.decode_walks(L, 64, MB, span))
+                         for L in lens]})
+        require(err <= PAGED_TOL, f"paged {name}: err {err}")
         require(pools_exact and written,
-                f"paged Hkv={Hkv}: pools differ outside the scratch block")
+                f"paged {name}: pools differ outside the scratch block")
         worst = max(worst, err)
     return worst
 
@@ -352,18 +368,29 @@ def append_args(c, k, v):
             c["nv"])
 
 
+# a long-context mixed step (MB 128): decode rows over up to 8,000
+# positions (their walks split), chunks and a chunk's tail after long
+# histories, an idle slot
+APPEND_LONG_SPECS = [(8000, 1), (6000, 256), (4095, 1), (3000, 37),
+                     (7000, 1), (0, 256), (100, 0), (5000, 9)]
+
+
 def check_append(dev):
     rng = np.random.default_rng(7)
     worst = 0.0
-    for name, Hkv, minus_one in (("Hkv32", 32, None), ("Hkv8", 8, None),
-                                 ("minus_one_target", 32, APPEND_MINUS_ONE)):
-        c = append_case(rng, dev, Hkv, minus_one=minus_one)
+    for name, Hkv, specs, minus_one, MB in (
+            ("Hkv32", 32, APPEND_SPECS, None, 32),
+            ("Hkv8", 8, APPEND_SPECS, None, 32),
+            ("minus_one_target", 32, APPEND_SPECS, APPEND_MINUS_ONE, 32),
+            ("long_Hkv8", 8, APPEND_LONG_SPECS, None, 128)):
+        c = append_case(rng, dev, Hkv, specs=specs, minus_one=minus_one,
+                        MB=MB)
         kk, vk = c["k"].clone(), c["v"].clone()
         kp, vp = c["k"].clone(), c["v"].clone()
         out = paged_attention_append(*append_args(c, kk, vk))
         ref = paged_attention_append_plain(*append_args(c, kp, vp))
         err, padding_zero = 0.0, True
-        for b, (_, n) in enumerate(APPEND_SPECS):
+        for b, (_, n) in enumerate(specs):
             if n:
                 err = max(err, (out[b, :n].float() - ref[b, :n].float())
                           .abs().max().item())
@@ -373,9 +400,11 @@ def check_append(dev):
                            torch.equal(vk[:nb - 1], vp[:nb - 1]))
         written = not torch.equal(kk[:nb - 1], c["k"][:nb - 1])
         line = {"phase": "parity", "kernel": "paged_attention_append",
-                "case": name, "B": len(APPEND_SPECS), "S": 256, "Hq": 32,
-                "Hkv": Hkv, "D": 128, "block_size": 64, "MB": 32,
-                "lens_qlens": APPEND_SPECS, "max_abs_err": err,
+                "case": name, "B": len(specs), "S": 256, "Hq": 32,
+                "Hkv": Hkv, "D": 128, "block_size": 64, "MB": MB,
+                "lens_qlens": specs, "max_abs_err": err,
+                "splits": [pa_mod.append_tile_splits(
+                    L, n, 256, 32 // Hkv, 64, MB)[2] for L, n in specs],
                 "tol": APPEND_TOL, "pools_exact_except_scratch": pools_exact,
                 "new_rows_written": written, "padding_rows_zero": padding_zero}
         ok = err <= APPEND_TOL and pools_exact and written and padding_zero
@@ -774,7 +803,8 @@ def serving_prompts(vocab):
 
 
 SERVING_CLASSES = (("paged_decode_kernel", ("paged_decode_kernel",)),
-                   ("append_kernels", ("append_attn_kernel",
+                   ("append_kernels", ("append_split_kernel",
+                                       "append_attn_kernel",
                                        "append_write_kernel")),
                    ("int4_gemm", ("int4_mm_partial_kernel",
                                   "int4_mm_reduce_kernel")))
@@ -1261,52 +1291,64 @@ def time_flash(dev):
 
 
 def time_paged(dev):
-    c = paged_case(np.random.default_rng(6), dev, 32, PAGED_LENS, PAGED_WIPED)
-    args = (c["q"], c["k"], c["v"], c["tables"], c["lens"], c["nk"], c["nv"])
-    ms = cuda_ms(lambda: paged_attention_decode(*args), 50)
-    plain_ms = cuda_ms(lambda: paged_attention_decode_plain(*args), 5)
-    B, Hq, D = c["q"].shape
-    Hkv = c["k"].shape[1]
-    # what this data needs: every visible K/V row read once (the wiped
-    # slot reads none), q read, out written, the new rows read and written
-    visible = sum(int(L) + 1 for b, L in enumerate(PAGED_LENS)
-                  if c["need"][b])
-    nbytes = 2 * (2 * visible * Hkv * D + 2 * B * Hq * D + 4 * B * Hkv * D)
-    ops = 4 * Hq * D * visible
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
-                           lens=PAGED_LENS), ops=ops, bytes=nbytes)
+    """B2 at the timing shape (Hkv 32, PAGED_LENS, a wiped slot), and at
+    the same lens with Hkv 8 (G 4) under "hkv8": device ms, host µs per
+    call, bound."""
+    def one(Hkv):
+        c = paged_case(np.random.default_rng(6), dev, Hkv, PAGED_LENS,
+                       PAGED_WIPED)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["lens"], c["nk"],
+                c["nv"])
+        B, Hq, D = c["q"].shape
+        # what this data needs: every visible K/V row read once (the
+        # wiped slot reads none), q read, out written, the new rows read
+        # and written
+        visible = sum(int(L) + 1 for b, L in enumerate(PAGED_LENS)
+                      if c["need"][b])
+        return dict(ms=cuda_ms(lambda: paged_attention_decode(*args), 50),
+                    host_us_per_call=host_us(
+                        lambda: paged_attention_decode(*args)),
+                    **bound(4 * Hq * D * visible,
+                            2 * (2 * visible * Hkv * D + 2 * B * Hq * D
+                                 + 4 * B * Hkv * D)),
+                    shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
+                               lens=PAGED_LENS)), args
+    out, args = one(32)
+    out.update(plain_ms=cuda_ms(lambda: paged_attention_decode_plain(*args),
+                                5),
+               library_ms=None, hkv8=one(8)[0])
+    return out
 
 
 def time_append(dev):
-    c = append_case(np.random.default_rng(8), dev, 32)
-    args = append_args(c, c["k"], c["v"])
-    ms = cuda_ms(lambda: paged_attention_append(*args), 50)
-    plain_ms = cuda_ms(lambda: paged_attention_append_plain(*args), 5)
-    B, S, Hq, D = c["q"].shape
-    Hkv = c["k"].shape[1]
-    # what this data needs: each live slot's cached history read once, the
-    # chunk's new K/V read once and written once (the kernel's second read
-    # of them, out of the pool, is its design's cost, not the function's),
-    # q read and out written for the real rows; operations over the
-    # visible (query, key) pairs of the real rows
-    real = sum(q for _, q in APPEND_SPECS)
-    history = sum(L for L, q in APPEND_SPECS if q)
-    pairs = sum(q * L + q * (q + 1) // 2 for L, q in APPEND_SPECS)
-    nbytes = 2 * (2 * history * Hkv * D + 4 * real * Hkv * D
-                  + 2 * real * Hq * D)
-    ops = 4 * Hq * D * pairs
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
-                           lens_qlens=APPEND_SPECS),
-                real_rows=real, visible_pairs_per_head=pairs, ops=ops,
-                bytes=nbytes)
+    """B3 at the timing shape (APPEND_SPECS, Hkv 32), and with Hkv 8 (G 4)
+    under "hkv8": device ms, host µs per call, bound."""
+    def one(Hkv):
+        c = append_case(np.random.default_rng(8), dev, Hkv)
+        args = append_args(c, c["k"], c["v"])
+        B, S, Hq, D = c["q"].shape
+        # what this data needs: each live slot's cached history read once,
+        # the chunk's new K/V read once and written once (the kernel's
+        # second read of them, out of the pool, is its design's cost, not
+        # the function's), q read and out written for the real rows;
+        # operations over the visible (query, key) pairs of the real rows
+        real = sum(q for _, q in APPEND_SPECS)
+        history = sum(L for L, q in APPEND_SPECS if q)
+        pairs = sum(q * L + q * (q + 1) // 2 for L, q in APPEND_SPECS)
+        return dict(ms=cuda_ms(lambda: paged_attention_append(*args), 50),
+                    host_us_per_call=host_us(
+                        lambda: paged_attention_append(*args)),
+                    **bound(4 * Hq * D * pairs,
+                            2 * (2 * history * Hkv * D + 4 * real * Hkv * D
+                                 + 2 * real * Hq * D)),
+                    shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
+                               lens_qlens=APPEND_SPECS),
+                    real_rows=real, visible_pairs_per_head=pairs), args
+    out, args = one(32)
+    out.update(plain_ms=cuda_ms(lambda: paged_attention_append_plain(*args),
+                                5),
+               library_ms=None, hkv8=one(8)[0])
+    return out
 
 
 def bound(ops, nbytes):
@@ -2303,13 +2345,19 @@ def main():
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
-    # B1's and B5's own lines: each instantiation's registers, shared
-    # memory, spills, and any wgmma the compiler serialised (C75xx notes);
-    # B5 may neither spill nor have a warpgroup.arrive injected
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    # B1's, B5's, B2's and B3's own lines: each instantiation's registers,
+    # shared memory, spills, and any wgmma the compiler serialised (C75xx
+    # notes); B5 may neither spill nor have a warpgroup.arrive injected,
+    # B2 and B3 (and B4-append, which shares B3's file) may not spill
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "paged_attention_decode", "paged_attention_append"):
         emit({"phase": "ptxas", "kernel": name,
               "lines": [ln.strip() for ln in logs[name].splitlines()
                         if "ptxas" in ln or "spill" in ln]})
+    for name in ("paged_attention_decode", "paged_attention_append"):
+        require(all("0 bytes spill stores, 0 bytes spill loads" in ln
+                    for ln in logs[name].splitlines() if "spill" in ln),
+                f"{name}: ptxas reports a spill")
     bwd_log = logs["flash_attention_bwd"]
     require("C7519" not in bwd_log and all(
         "0 bytes spill stores, 0 bytes spill loads" in ln

@@ -42,13 +42,14 @@
 // ~101 MB, ~0.030 ms at 3.35 TB/s, against ~6.7 GFLOP of products over
 // 408,208 visible (query, key) pairs, ~0.007 ms at 989 TFLOP/s. So K/V
 // must be read from device memory about once per (sequence, kv head) and
-// the products must not be the limit: they run on the tensor cores.
+// the products must not be the limit: they run on the tensor cores
+// (mma.sync is enough at ~4 operations per byte; wgmma's 64-row tiles
+// would not fit the decode rows of a mixed step, which B3 also serves).
 // Quantized pools move half the cached bytes (a quarter for int4) plus one
 // scale per block. The two passes below read the new K/V a second time,
 // out of the pool: that is this design's cost, not the function's.
 //
-// Design (simple first; no TMA or wgmma yet), two launches on one stream so
-// that no CTA races another CTA's write:
+// Two launches on one stream, so that no CTA races another CTA's write:
 // - write pass, bf16: one CTA per (b, row i) copies the row's Hkv x D new
 //   K and V values with 16-byte loads and stores into their block slots;
 // - write pass, quantized: one CTA per (window block, kv head, sequence)
@@ -56,38 +57,55 @@
 //   there with the chunk rows merged (kv_requant_block), stores payload and
 //   scale, then does the same for V. The CTA owns its block, so no other
 //   CTA races its write;
-// - attention pass: one CTA = 4 warps per (b, kv head, 64-row query tile).
-//   The tile runs over the G*S rows of the head group ordered
-//   position-major (row r = i * G + g), so a tile holds 64 / G chunk
-//   positions and every K/V tile it stages serves all G query heads. A
-//   tile whose rows are all padding writes zeros and returns. The CTA
-//   walks 64-position K/V tiles up to lens + (its last real row), skipping
-//   tiles whose blocks are all -1, staged through shared memory with
-//   double-buffered 16-byte cp.async (tile t+1 in flight while tile t is
-//   used): pool rows as they are stored, bf16 or payload bytes. S = Q K^T
-//   and O += P V run on mma.sync.m16n8k16 bf16 -> fp32 with q held as A
-//   fragments in registers, the S accumulator reused as P's A fragment, m
-//   and l in fp32 registers per row (the flash-forward kernel's inner
-//   loop). Rows past a sequence's window are zero-filled in shared memory
-//   and masked. Quantized tiles are first unpacked in shared memory into
-//   bf16 tiles of their grid values, which bf16 holds exactly (|grid| <=
-//   127): the key's K scale multiplies its column of S in fp32, and its V
-//   scale multiplies its column of P before P is rounded, so no
-//   dequantized value is rounded.
+// - attention pass, bf16 (B3, `append_split_kernel`, csrc/paged_split.cuh,
+//   the walk B2 shares): one CTA per (64-row query tile, kv head,
+//   sequence); the tile runs over the G*S rows of the head group ordered
+//   position-major (row r = i * G + g), so every K/V stage it reads serves
+//   all G query heads. Pool blocks arrive by TMA through a 3-stage (D 128;
+//   4 at D 64) mbarrier ring fed by a producer warp; S = Q K^T and
+//   O += P V run on mma.sync.m16n8k16 with K and V fragments read by
+//   ldmatrix from 128-byte-swizzled tiles. A tile whose rows are all
+//   padding writes zeros. Long walks are split, not all walks: the last
+//   real tile of a sequence, if it holds at most 32 real rows (a decode
+//   row, a chunk's short tail), is split over kv into k <= 8 spans of at
+//   least 256 positions (k * rows <= 64), walked by its own CTA and the
+//   padding tiles' CTAs after it, its float32 partials merged in split
+//   order by the last to finish (append_splits, mirrored by
+//   `append_launch_config` and `append_tile_splits` in
+//   ops/kernels/paged_attention.py). So the partials are at most a quarter
+//   of the split tile's walk, and 0.1% of the function's bytes at the
+//   timing shape (only the decode row over 2,000 positions splits, 4
+//   ways). A chunk's 64-row tiles are not split: their partials would cost
+//   up to half of their walk, and a chunk's tiles already run side by side.
+// - attention pass, quantized (B4, `append_attn_kernel`, the first design):
+//   one CTA = 4 warps per (b, kv head, 64-row query tile) walks 64-position
+//   K/V tiles up to lens + (its last real row), skipping tiles whose
+//   blocks are all -1, staged through shared memory with double-buffered
+//   16-byte cp.async; the payload is unpacked in shared memory into bf16
+//   tiles of its grid values, which bf16 holds exactly (|grid| <= 127):
+//   the key's K scale multiplies its column of S in fp32, and its V scale
+//   multiplies its column of P before P is rounded, so no dequantized value
+//   is rounded. Its ring and split can take the bf16 walk's form once the
+//   unpack moves between the stage's arrival and its products (ROADMAP
+//   queue B).
+//
+// Measured (chip_smoke.py, tools/ab_paged.py, tools/paged_sweep.py on an
+// H100 80GB HBM3 at 700 W): PERF.md, kernel table row 5. B3 takes
+// 0.0850 ms at the timing shape, 2.8x its bound (the first design, one
+// non-split walk per tile through a 2-stage cp.async buffer: 0.1883 ms);
+// its chunk tiles are bound by L2, each re-reading its sequence's history.
 #include <math.h>
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 #include "kv_quant.cuh"
 #include "paged_common.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAXBS = 128;   // block size
 constexpr int PADB = 16;     // bytes of padding per shared row
-constexpr int BF16 = 16;     // the BITS of a bf16 pool
 
 // ---- write pass, bf16: one CTA per (row i, sequence b) ---------------------
 __global__ void __launch_bounds__(NTHREADS)
@@ -183,17 +201,14 @@ append_quant_write_kernel(uint8_t* k_pool, uint8_t* v_pool, float* k_scale,
   }
 }
 
-// ---- attention pass: one CTA per (64-row tile, kv head, sequence) ----------
-// BITS: 16 (bf16 pools), 8 or 4 (quantized pools, with their scales); a pool
-// holds elements of PoolT: bf16, or payload bytes
-template <int BITS>
-using PoolT = std::conditional_t<BITS == BF16, __nv_bfloat16, uint8_t>;
-
+// ---- attention pass, quantized (B4): one CTA per (64-row tile, kv head,
+// sequence) --------------------------------------------------------------
+// BITS: 8 or 4; a pool holds payload bytes, with their scales
 template <int D, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
 append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
-                   long long q_s, const PoolT<BITS>* __restrict__ k_pool,
-                   const PoolT<BITS>* __restrict__ v_pool,
+                   long long q_s, const uint8_t* __restrict__ k_pool,
+                   const uint8_t* __restrict__ v_pool,
                    const int* __restrict__ tables,
                    const int* __restrict__ lens,
                    const int* __restrict__ qlens,
@@ -201,8 +216,7 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
                    int bs, int MB, float scale_log2,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale) {
-  using T = PoolT<BITS>;
-  constexpr bool QUANT = BITS != BF16;
+  using T = uint8_t;
   constexpr int LD = D + PAD;       // shared row stride of a bf16 tile
   constexpr int RE = D * BITS / 8 / (int)sizeof(T);  // elements of a pool row
   constexpr int LDP = RE + PADB / (int)sizeof(T);    // ... of a staged row
@@ -212,12 +226,12 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
   constexpr int NS = BK / 8;   // n8 tiles of one score tile
   constexpr int CH = RE / CE;  // 16-byte chunks per pool row
   constexpr int CHO = D / 8;   // 16-byte chunks per output row
-  // [2][K, V][BK][LDP] pool elements as stored (bf16 pools: the tiles the
-  // products read); quantized pools: then [K, V][BK][LD] bf16 grid tiles
+  // [2][K, V][BK][LDP] payload bytes as stored, then [K, V][BK][LD] bf16
+  // grid tiles (the tiles the products read)
   extern __shared__ __align__(16) __nv_bfloat16 kv_s[];
   __shared__ int ok_s[2][BK];
-  // quantized: [stage][K, V][key] its block's K scale * scale_log2, V scale
-  __shared__ float sc_s[2][2][QUANT ? BK : 1];
+  // [stage][K, V][key] its block's K scale * scale_log2, V scale
+  __shared__ float sc_s[2][2][BK];
 
   const int G = Hq / Hkv;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -269,12 +283,10 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
       const int j = pos / bs;
       const bool live = pos < n_pos && j <= j_last && trow[j] >= 0;
       ok_s[st][threadIdx.x] = live ? 1 : 0;
-      if constexpr (QUANT) {
-        sc_s[st][0][threadIdx.x] =
-            live ? k_scale[(long)trow[j] * Hkv + kvh] * scale_log2 : 0.f;
-        sc_s[st][1][threadIdx.x] =
-            live ? v_scale[(long)trow[j] * Hkv + kvh] : 0.f;
-      }
+      sc_s[st][0][threadIdx.x] =
+          live ? k_scale[(long)trow[j] * Hkv + kvh] * scale_log2 : 0.f;
+      sc_s[st][1][threadIdx.x] =
+          live ? v_scale[(long)trow[j] * Hkv + kvh] : 0.f;
     }
     for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {
       const int r = c / CH, d = (c % CH) * CE;
@@ -356,12 +368,9 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
       cp_async_wait<0>();
     }
     __syncthreads();   // tile kt resident, its ok flags (and scales) written
-    const __nv_bfloat16* Ks = kv_s + st * stage;
-    if constexpr (QUANT) {
-      unpack(st);
-      __syncthreads();   // the grid tiles are written
-      Ks = kv_s + 2 * stage;
-    }
+    unpack(st);
+    __syncthreads();   // the grid tiles are written
+    const __nv_bfloat16* Ks = kv_s + 2 * stage;
     const __nv_bfloat16* Vs = Ks + (long)BK * LD;
     const int k0 = kt * BK;
 
@@ -387,10 +396,8 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + t * 2 + (e & 1);
         const bool ok = ok_s[st][col] && (k0 + col) <= lim[e >> 1];
-        if constexpr (QUANT)   // the key's K scale too
-          s[n][e] = ok ? s[n][e] * sc_s[st][0][col] : -INFINITY;
-        else
-          s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
+        // the key's K scale (times the softmax scale) too
+        s[n][e] = ok ? s[n][e] * sc_s[st][0][col] : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     }
@@ -417,14 +424,12 @@ append_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_b,
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
-    if constexpr (QUANT) {
-      // P's column of each key takes that key's V scale (after l summed P)
+    // P's column of each key takes that key's V scale (after l summed P)
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float* vsc = &sc_s[st][1][n * 8 + t * 2];
-        s[n][0] *= vsc[0]; s[n][1] *= vsc[1];
-        s[n][2] *= vsc[0]; s[n][3] *= vsc[1];
-      }
+    for (int n = 0; n < NS; ++n) {
+      const float* vsc = &sc_s[st][1][n * 8 + t * 2];
+      s[n][0] *= vsc[0]; s[n][1] *= vsc[1];
+      s[n][2] *= vsc[0]; s[n][3] *= vsc[1];
     }
 
     // O += P V: the score accumulators of n-tiles 2j, 2j+1 are exactly
@@ -478,9 +483,7 @@ int launch_attn(dim3 grid, cudaStream_t s, const __nv_bfloat16* q,
                 const int* qlens, __nv_bfloat16* out, int S, int Hq, int Hkv,
                 int bs, int MB, float scale_log2) {
   const int smem = 2 * 2 * BK * (D * BITS / 8 + PADB) +  // 2 stages, K and V
-                   (BITS == BF16 ? 0
-                                 : 2 * BK * (D + PAD) *
-                                       (int)sizeof(__nv_bfloat16));
+                   2 * BK * (D + PAD) * (int)sizeof(__nv_bfloat16);
   static int smem_allowed = 0;   // the opt-in above 48 KB, set once per size
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -490,13 +493,13 @@ int launch_attn(dim3 grid, cudaStream_t s, const __nv_bfloat16* q,
     smem_allowed = smem;
   }
   append_attn_kernel<D, BITS><<<grid, NTHREADS, smem, s>>>(
-      q, q_b, q_s, static_cast<const PoolT<BITS>*>(k_pool),
-      static_cast<const PoolT<BITS>*>(v_pool), tables, lens, qlens, out, S,
+      q, q_b, q_s, static_cast<const uint8_t*>(k_pool),
+      static_cast<const uint8_t*>(v_pool), tables, lens, qlens, out, S,
       Hq, Hkv, bs, MB, scale_log2, k_scale, v_scale);
   return (int)cudaGetLastError();
 }
 
-// Both passes for pools of BITS (16: bf16, no scales; 8 or 4: quantized).
+// Both passes for quantized pools of BITS (8 or 4) with their scales.
 template <int BITS>
 int dispatch(const void* q, long long q_b, long long q_s, void* k_pool,
              void* v_pool, void* k_scale, void* v_scale, const void* tables,
@@ -519,19 +522,12 @@ int dispatch(const void* q, long long q_b, long long q_s, void* k_pool,
   const auto* nvp = static_cast<const __nv_bfloat16*>(new_v);
   auto* op = static_cast<__nv_bfloat16*>(out);
 
-  if constexpr (BITS == BF16) {
-    append_write_kernel<<<dim3(S, B), NTHREADS, 0, s>>>(
-        static_cast<__nv_bfloat16*>(k_pool),
-        static_cast<__nv_bfloat16*>(v_pool), tp, lp, qlp, nkp, nk_b, nk_s,
-        nvp, nv_b, nv_s, Hkv, D, bs, MB, NB);
-  } else {
-    // a window covers at most ceil(S / bs) + 1 blocks
-    const int NW = (S + bs - 1) / bs + 1;
-    append_quant_write_kernel<BITS><<<dim3(NW, Hkv, B), NTHREADS, 0, s>>>(
-        static_cast<uint8_t*>(k_pool), static_cast<uint8_t*>(v_pool), ksp,
-        vsp, tp, lp, qlp, nkp, nk_b, nk_s, nvp, nv_b, nv_s, Hkv, D, bs, MB,
-        NB);
-  }
+  // a window covers at most ceil(S / bs) + 1 blocks
+  const int NW = (S + bs - 1) / bs + 1;
+  append_quant_write_kernel<BITS><<<dim3(NW, Hkv, B), NTHREADS, 0, s>>>(
+      static_cast<uint8_t*>(k_pool), static_cast<uint8_t*>(v_pool), ksp,
+      vsp, tp, lp, qlp, nkp, nk_b, nk_s, nvp, nv_b, nv_s, Hkv, D, bs, MB,
+      NB);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -547,6 +543,18 @@ int dispatch(const void* q, long long q_b, long long q_s, void* k_pool,
                                scale_log2);
 }
 
+// ---- attention pass, bf16 (B3): the split walk of paged_split.cuh -------
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+append_split_kernel(const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv,
+                    const SplitParams p) {
+  split_walk<D, false>(&tmk, &tmv, p);
+}
+
+// the q tiles of a head group: S*G rows in 64-row tiles
+int append_tiles(int S, int G) { return (S * G + SPLIT_ROWS - 1) / SPLIT_ROWS; }
+
 }  // namespace
 
 extern "C" int pt_paged_attention_append_bf16(
@@ -554,10 +562,80 @@ extern "C" int pt_paged_attention_append_bf16(
     const void* tables, const void* lens, const void* qlens,
     const void* new_k, long long nk_b, long long nk_s, const void* new_v,
     long long nv_b, long long nv_s, void* out, int B, int S, int Hq, int Hkv,
-    int D, int bs, int MB, int NB, float scale, void* stream) {
-  return dispatch<BF16>(q, q_b, q_s, k_pool, v_pool, nullptr, nullptr, tables,
-                        lens, qlens, new_k, nk_b, nk_s, new_v, nv_b, nv_s,
-                        out, B, S, Hq, Hkv, D, bs, MB, NB, scale, stream);
+    int D, int bs, int MB, int NB, float scale, void* scratch,
+    void* counters, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || bs <= 0 || bs > MAXBS ||
+      MB <= 0 || NB <= 0 || B > 65535 || Hkv > 65535 ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tk, tv;
+  if (!split_pool_maps(&tk, &tv, k_pool, v_pool, NB, Hkv, bs, D))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  auto* kp = static_cast<__nv_bfloat16*>(k_pool);
+  auto* vp = static_cast<__nv_bfloat16*>(v_pool);
+  const auto* tp = static_cast<const int*>(tables);
+  const auto* lp = static_cast<const int*>(lens);
+  const auto* qlp = static_cast<const int*>(qlens);
+  append_write_kernel<<<dim3(S, B), NTHREADS, 0, s>>>(
+      kp, vp, tp, lp, qlp, static_cast<const __nv_bfloat16*>(new_k), nk_b,
+      nk_s, static_cast<const __nv_bfloat16*>(new_v), nv_b, nv_s, Hkv, D, bs,
+      MB, NB);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  SplitParams p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.q_b = q_b;
+  p.q_s = q_s;
+  p.k_pool = kp;
+  p.v_pool = vp;
+  p.tables = tp;
+  p.lens = lp;
+  p.qlens = qlp;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.scratch = static_cast<float*>(scratch);
+  p.counters = static_cast<int*>(counters);
+  p.S = S;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.bs = bs;
+  p.MB = MB;
+  p.NB = NB;
+  p.krows = SPLIT_ROWS;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  const dim3 grid(append_tiles(S, Hq / Hkv), Hkv, B);
+  if (D == 128)
+    return (int)launch_split<128>(append_split_kernel<128>, grid, s, tk, tv,
+                                  p);
+  return (int)launch_split<64>(append_split_kernel<64>, grid, s, tk, tv, p);
+}
+
+// Holds the wrapper's launch geometry (append_launch_config) against the
+// constants and the split rule's numbers here; 0 when every number agrees.
+extern "C" int pt_paged_attention_append_check_launch(
+    int B, int S, int Hq, int Hkv, int D, int bs, int MB, int grid_x,
+    int grid_y, int grid_z, int smem_bytes, int stages, int threads,
+    int krows, int max_splits, int split_max_rows, int split_min_pos) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || bs <= 0 || MB <= 0 ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  const int smem =
+      D == 128 ? SplitSmem<128>::kBytes : SplitSmem<64>::kBytes;
+  const bool ok = grid_x == append_tiles(S, Hq / Hkv) && grid_y == Hkv &&
+                  grid_z == B && smem_bytes == smem &&
+                  stages == split_stages(D) && threads == SPLIT_THREADS &&
+                  krows == SPLIT_ROWS && max_splits == APPEND_MAX_SPLITS &&
+                  split_max_rows == APPEND_SPLIT_MAX_ROWS &&
+                  split_min_pos == APPEND_SPLIT_MIN_POS;
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// B3's split rule for one sequence, as the kernel applies it (for the card
+// tests, which hold it against append_tile_splits).
+extern "C" int pt_paged_attention_append_splits(int L, int QL, int S, int G,
+                                                int bs, int MB) {
+  return append_splits(L, QL, S, G, bs, MB, append_tiles(S, G));
 }
 
 #define PT_ENTRY(NAME, BITS)                                                  \

@@ -1,7 +1,7 @@
-// What the paged-attention kernels (paged_attention_decode.cu,
-// paged_attention_decode_quant.cu, paged_attention_append.cu) share: the
-// 16-byte cp.async copies that stream pool rows into shared memory, and the
-// walk to the next live block of a block table.
+// What the quantized paged-attention kernels (paged_attention_decode_quant.cu
+// and the int8/int4 pass of paged_attention_append.cu) share: the 16-byte
+// cp.async copies that stream pool rows into shared memory, and the walk to
+// the next live block of a block table.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -88,6 +88,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// One box of a rank-2 tensor map at (column c0, row c1) into shared memory
+// at `dst`, counted in bytes on the mbarrier `bar` (the paged kernels' pool
+// boxes, csrc/paged_split.cuh).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // The shared-memory matrix descriptor of a 128-byte-swizzled operand:

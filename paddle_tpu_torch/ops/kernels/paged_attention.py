@@ -10,7 +10,14 @@ Replaces two Pallas kernels with hand-written CUDA kernels:
   through ``paged_attention_append`` ``:784``) with
   ``paddle_tpu_torch/csrc/paged_attention_append.cu``.
 
-The source notes there give each design and its bound on the H100.
+The source notes there give each design and its bound on the H100. B2
+and B3 share one walk (``csrc/paged_split.cuh``): a sequence's kv walk is
+split across CTAs whose float32 partials merge in a fixed order (B2: spans
+of whole blocks, :func:`decode_launch_config`; B3: the last real tile of a
+sequence when it holds few rows, :func:`append_tile_splits`), with the
+pool blocks fed by TMA through an mbarrier ring. The wrapper passes each a
+float32 scratch and an int32 counter per (sequence, kv head), kept per
+device and stream (:func:`_split_buffers`).
 
 Decode: one query token per sequence, straight off the physical
 block pools ``[NB, Hkv, bs, D]`` through ``block_tables [B, MB]`` (-1 =
@@ -65,7 +72,10 @@ instantiations of ``csrc/paged_attention_append.cu``; rules shared in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -357,6 +367,230 @@ def _check_kernel_args(what, rows, pools, ints, D, G, bs, quant=None,
                              f"[H, D] and 16-byte aligned")
 
 
+# ---------------------------------------------------------------------------
+# B2/B3 launch geometry (csrc/paged_split.cuh states the same constants)
+# ---------------------------------------------------------------------------
+
+#: q rows of a tile and kv rows of a ring stage; threads of a CTA (four
+#: consumer warps and a producer warp)
+SPLIT_ROWS, SPLIT_THREADS = 64, 160
+#: B2's span rule: a span covers at least this many positions, and grows
+#: until the grid holds about this many CTAs (8 per SM); picked from
+#: ``tools/paged_sweep.py``, set for a sweep by :func:`set_decode_tuning`
+DECODE_SPAN_POS, DECODE_TARGET_CTAS = 512, 1056
+#: B3's split rule: the last real tile of a sequence splits only with at
+#: most APPEND_SPLIT_MAX_ROWS real rows, into at most APPEND_MAX_SPLITS
+#: walks of at least APPEND_SPLIT_MIN_POS positions
+APPEND_MAX_SPLITS, APPEND_SPLIT_MAX_ROWS, APPEND_SPLIT_MIN_POS = 8, 32, 256
+
+
+def split_stages(D):
+    """Stages of the kv ring: 3 at head dim 128, 4 at 64 (96 and 64 KB, so
+    two CTAs fit on an SM)."""
+    return 3 if D == 128 else 4
+
+
+def split_smem_bytes(D):
+    """Dynamic shared memory of a B2/B3 CTA: 1024 bytes of alignment
+    slack, the ring (K and V tiles of 64 rows per stage), each stage's 64
+    tile-row positions, a full and an empty mbarrier per stage, two ints."""
+    st = split_stages(D)
+    return 1024 + st * 2 * SPLIT_ROWS * D * 2 + st * SPLIT_ROWS * 4 \
+        + st * 16 + 16
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLaunch:
+    grid: tuple             # (x, kv heads, sequences)
+    span: int               # B2: pool blocks per split (B3: 0, on the device)
+    splits: int             # B2: splits per sequence; B3: the most per tile
+    smem_bytes: int
+    stages: int
+    threads: int
+    scratch_rows: int       # partial rows per (sequence, kv head)
+    scratch_floats: int     # float32 scratch: rows * (D + 2) per pair
+    counters: int           # int32 counters: one per (sequence, kv head)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_launch_config(B, Hq, Hkv, D, bs, MB):
+    """B2's launch geometry, from what the host knows (no read of lens): a
+    span of ``max(ceil(DECODE_SPAN_POS / bs), ceil(MB * B * Hkv /
+    DECODE_TARGET_CTAS))`` blocks (at most MB), ``ceil(MB / span)`` splits
+    per sequence; grid (splits, Hkv, B). A CTA whose span starts past its
+    sequence's last live block exits at once (:func:`decode_walks`)."""
+    span = min(MB, max(-(-DECODE_SPAN_POS // bs),
+                       -(-(MB * B * Hkv) // DECODE_TARGET_CTAS)))
+    splits = -(-MB // span)
+    rows = splits * (Hq // Hkv)
+    return PagedLaunch((splits, Hkv, B), span, splits, split_smem_bytes(D),
+                       split_stages(D), SPLIT_THREADS, rows,
+                       B * Hkv * rows * (D + 2), B * Hkv)
+
+
+@functools.lru_cache(maxsize=256)
+def append_launch_config(B, S, Hq, Hkv, D):
+    """B3's launch geometry, from S, G, Hkv and B alone: one CTA per
+    64-row tile of the S*G rows of a head group; the split of a sequence's
+    last tile is decided on the device (:func:`append_tile_splits`) and
+    runs on the padding tiles' CTAs, so the grid does not grow with it."""
+    G = Hq // Hkv
+    return PagedLaunch((-(-S * G // SPLIT_ROWS), Hkv, B), 0,
+                       APPEND_MAX_SPLITS, split_smem_bytes(D),
+                       split_stages(D), SPLIT_THREADS, SPLIT_ROWS,
+                       B * Hkv * SPLIT_ROWS * (D + 2), B * Hkv)
+
+
+def decode_walks(L, bs, MB, span):
+    """B2's walks of a sequence with ``L`` cached tokens: ``(jb, je)``
+    block ranges of splits 0, 1, ... (every block 0 .. j_last once); a
+    split index past the list exits at once."""
+    j_last = min(L // bs, MB - 1)
+    return [(jb, min(jb + span, j_last + 1))
+            for jb in range(0, j_last + 1, span)]
+
+
+def append_tile_splits(L, QL, S, G, bs, MB):
+    """B3's split rule for one sequence (the kernel's ``append_splits``):
+    ``(t_last, rows, k)``, the last real tile, its real rows and the CTAs
+    that walk it (1: not split; ``t_last = -1`` for an idle slot). Split s
+    of k walks blocks ``[J*s // k, J*(s+1) // k)`` of the tile's ``J``."""
+    n_tiles = -(-S * G // SPLIT_ROWS)
+    real = min(QL, S) * G
+    if real <= 0:
+        return -1, 0, 1
+    t_last = (real - 1) // SPLIT_ROWS
+    R = real - t_last * SPLIT_ROWS
+    if R > APPEND_SPLIT_MAX_ROWS:
+        return t_last, R, 1
+    max_lim = L + min(QL, S) - 1
+    J = min(max_lim // bs, MB - 1) + 1
+    npos = min(max_lim + 1, MB * bs)
+    k = min(n_tiles - t_last, APPEND_MAX_SPLITS, SPLIT_ROWS // R,
+            npos // APPEND_SPLIT_MIN_POS, J)
+    return t_last, R, max(k, 1)
+
+
+def append_tile_walks(L, QL, S, G, bs, MB):
+    """Every walk of one (sequence, kv head) as B3 runs it: ``(row0,
+    rows, split, k, jb, je)`` per CTA that walks (its tile's real rows
+    ``[row0, row0 + rows)``, its blocks ``[jb, je)``)."""
+    t_last, R_last, k_last = append_tile_splits(L, QL, S, G, bs, MB)
+    walks = []
+    for t in range(t_last + 1):
+        r0 = t * SPLIT_ROWS
+        R = R_last if t == t_last else SPLIT_ROWS
+        k = k_last if t == t_last else 1
+        J = min((L + (r0 + R - 1) // G) // bs, MB - 1) + 1
+        walks += [(r0, R, s, k, J * s // k, J * (s + 1) // k)
+                  for s in range(k)]
+    return walks
+
+
+def set_decode_tuning(span_pos, target_ctas):
+    """Set B2's span rule in the wrapper and in the kernel's library (for
+    ``tools/paged_sweep.py``; needs the card)."""
+    global DECODE_SPAN_POS, DECODE_TARGET_CTAS
+    DECODE_SPAN_POS, DECODE_TARGET_CTAS = int(span_pos), int(target_ctas)
+    lib = _build.load(KERNEL)
+    lib.pt_paged_attention_decode_set_tuning.argtypes = [ctypes.c_int] * 2
+    lib.pt_paged_attention_decode_set_tuning.restype = None
+    lib.pt_paged_attention_decode_set_tuning(span_pos, target_ctas)
+    decode_launch_config.cache_clear()
+    _check_decode_launch.cache_clear()
+
+
+_SPLIT_BUFS: dict = {}
+_SPLIT_LOCK = threading.Lock()
+
+
+def _split_buffers(dev, stream, cfg):
+    """The float32 scratch and int32 counters of B2/B3 on ``dev`` for
+    launches on ``stream``: allocated once (the counters zeroed; every
+    launch leaves them 0) and grown when a launch needs more. Launches on
+    one stream run in order, so they share them; a buffer replaced while a
+    launch on that stream still uses it is reused only after it."""
+    key = (dev.index, stream.value)
+
+    def fits(bufs):
+        return bufs is not None and bufs[0].numel() >= cfg.scratch_floats \
+            and bufs[1].numel() >= cfg.counters
+    bufs = _SPLIT_BUFS.get(key)
+    if not fits(bufs):
+        with _SPLIT_LOCK:
+            bufs = _SPLIT_BUFS.get(key)
+            if not fits(bufs):
+                n_f = max(cfg.scratch_floats, bufs[0].numel() if bufs else 0)
+                n_c = max(cfg.counters, bufs[1].numel() if bufs else 0)
+                bufs = (torch.empty(n_f, dtype=torch.float32, device=dev),
+                        torch.zeros(n_c, dtype=torch.int32, device=dev))
+                _SPLIT_BUFS[key] = bufs
+    return bufs
+
+
+_P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+    ctypes.c_float
+#: each C entry point's arguments (set once, when its library loads)
+_ARGTYPES = {
+    "pt_paged_attention_decode_bf16":
+        [_P, _LL] + [_P] * 4 + [_P, _LL, _P, _LL, _P] + [_I] * 7 +
+        [_F, _P, _P, _P],
+    "pt_paged_attention_decode_int8":
+        [_P, _LL] + [_P] * 6 + [_P, _LL, _P, _LL, _P] + [_I] * 7 + [_F, _P],
+    "pt_paged_attention_append_bf16":
+        [_P, _LL, _LL] + [_P] * 5 + [_P, _LL, _LL] * 2 + [_P] + [_I] * 8 +
+        [_F, _P, _P, _P],
+    "pt_paged_attention_append_int8":
+        [_P, _LL, _LL] + [_P] * 7 + [_P, _LL, _LL] * 2 + [_P] + [_I] * 8 +
+        [_F, _P],
+    "pt_paged_attention_decode_check_launch": [_I] * 15,
+    "pt_paged_attention_append_check_launch": [_I] * 17,
+    "pt_paged_attention_append_splits": [_I] * 6,
+}
+_ARGTYPES["pt_paged_attention_decode_int4"] = \
+    _ARGTYPES["pt_paged_attention_decode_int8"]
+_ARGTYPES["pt_paged_attention_append_int4"] = \
+    _ARGTYPES["pt_paged_attention_append_int8"]
+_FNS: dict = {}
+
+
+def _entry(kernel, name):
+    """``(library, C function)`` of ``name`` in ``kernel``'s library, its
+    argument types set once."""
+    hit = _FNS.get(name)
+    if hit is None:
+        lib = _build.load(kernel)
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        hit = _FNS[name] = (lib, fn)
+    return hit
+
+
+@functools.lru_cache(maxsize=256)
+def _check_decode_launch(B, Hq, Hkv, D, bs, MB):
+    """Hold B2's rule and constants against :func:`decode_launch_config`
+    for this geometry, once per geometry; raises on a mismatch."""
+    c = decode_launch_config(B, Hq, Hkv, D, bs, MB)
+    lib, chk = _entry(KERNEL, "pt_paged_attention_decode_check_launch")
+    code = chk(B, Hq, Hkv, D, bs, MB, *c.grid, c.span, c.splits,
+               c.smem_bytes, c.stages, c.threads, c.scratch_rows)
+    _build.check(lib, code, "paged_attention_decode launch geometry")
+
+
+@functools.lru_cache(maxsize=256)
+def _check_append_launch(B, S, Hq, Hkv, D, bs, MB):
+    """Hold B3's constants and split rule's numbers against
+    :func:`append_launch_config`, once per geometry; raises on a
+    mismatch."""
+    c = append_launch_config(B, S, Hq, Hkv, D)
+    lib, chk = _entry(APPEND_KERNEL, "pt_paged_attention_append_check_launch")
+    code = chk(B, S, Hq, Hkv, D, bs, MB, *c.grid, c.smem_bytes, c.stages,
+               c.threads, c.scratch_rows, APPEND_MAX_SPLITS,
+               APPEND_SPLIT_MAX_ROWS, APPEND_SPLIT_MIN_POS)
+    _build.check(lib, code, "paged_attention_append launch geometry")
+
+
 def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens, new_k,
                            new_v, scale=None, k_scale=None, v_scale=None,
                            quant=None):
@@ -389,29 +623,27 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens, new_k,
         dict(block_tables=block_tables, seq_lens=seq_lens), D, Hq // Hkv, bs,
         quant, dict(k_scale=k_scale, v_scale=v_scale) if quant else None)
     out = torch.empty((B, Hq, D), device=q.device, dtype=q.dtype)
+    stream = _build.stream_of(q)
     if quant:
-        lib = _build.load(QUANT_KERNEL)
-        fn = getattr(lib, f"pt_paged_attention_decode_{quant}")
-        scales = [k_scale.data_ptr(), v_scale.data_ptr()]
-    else:
-        lib = _build.load(KERNEL)
-        fn = lib.pt_paged_attention_decode_bf16
-        scales = []
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + \
-        [ctypes.c_void_p] * (4 + len(scales)) + \
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 7 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
-              *scales, block_tables.data_ptr(), seq_lens.data_ptr(),
-              new_k.data_ptr(), new_k.stride(0), new_v.data_ptr(),
-              new_v.stride(0), out.data_ptr(), B, Hq, Hkv, D, bs, MB, NB,
-              scale, _build.stream_of(q))
-    if quant:
+        lib, fn = _entry(QUANT_KERNEL, f"pt_paged_attention_decode_{quant}")
+        code = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(),
+                  v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                  block_tables.data_ptr(), seq_lens.data_ptr(),
+                  new_k.data_ptr(), new_k.stride(0), new_v.data_ptr(),
+                  new_v.stride(0), out.data_ptr(), B, Hq, Hkv, D, bs, MB, NB,
+                  scale, stream)
         _build.check(lib, code, f"paged_attention_decode ({quant})")
         paged_attention_decode.quant_launches[quant] += 1
         return out, k_pool, v_pool, k_scale, v_scale
+    _check_decode_launch(B, Hq, Hkv, D, bs, MB)
+    scratch, counters = _split_buffers(
+        q.device, stream, decode_launch_config(B, Hq, Hkv, D, bs, MB))
+    lib, fn = _entry(KERNEL, "pt_paged_attention_decode_bf16")
+    code = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
+              block_tables.data_ptr(), seq_lens.data_ptr(), new_k.data_ptr(),
+              new_k.stride(0), new_v.data_ptr(), new_v.stride(0),
+              out.data_ptr(), B, Hq, Hkv, D, bs, MB, NB, scale,
+              scratch.data_ptr(), counters.data_ptr(), stream)
     _build.check(lib, code, "paged_attention_decode")
     paged_attention_decode.launches += 1
     return out
@@ -560,25 +792,25 @@ def paged_attention_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens,
         D, Hq // Hkv, bs, quant,
         dict(k_scale=k_scale, v_scale=v_scale) if quant else None)
     out = torch.empty((B, S, Hq, D), device=q.device, dtype=q.dtype)
-    lib = _build.load(APPEND_KERNEL)
-    fn = getattr(lib, f"pt_paged_attention_append_{quant or 'bf16'}")
-    scales = [k_scale.data_ptr(), v_scale.data_ptr()] if quant else []
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + \
-        [ctypes.c_void_p] * (5 + len(scales)) + \
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 2 + \
-        [ctypes.c_void_p] + [ctypes.c_int] * 8 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
-              v_pool.data_ptr(), *scales, block_tables.data_ptr(),
-              seq_lens.data_ptr(), q_lens.data_ptr(), new_k.data_ptr(),
-              new_k.stride(0), new_k.stride(1), new_v.data_ptr(),
-              new_v.stride(0), new_v.stride(1), out.data_ptr(), B, S, Hq, Hkv,
-              D, bs, MB, NB, scale, _build.stream_of(q))
+    stream = _build.stream_of(q)
+    head = [q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
+            v_pool.data_ptr()]
+    rows = [block_tables.data_ptr(), seq_lens.data_ptr(), q_lens.data_ptr(),
+            new_k.data_ptr(), new_k.stride(0), new_k.stride(1),
+            new_v.data_ptr(), new_v.stride(0), new_v.stride(1),
+            out.data_ptr(), B, S, Hq, Hkv, D, bs, MB, NB, scale]
     if quant:
+        lib, fn = _entry(APPEND_KERNEL, f"pt_paged_attention_append_{quant}")
+        code = fn(*head, k_scale.data_ptr(), v_scale.data_ptr(), *rows,
+                  stream)
         _build.check(lib, code, f"paged_attention_append ({quant})")
         paged_attention_append.quant_launches[quant] += 1
         return out, k_pool, v_pool, k_scale, v_scale
+    _check_append_launch(B, S, Hq, Hkv, D, bs, MB)
+    scratch, counters = _split_buffers(
+        q.device, stream, append_launch_config(B, S, Hq, Hkv, D))
+    lib, fn = _entry(APPEND_KERNEL, "pt_paged_attention_append_bf16")
+    code = fn(*head, *rows, scratch.data_ptr(), counters.data_ptr(), stream)
     _build.check(lib, code, "paged_attention_append")
     paged_attention_append.launches += 1
     return out

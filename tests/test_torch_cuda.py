@@ -198,6 +198,131 @@ def test_paged_append_kernel_matches_plain(cuda, Hq, Hkv, D, bs, S):
     assert torch.equal(vp[:NB - 1], vp2[:NB - 1])
 
 
+LONG_BLOCKS = (16, 32, 48, 64, 100, 128)
+
+
+def _run_twice(fn, pools):
+    """``fn`` on two copies of the pools: outputs and pools bit for bit."""
+    a = [p.clone() for p in pools]
+    b = [p.clone() for p in pools]
+    out_a, out_b = fn(*a), fn(*b)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_b)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return out_a, a
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("bs", LONG_BLOCKS)
+def test_paged_decode_kernel_long_context(cuda, G, bs):
+    """B2 over long histories (MB 128, lens up to 8,192 where the table
+    reaches): sequences split across many CTAs, a span of -1 entries, a
+    wiped slot, a length past the table, D 64, block sizes that are one
+    box or two (and 48, 100: box slots TMA leaves empty). Out within 1e-2
+    of the plain version, pools bit-exact outside the scratch block, the
+    same bits on two calls."""
+    rng = np.random.default_rng(40 + G + bs)
+    D, Hkv, MB = 64, 2, 128
+    cap = MB * bs
+    lens = np.array([min(8191, cap - 1), cap // 2 + 3, 1, 0, cap + 5,
+                     777 % cap, cap // 3], np.int32)
+    B = len(lens)
+    need = [min(int(L) // bs, MB - 1) + 1 for L in lens]
+    NB = sum(need) + 2
+    tables = _tables(rng, need, MB, NB)
+    tables[3, :] = -1                       # a freed slot
+    tables[0, 40:60] = -1                   # -1 entries inside a long walk
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    kp = _randn(rng, (NB, Hkv, bs, D), cuda)
+    vp = _randn(rng, (NB, Hkv, bs, D), cuda)
+    q = _randn(rng, (B, G * Hkv, D), cuda)
+    nk = _randn(rng, (B, Hkv, D), cuda)
+    nv = _randn(rng, (B, Hkv, D), cuda)
+    n0 = paged_attention_decode.launches
+    out, (kk, vk) = _run_twice(
+        lambda k, v: paged_attention_decode(q, k, v, t, ln, nk, nv), (kp, vp))
+    assert paged_attention_decode.launches == n0 + 2
+    kr, vr = kp.clone(), vp.clone()
+    ref = paged_attention_decode_plain(q, kr, vr, t, ln, nk, nv)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert torch.equal(kk[:NB - 1], kr[:NB - 1])
+    assert torch.equal(vk[:NB - 1], vr[:NB - 1])
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("bs", LONG_BLOCKS)
+def test_paged_append_kernel_long_context(cuda, G, bs):
+    """B3 over long histories (MB 128): decode rows that split across the
+    padding tiles' CTAs, one of them over -1 entries, a chunk and a short
+    chunk tail after long histories, an idle slot, D 64. Real rows within
+    2e-2, padding rows zero, pools bit-exact outside the scratch block, the
+    same bits on two calls."""
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        append_tile_splits)
+    rng = np.random.default_rng(50 + G + bs)
+    D, Hkv, MB, S = 64, 2, 128, 128
+    cap = MB * bs
+    specs = [(min(8000, cap - 1), 1), (cap // 2, 1), (cap // 3, S),
+             (cap - 40, 9), (100, 0), (cap // 4, 3)]
+    B = len(specs)
+    assert any(append_tile_splits(L, n, S, G, bs, MB)[2] > 1
+               for L, n in specs)
+    need = [0 if n == 0 else min((L + n - 1) // bs, MB - 1) + 1
+            for L, n in specs]
+    NB = sum(need) + 2
+    tables = _tables(rng, need, MB, NB)
+    tables[1, 10:30] = -1
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.tensor([L for L, _ in specs], dtype=torch.int32, device=cuda)
+    ql = torch.tensor([n for _, n in specs], dtype=torch.int32, device=cuda)
+    kp = _randn(rng, (NB, Hkv, bs, D), cuda)
+    vp = _randn(rng, (NB, Hkv, bs, D), cuda)
+    q = _randn(rng, (B, S, G * Hkv, D), cuda)
+    nk = _randn(rng, (B, S, Hkv, D), cuda)
+    nv = _randn(rng, (B, S, Hkv, D), cuda)
+    out, (kk, vk) = _run_twice(
+        lambda k, v: paged_attention_append(q, k, v, t, ln, ql, nk, nv),
+        (kp, vp))
+    kr, vr = kp.clone(), vp.clone()
+    ref = paged_attention_append_plain(q, kr, vr, t, ln, ql, nk, nv)
+    for b, (_, n) in enumerate(specs):
+        if n:
+            err = (out[b, :n].float() - ref[b, :n].float()).abs().max()
+            assert err.item() <= 2e-2
+        assert not out[b, n:].any()
+    assert torch.equal(kk[:NB - 1], kr[:NB - 1])
+    assert torch.equal(vk[:NB - 1], vr[:NB - 1])
+
+
+def test_paged_split_rules_match_the_kernels(cuda):
+    """The wrappers' launch geometry against the kernels' own numbers
+    (their check entry points; one off in any number is refused), and
+    B3's split rule against the kernel's for lengths around every edge."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    for D in (64, 128):
+        for B, Hq, Hkv, bs, MB in ((8, 32, 32, 64, 32), (32, 32, 8, 16, 128),
+                                   (1, 8, 1, 128, 64)):
+            pa._check_decode_launch(B, Hq, Hkv, D, bs, MB)
+            pa._check_append_launch(B, 256, Hq, Hkv, D, bs, MB)
+            c = pa.decode_launch_config(B, Hq, Hkv, D, bs, MB)
+            lib, chk = pa._entry(pa.KERNEL,
+                                 "pt_paged_attention_decode_check_launch")
+            args = [B, Hq, Hkv, D, bs, MB, *c.grid, c.span, c.splits,
+                    c.smem_bytes, c.stages, c.threads, c.scratch_rows]
+            assert chk(*args) == 0
+            for i in range(6, len(args)):
+                bad = list(args)
+                bad[i] += 1
+                assert chk(*bad) != 0
+    _, rule = pa._entry(pa.APPEND_KERNEL, "pt_paged_attention_append_splits")
+    for S, G, bs, MB in ((256, 1, 64, 32), (64, 4, 16, 128), (40, 8, 128, 8)):
+        for L in (0, 1, 63, 64, 255, 256, 511, 1999, 4096, MB * bs):
+            for QL in (0, 1, 2, 7, 8, 9, 31, 32, 33, S):
+                assert rule(L, QL, S, G, bs, MB) == \
+                    pa.append_tile_splits(L, QL, S, G, bs, MB)[2]
+
+
 def _quant_pool(rng, shape, quant, dev):
     """A quantized pool (int8 payload, float32 scales) made by quantizing
     unit-normal blocks; block 1 holds rows 100x larger, as a reused block
