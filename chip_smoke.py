@@ -4,13 +4,17 @@
 Run from the repository root: ``python3 chip_smoke.py``. It drives the
 port's main path on the card and fails (nonzero exit, no result line) if
 any phase fails, if CUDA is absent, or if the package is not beside it.
+``python3 chip_smoke.py --profile-quant ROOT`` runs only the quantized KV
+arms' step windows of phase (d''), over the package under ROOT
+(profile_quant_main).
 
 Phases:
   (a) build   — compile every kernel of the path from paddle_tpu_torch/csrc
                 with nvcc for sm_90a, all nvcc processes at once, and print
-                B1's, B5's, B2's and B3's ptxas lines (registers, barriers,
-                spills); B5 may neither spill nor have a warpgroup.arrive
-                injected, B2 and B3 may not spill;
+                B1's, B5's and the paged libraries' ptxas lines (registers,
+                barriers, spills); B5 may neither spill nor have a
+                warpgroup.arrive injected, the paged libraries (B2, B3 and
+                both forms of B4) may not spill;
   (b) parity  — each kernel against its plain PyTorch version on the card,
                 bf16, at the main path's shapes plus edge cases (B1 at
                 D 128 and 64, GQA and one kv head, S 2048, 1000 and 17; B5
@@ -23,8 +27,9 @@ Phases:
                 and float32 x, run twice for the same bits;
                 B4's decode and append forms on int8 and int4 pools with
                 payload and scales bit for bit outside the scratch block, a
-                dirty block whose stale rows must not reach its scale, and
-                an idle slot whose blocks must stay byte for byte);
+                dirty block whose stale rows must not reach its scale, an
+                idle slot whose blocks must stay byte for byte, the same
+                bits on two runs, and 32 sequences of 8,192 at G 4);
   (c) forward — LlamaForCausalLM at Llama-2-7B widths (32 layers, bf16,
                 seeded random weights) on [2, 2048] ids: finite logits,
                 one flash launch per layer;
@@ -61,8 +66,10 @@ Phases:
                 is healthy at the end; the bf16 arm passes the greedy check.
                 Per arm: tokens/s, preemptions, mean resident slots,
                 effective blocks, TTFT p50/p90, stage shares, median step
-                ms, launches, and each quantized arm's drift against bf16
-                (information);
+                ms, launches, each quantized arm's drift against bf16, and
+                each quantized arm's windows of mixed and all-decode steps,
+                untraced and traced (device ms per step by kernel class,
+                B4-append's write pass and attention apart; information);
   (d-iii) weight-only — the reference's llama_serve rung (Llama-2-7B
                 widths with ff 11264, 32 layers, seeded random bf16
                 weights): the same 12 requests through AsyncLLMServer over
@@ -85,7 +92,8 @@ Phases:
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
-                call beside their device time; B8 at 8 rows on the four
+                call beside their device time, B2, B3 and B4 also at Hkv 8,
+                B4-append's two launches apart; B8 at 8 rows on the four
                 7B-scale shapes, its weight out of L2, beside a bf16
                 torch.matmul of the same x); then four decode steps of
                 a fresh legacy engine traced with torch.profiler (device
@@ -145,6 +153,12 @@ import tempfile
 import time
 import warnings
 
+# ``--profile-quant ROOT`` profiles the package under ROOT (another
+# commit's, unpacked into an ignored directory): imported ahead of this one
+if __name__ == "__main__" and sys.argv[1:2] == ["--profile-quant"] and \
+        len(sys.argv) == 3:
+    sys.path.insert(0, os.path.abspath(sys.argv[2]))
+
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -175,6 +189,7 @@ from paddle_tpu_torch.ops.kernels.paged_attention import (
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.serving import AsyncLLMServer
 from paddle_tpu_torch.tools.cuda_timing import cuda_ms, host_us
+from paddle_tpu_torch.tools import paged_sweep
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -193,7 +208,6 @@ DQ_REPLACES = "paddle_tpu/ops/kernels/flash_attention.py:229"
 ADAMW_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:40"
 ADAMW_SR_SRC = "paddle_tpu_torch/csrc/fused_adamw_sr.cu"
 ADAMW_SR_REPLACES = "paddle_tpu/ops/kernels/fused_adamw.py:244"
-PAGED_Q_SRC = "paddle_tpu_torch/csrc/paged_attention_decode_quant.cu"
 INT4_SRC = "paddle_tpu_torch/csrc/int4_matmul.cu"
 INT4_REPLACES = "paddle_tpu/ops/kernels/int4_matmul.py:43"
 QUANTS = ("int8", "int4")
@@ -455,22 +469,55 @@ def paged_quant_case(rng, dev, quant, Hkv, lens=PAGED_LENS,
     return c
 
 
+# long-context quantized steps: 32 sequences of 8,192 at G 4 (Hkv 8,
+# MB 129), made on the card from a seed (numpy takes seconds a pool)
+QUANT_LONG_B, QUANT_LONG_L, QUANT_LONG_MB = 32, 8192, 129
+QUANT_LONG_QLENS = (1, 16, 5, 16)
+
+
+def twice_same_bits(fn, pools):
+    """``fn(pools)`` on two copies: the same output, payload and scales
+    (outside the scratch block, which several CTAs may write)."""
+    a = [t.clone() for t in pools]
+    b = [t.clone() for t in pools]
+    out_a, out_b = fn(a), fn(b)
+    torch.cuda.synchronize()
+    return bool(torch.equal(out_a, out_b)) and pools_equal(a, b)
+
+
 def check_paged_quant(dev):
     """B4-decode against its plain version, int8 and int4, at
     check_paged's shapes (Hkv 32 and a GQA case, a wiped slot whose -1
-    target parks in scratch, a dirty block): payload and scales
-    bit-identical outside scratch, out within PAGED_TOL."""
+    target parks in scratch, a dirty block) and over 32 sequences of 8,192
+    at G 4: payload and scales bit-identical outside scratch, out within
+    PAGED_TOL, the same bits on two runs."""
     rng = np.random.default_rng(12)
     worst = {q: 0.0 for q in QUANTS}
     for quant in QUANTS:
-        for Hkv in (32, 8):
-            c = paged_quant_case(rng, dev, quant, Hkv)
+        for Hkv in (32, 8, None):
+            if Hkv is None:
+                q_, kf, vf, t_, ln_, nk_, nv_ = paged_sweep.decode_inputs(
+                    paged_sweep.Inputs(16, dev),
+                    [QUANT_LONG_L] * QUANT_LONG_B, 32, 8, 128, QUANT_LONG_MB)
+                pools = paged_sweep.quantize_pools(kf, vf, quant)
+                c = dict(q=q_, tables=t_, lens=ln_, nk=nk_, nv=nv_,
+                         pools=list(pools))
+                del kf, vf, pools
+                name, lens, wiped, Hk = "long_G4", [QUANT_LONG_L] * \
+                    QUANT_LONG_B, [], 8
+            else:
+                c = paged_quant_case(rng, dev, quant, Hkv)
+                name, lens, wiped, Hk = f"Hkv{Hkv}", PAGED_LENS, \
+                    list(PAGED_WIPED), Hkv
+            args = (c["tables"], c["lens"], c["nk"], c["nv"])
+
+            def run(p):
+                return paged_attention_decode(
+                    c["q"], p[0], p[1], *args, k_scale=p[2], v_scale=p[3],
+                    quant=quant)[0]
             got = [t.clone() for t in c["pools"]]
             want = [t.clone() for t in c["pools"]]
-            args = (c["tables"], c["lens"], c["nk"], c["nv"])
-            out, *_ = paged_attention_decode(
-                c["q"], got[0], got[1], *args, k_scale=got[2],
-                v_scale=got[3], quant=quant)
+            out = run(got)
             ref, *_ = paged_attention_decode_plain(
                 c["q"], want[0], want[1], *args, None, want[2], want[3],
                 quant)
@@ -478,21 +525,30 @@ def check_paged_quant(dev):
             err = (out.float() - ref.float()).abs().max().item()
             exact = pools_equal(got, want)
             written = not torch.equal(got[0][:-1], c["pools"][0][:-1])
-            db = c["dirty_block"]
-            clean = bool((got[2][db] < 10 * c["pools"][2].median()).all())
-            emit({"phase": "parity", "kernel": f"paged_attention_decode_{quant}",
-                  "case": f"Hkv{Hkv}", "B": len(PAGED_LENS), "Hq": 32,
-                  "Hkv": Hkv, "D": 128, "block_size": 64,
-                  "payload_dim": kv_packed_dim(128, quant),
-                  "lens": PAGED_LENS, "wiped_rows": list(PAGED_WIPED),
-                  "max_abs_err": err, "tol": PAGED_TOL,
-                  "payload_and_scales_exact_except_scratch": exact,
-                  "blocks_written": written,
-                  "dirty_block_scale_from_live_rows": clean})
-            require(err <= PAGED_TOL, f"{quant} decode Hkv={Hkv}: err {err}")
-            require(exact and written and clean,
-                    f"{quant} decode Hkv={Hkv}: payload or scales differ")
+            same = twice_same_bits(run, c["pools"])
+            line = {"phase": "parity",
+                    "kernel": f"paged_attention_decode_{quant}",
+                    "case": name, "B": len(lens), "Hq": 32, "Hkv": Hk,
+                    "D": 128, "block_size": 64,
+                    "payload_dim": kv_packed_dim(128, quant),
+                    "lens": lens if Hkv else
+                    f"{QUANT_LONG_B} x {QUANT_LONG_L}",
+                    "wiped_rows": wiped, "max_abs_err": err,
+                    "tol": PAGED_TOL,
+                    "payload_and_scales_exact_except_scratch": exact,
+                    "blocks_written": written, "same_bits_twice": same}
+            clean = True
+            if Hkv is not None:
+                db = c["dirty_block"]
+                clean = bool((got[2][db] < 10 * c["pools"][2].median()).all())
+                line["dirty_block_scale_from_live_rows"] = clean
+            emit(line)
+            require(err <= PAGED_TOL, f"{quant} decode {name}: err {err}")
+            require(exact and written and clean and same,
+                    f"{quant} decode {name}: {line}")
             worst[quant] = max(worst[quant], err)
+            del c, got, want
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -528,53 +584,82 @@ def append_quant_case(rng, dev, quant, Hkv, minus_one=None, bs=64):
 
 def check_append_quant(dev):
     """B4-append against its plain version, int8 and int4, at
-    check_append's shapes (Hkv 32, GQA, a -1 window entry): payload and
-    scales bit-identical outside scratch, real rows within APPEND_TOL,
-    padding rows zero, the idle slot's blocks unchanged."""
+    check_append's shapes (Hkv 32, GQA, a -1 window entry) and over 32
+    sequences of 8,192 at G 4 (decode rows and short chunk tails at S 16):
+    payload and scales bit-identical outside scratch, real rows within
+    APPEND_TOL, padding rows zero, the idle slot's blocks unchanged, the
+    same bits on two runs."""
     rng = np.random.default_rng(13)
     worst = {q: 0.0 for q in QUANTS}
+    long_specs = [(QUANT_LONG_L - n, n)
+                  for n in QUANT_LONG_QLENS * (QUANT_LONG_B // 4)]
     for quant in QUANTS:
         for name, Hkv, minus_one in (("Hkv32", 32, None), ("Hkv8", 8, None),
                                      ("minus_one_target", 32,
-                                      APPEND_MINUS_ONE)):
-            c = append_quant_case(rng, dev, quant, Hkv, minus_one)
+                                      APPEND_MINUS_ONE),
+                                     ("long_G4", 8, None)):
+            if name == "long_G4":
+                specs = long_specs
+                q_, kf, vf, t_, ln_, ql_, nk_, nv_ = \
+                    paged_sweep.append_inputs(paged_sweep.Inputs(17, dev),
+                                              specs, 32, 8, 128,
+                                              QUANT_LONG_MB, S=16)
+                pools = paged_sweep.quantize_pools(kf, vf, quant)
+                c = dict(q=q_, tables=t_, lens=ln_, qlens=ql_, nk=nk_,
+                         nv=nv_, pools=list(pools))
+                del kf, vf, pools
+            else:
+                specs = APPEND_SPECS
+                c = append_quant_case(rng, dev, quant, Hkv, minus_one)
+            rows = (c["tables"], c["lens"], c["qlens"], c["nk"], c["nv"])
+
+            def run(p):
+                return paged_attention_append(
+                    c["q"], p[0], p[1], *rows, k_scale=p[2], v_scale=p[3],
+                    quant=quant)[0]
             got = [t.clone() for t in c["pools"]]
             want = [t.clone() for t in c["pools"]]
-            rows = (c["tables"], c["lens"], c["qlens"], c["nk"], c["nv"])
-            out, *_ = paged_attention_append(
-                c["q"], got[0], got[1], *rows, k_scale=got[2],
-                v_scale=got[3], quant=quant)
+            out = run(got)
             ref, *_ = paged_attention_append_plain(
                 c["q"], want[0], want[1], *rows, None, want[2], want[3],
                 quant)
             torch.cuda.synchronize()
             err, padding_zero = 0.0, True
-            for b, (_, n) in enumerate(APPEND_SPECS):
+            for b, (_, n) in enumerate(specs):
                 if n:
                     err = max(err, (out[b, :n].float() - ref[b, :n].float())
                               .abs().max().item())
                 padding_zero &= not bool(out[b, n:].any().item())
             exact = pools_equal(got, want)
-            idle = c["idle_blocks"]
-            unchanged = all(bool(torch.equal(g[idle], o[idle]))
-                            for g, o in zip(got, c["pools"]))
-            db = c["dirty_block"]
-            clean = bool((got[2][db] < 10 * c["pools"][2].median()).all())
+            same = twice_same_bits(run, c["pools"])
+            S = c["q"].shape[1]
             line = {"phase": "parity",
                     "kernel": f"paged_attention_append_{quant}",
-                    "case": name, "B": len(APPEND_SPECS), "S": 256, "Hq": 32,
+                    "case": name, "B": len(specs), "S": S, "Hq": 32,
                     "Hkv": Hkv, "D": 128, "block_size": 64,
                     "payload_dim": kv_packed_dim(128, quant),
-                    "lens_qlens": APPEND_SPECS, "max_abs_err": err,
-                    "tol": APPEND_TOL,
+                    "lens_qlens": specs if name != "long_G4" else
+                    f"{QUANT_LONG_B} x (8192 - q, q), q in "
+                    f"{list(QUANT_LONG_QLENS)}",
+                    "max_abs_err": err, "tol": APPEND_TOL,
                     "payload_and_scales_exact_except_scratch": exact,
                     "padding_rows_zero": padding_zero,
-                    "idle_slot_blocks_unchanged": unchanged,
-                    "dirty_block_scale_from_live_rows": clean}
+                    "same_bits_twice": same}
+            ok = err <= APPEND_TOL and exact and padding_zero and same
+            if name != "long_G4":
+                idle = c["idle_blocks"]
+                unchanged = all(bool(torch.equal(g[idle], o[idle]))
+                                for g, o in zip(got, c["pools"]))
+                db = c["dirty_block"]
+                clean = bool((got[2][db] < 10 * c["pools"][2].median()).all())
+                line.update(idle_slot_blocks_unchanged=unchanged,
+                            dirty_block_scale_from_live_rows=clean)
+                ok = ok and unchanged and clean
             emit(line)
-            require(err <= APPEND_TOL and exact and padding_zero and
-                    unchanged and clean, f"{quant} append {name}: {line}")
+            require(ok, f"{quant} append {name}: {line}")
             worst[quant] = max(worst[quant], err)
+            del c, got, want
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -804,10 +889,16 @@ def serving_prompts(vocab):
 
 SERVING_CLASSES = (("paged_decode_kernel", ("paged_decode_kernel",)),
                    ("append_kernels", ("append_split_kernel",
-                                       "append_attn_kernel",
-                                       "append_write_kernel")),
+                                       "append_write_kernel",
+                                       "append_quant_write_kernel")),
                    ("int4_gemm", ("int4_mm_partial_kernel",
                                   "int4_mm_reduce_kernel")))
+# the quantized arms' windows: B4-append's two launches apart, by the
+# kernels' name stems (the write pass first, then any other append kernel),
+# so a commit whose B4 kernels are named otherwise is classed alike
+QUANT_CLASSES = (("paged_decode_kernel", ("paged_decode",)),
+                 ("append_write", ("append_quant_write",)),
+                 ("append_attention", ("append_",)))
 TRAIN_CLASSES = (("flash_forward", ("flash_fwd_kernel",)),
                  ("flash_backward", ("flash_bwd_dkv_kernel",
                                      "flash_bwd_dq_kernel")),
@@ -1293,24 +1384,18 @@ def time_flash(dev):
 def time_paged(dev):
     """B2 at the timing shape (Hkv 32, PAGED_LENS, a wiped slot), and at
     the same lens with Hkv 8 (G 4) under "hkv8": device ms, host µs per
-    call, bound."""
+    call, bound (``paged_sweep.decode_bound``: what this data needs)."""
     def one(Hkv):
         c = paged_case(np.random.default_rng(6), dev, Hkv, PAGED_LENS,
                        PAGED_WIPED)
         args = (c["q"], c["k"], c["v"], c["tables"], c["lens"], c["nk"],
                 c["nv"])
         B, Hq, D = c["q"].shape
-        # what this data needs: every visible K/V row read once (the
-        # wiped slot reads none), q read, out written, the new rows read
-        # and written
-        visible = sum(int(L) + 1 for b, L in enumerate(PAGED_LENS)
-                      if c["need"][b])
         return dict(ms=cuda_ms(lambda: paged_attention_decode(*args), 50),
                     host_us_per_call=host_us(
                         lambda: paged_attention_decode(*args)),
-                    **bound(4 * Hq * D * visible,
-                            2 * (2 * visible * Hkv * D + 2 * B * Hq * D
-                                 + 4 * B * Hkv * D)),
+                    **paged_sweep.decode_bound(PAGED_LENS, Hq, Hkv, D,
+                                               wiped=PAGED_WIPED),
                     shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
                                lens=PAGED_LENS)), args
     out, args = one(32)
@@ -1322,25 +1407,20 @@ def time_paged(dev):
 
 def time_append(dev):
     """B3 at the timing shape (APPEND_SPECS, Hkv 32), and with Hkv 8 (G 4)
-    under "hkv8": device ms, host µs per call, bound."""
+    under "hkv8": device ms, host µs per call, bound
+    (``paged_sweep.append_bound``: each live slot's history read once, the
+    chunk's new K/V read and written once, not the kernel's second read
+    of them out of the pool)."""
     def one(Hkv):
         c = append_case(np.random.default_rng(8), dev, Hkv)
         args = append_args(c, c["k"], c["v"])
         B, S, Hq, D = c["q"].shape
-        # what this data needs: each live slot's cached history read once,
-        # the chunk's new K/V read once and written once (the kernel's
-        # second read of them, out of the pool, is its design's cost, not
-        # the function's), q read and out written for the real rows;
-        # operations over the visible (query, key) pairs of the real rows
         real = sum(q for _, q in APPEND_SPECS)
-        history = sum(L for L, q in APPEND_SPECS if q)
         pairs = sum(q * L + q * (q + 1) // 2 for L, q in APPEND_SPECS)
         return dict(ms=cuda_ms(lambda: paged_attention_append(*args), 50),
                     host_us_per_call=host_us(
                         lambda: paged_attention_append(*args)),
-                    **bound(4 * Hq * D * pairs,
-                            2 * (2 * history * Hkv * D + 4 * real * Hkv * D
-                                 + 2 * real * Hq * D)),
+                    **paged_sweep.append_bound(APPEND_SPECS, Hq, Hkv, D),
                     shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=64,
                                lens_qlens=APPEND_SPECS),
                     real_rows=real, visible_pairs_per_head=pairs), args
@@ -1359,62 +1439,82 @@ def bound(ops, nbytes):
 
 
 def time_paged_quant(dev, quant):
-    """B4-decode at time_paged's shape (Hkv 32, PAGED_LENS, a wiped slot).
-    Bound bytes: the visible K/V rows as stored (int8, or packed int4) and
-    their blocks' scales, q, the new K/V rows (bf16) read once; out, and
-    each written last block's payload and scales, written once."""
-    c = paged_quant_case(np.random.default_rng(14), dev, quant, 32)
-    k, v, ks, vs = c["pools"]
-    args = (c["q"], k, v, c["tables"], c["lens"], c["nk"], c["nv"])
-    ms = cuda_ms(lambda: paged_attention_decode(*args, k_scale=ks,
-                                                v_scale=vs, quant=quant), 50)
-    plain_ms = cuda_ms(lambda: paged_attention_decode_plain(
-        *args, None, ks, vs, quant), 5)
-    B, Hq, D = c["q"].shape
-    Hkv, bs, Dp = k.shape[1], k.shape[2], k.shape[3]
-    live = [b for b in range(B) if c["need"][b]]
-    visible = sum(int(PAGED_LENS[b]) + 1 for b in live)
-    blocks = sum(int(PAGED_LENS[b]) // bs + 1 for b in live)
-    nbytes = (2 * visible * Hkv * Dp + 2 * 4 * blocks * Hkv          # K/V, scales
-              + 2 * B * Hq * D + 2 * 2 * B * Hkv * D                # q, new rows
-              + 2 * B * Hq * D                                      # out
-              + 2 * (B * Hkv * bs * Dp + 4 * B * Hkv))              # last blocks
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(4 * Hq * D * visible, nbytes),
-                shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, block_size=bs,
-                           payload_dim=Dp, lens=PAGED_LENS))
+    """B4-decode at time_paged's shape (Hkv 32, PAGED_LENS, a wiped slot),
+    and at the same lens with Hkv 8 (G 4) under "hkv8": device ms, host µs
+    per call, bound (``paged_sweep.decode_bound`` over the rows as stored,
+    their blocks' scales and the rewritten last blocks)."""
+    def one(Hkv):
+        c = paged_quant_case(np.random.default_rng(14), dev, quant, Hkv)
+        k, v, ks, vs = c["pools"]
+        args = (c["q"], k, v, c["tables"], c["lens"], c["nk"], c["nv"])
+
+        def call():
+            return paged_attention_decode(*args, k_scale=ks, v_scale=vs,
+                                          quant=quant)
+        B, Hq, D = c["q"].shape
+        bs, Dp = k.shape[2], k.shape[3]
+        return dict(ms=cuda_ms(call, 50), host_us_per_call=host_us(call),
+                    **paged_sweep.decode_bound(PAGED_LENS, Hq, Hkv, D, quant,
+                                               bs, wiped=PAGED_WIPED),
+                    shape=dict(B=B, Hq=Hq, Hkv=Hkv, D=D, block_size=bs,
+                               payload_dim=Dp, lens=PAGED_LENS)), args, c
+    out, args, c = one(32)
+    ks, vs = c["pools"][2], c["pools"][3]
+    out.update(plain_ms=cuda_ms(lambda: paged_attention_decode_plain(
+        *args, None, ks, vs, quant), 5), library_ms=None,
+        hkv8=one(8)[0])
+    return out
+
+
+def launch_split_ms(fn, reps, classes):
+    """Device ms per call of each class of ``fn``'s kernels, traced over
+    ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    br = device_breakdown(prof, wall, reps, classes)
+    return None if br is None else br["device_ms_per_step_by_kernel"]
 
 
 def time_append_quant(dev, quant):
-    """B4-append at time_append's shape (Hkv 32, APPEND_SPECS). Bound
-    bytes: each live slot's cached history as stored plus its blocks'
-    scales, the chunk's new K/V (bf16) and q read once; out and the
-    window blocks' payload and scales written once."""
-    c = append_quant_case(np.random.default_rng(15), dev, quant, 32)
-    k, v, ks, vs = c["pools"]
-    args = (c["q"], k, v, c["tables"], c["lens"], c["qlens"], c["nk"],
-            c["nv"])
-    ms = cuda_ms(lambda: paged_attention_append(*args, k_scale=ks,
-                                                v_scale=vs, quant=quant), 50)
-    plain_ms = cuda_ms(lambda: paged_attention_append_plain(
-        *args, None, ks, vs, quant), 5)
-    B, S, Hq, D = c["q"].shape
-    Hkv, bs, Dp = k.shape[1], k.shape[2], k.shape[3]
-    live = [(L, q) for L, q in APPEND_SPECS if q]
-    real = sum(q for _, q in live)
-    history = sum(L for L, _ in live)
-    hist_blocks = sum(-(-L // bs) for L, _ in live)
-    window = sum((L + q - 1) // bs - L // bs + 1 for L, q in live)
-    pairs = sum(q * L + q * (q + 1) // 2 for L, q in live)
-    nbytes = (2 * history * Hkv * Dp + 2 * 4 * hist_blocks * Hkv
-              + 2 * 2 * real * Hkv * D + 2 * real * Hq * D          # new, q
-              + 2 * real * Hq * D                                   # out
-              + 2 * (window * Hkv * bs * Dp + 4 * window * Hkv))    # windows
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(4 * Hq * D * pairs, nbytes),
-                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=bs,
-                           payload_dim=Dp, lens_qlens=APPEND_SPECS),
-                real_rows=real, window_blocks=window)
+    """B4-append at time_append's shape (Hkv 32, APPEND_SPECS), and with
+    Hkv 8 (G 4) under "hkv8": device ms, host µs per call, bound, and the
+    device ms of its two launches apart (the write pass, the attention;
+    traced); bound: ``paged_sweep.append_bound`` over the history as
+    stored, its blocks' scales and the rewritten window blocks."""
+    def one(Hkv):
+        c = append_quant_case(np.random.default_rng(15), dev, quant, Hkv)
+        k, v, ks, vs = c["pools"]
+        args = (c["q"], k, v, c["tables"], c["lens"], c["qlens"], c["nk"],
+                c["nv"])
+
+        def call():
+            return paged_attention_append(*args, k_scale=ks, v_scale=vs,
+                                          quant=quant)
+        B, S, Hq, D = c["q"].shape
+        bs, Dp = k.shape[2], k.shape[3]
+        live = [(L, q) for L, q in APPEND_SPECS if q]
+        window = sum((L + q - 1) // bs - L // bs + 1 for L, q in live)
+        return dict(ms=cuda_ms(call, 50), host_us_per_call=host_us(call),
+                    launches_ms=launch_split_ms(call, 20, QUANT_CLASSES),
+                    **paged_sweep.append_bound(APPEND_SPECS, Hq, Hkv, D,
+                                               quant, bs),
+                    shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, block_size=bs,
+                               payload_dim=Dp, lens_qlens=APPEND_SPECS),
+                    real_rows=sum(q for _, q in live),
+                    window_blocks=window), args, c
+    out, args, c = one(32)
+    ks, vs = c["pools"][2], c["pools"][3]
+    out.update(plain_ms=cuda_ms(lambda: paged_attention_append_plain(
+        *args, None, ks, vs, quant), 5), library_ms=None,
+        hkv8=one(8)[0])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1734,26 +1834,73 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None):
     return arm, [list(o.token_ids) for o in outs]
 
 
-def run_quant_serving(model, dev):
-    """The slice's path at full width and depth: the 12 requests through
-    AsyncLLMServer over the fused engine in three arms at equal pool bytes
-    (the reference's llama_serve_kv_quant sizing, bench.py:1236-1256): the
-    bf16 arm at half the full block demand, each quantized arm at
-    min(that budget // its bytes per block, the full demand)."""
-    prompts = serving_prompts(model.config.vocab_size)
+def profile_quant_arm(model, dev, quant, n_blocks, n_steps=4):
+    """Device ms per step by kernel class in a quantized arm: a fresh fused
+    engine over the arm's pool and the serving run's first eight requests;
+    a window of ``n_steps`` mixed steps (during the ramp-in), then of
+    all-decode steps, each untraced and then traced at depth 1 (B4-append's
+    write pass and attention apart)."""
+    eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
+                            kv_cache_dtype=quant)
+    for p in serving_prompts(model.config.vocab_size)[:8]:
+        eng.add_request(p, max_new_tokens=64)
+    run_window(eng, 2, 1)                         # warm
+    res = {}
+    for kind in ("mixed", "decode"):
+        if kind == "decode":
+            while any(s is not None and s.ramping for s in eng.slots):
+                eng.step()
+        want = n_steps if kind == "mixed" else 0
+        wall_ms, n_mixed, _ = run_window(eng, n_steps, 1)
+        require(n_mixed == want, f"{quant} profile {kind}: {n_mixed} mixed "
+                f"steps of {n_steps}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, n_mixed, _ = run_window(eng, n_steps, 1)
+            wall = time.perf_counter() - t0
+        require(n_mixed == want, f"{quant} traced profile {kind}: {n_mixed} "
+                f"mixed steps of {n_steps}")
+        res[f"{kind}_depth1"] = {
+            "untraced_wall_ms_per_step": wall_ms,
+            "traced": device_breakdown(prof, wall, n_steps, QUANT_CLASSES)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def quant_arm_blocks(model, dev):
+    """The three arms' pools at equal bytes (the reference's
+    llama_serve_kv_quant sizing, bench.py:1236-1256): the bf16 arm at half
+    the full block demand, each quantized arm at min(that budget // its
+    bytes per block, the full demand). Returns (bytes per block, full
+    demand, budget, blocks per arm)."""
     probe = {q: make_fused_engine(model, dev, kv_pool_blocks=8 + 1,
                                   kv_cache_dtype=q).kv_bytes_per_block()
              for q in (None, *QUANTS)}
     torch.cuda.empty_cache()
     full = 8 * (2048 // 64)
     budget = int(full * SERVE_POOL_FRAC) * probe[None]
+    return probe, full, budget, {q: min(budget // probe[q], full)
+                                 for q in (None, *QUANTS)}
+
+
+def run_quant_serving(model, dev):
+    """The slice's path at full width and depth: the 12 requests through
+    AsyncLLMServer over the fused engine in three arms at equal pool bytes
+    (quant_arm_blocks)."""
+    prompts = serving_prompts(model.config.vocab_size)
+    probe, full, budget, blocks = quant_arm_blocks(model, dev)
     arms, toks = {}, {}
     for q in (None, *QUANTS):
-        n_blocks = min(budget // probe[q], full)
+        n_blocks = blocks[q]
         arms[q or "bf16"], toks[q or "bf16"] = serve_arm(model, dev, prompts,
                                                          q, n_blocks)
         gc.collect()
         torch.cuda.empty_cache()
+        if q is not None:
+            arms[q]["profile"] = profile_quant_arm(model, dev, q, n_blocks)
     checked, excused, mismatched = greedy_check(
         model, dev, prompts,
         [collections.namedtuple("Out", "token_ids")(t) for t in toks["bf16"]])
@@ -1769,6 +1916,30 @@ def run_quant_serving(model, dev):
             f"tokens disagree with the no-cache forward beyond {MARGIN}")
     return {q: (arms[q]["launches"][f"b4_decode_{q}"],
                 arms[q]["launches"][f"b4_append_{q}"]) for q in QUANTS}
+
+
+def profile_quant_main(root):
+    """``python3 chip_smoke.py --profile-quant ROOT``: the quantized arms'
+    windows (profile_quant_arm at quant_serving's pool sizes, every kernel
+    built first) of the package under ROOT (``.`` for this checkout), as
+    one JSON line. One process sees one package, so compare two commits
+    by alternating processes in one call (other, this, this, other)."""
+    import paddle_tpu_torch
+    root = os.path.abspath(root)
+    require(paddle_tpu_torch.__file__.startswith(root + os.sep),
+            f"--profile-quant imported {paddle_tpu_torch.__file__}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    _build.build_all(KERNELS)        # no nvcc inside the windows
+    model = build_model(dev)
+    blocks = quant_arm_blocks(model, dev)[3]
+    print(json.dumps({"root": root, "card": card_line(), **{
+        q: profile_quant_arm(model, dev, q, blocks[q]) for q in QUANTS}}),
+        flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2345,10 +2516,11 @@ def main():
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
-    # B1's, B5's, B2's and B3's own lines: each instantiation's registers,
-    # shared memory, spills, and any wgmma the compiler serialised (C75xx
-    # notes); B5 may neither spill nor have a warpgroup.arrive injected,
-    # B2 and B3 (and B4-append, which shares B3's file) may not spill
+    # B1's, B5's and the paged libraries' own lines: each instantiation's
+    # registers, shared memory, spills, and any wgmma the compiler
+    # serialised (C75xx notes); B5 may neither spill nor have a
+    # warpgroup.arrive injected, B2, B3 and B4 (the int8/int4
+    # instantiations of the decode and append sources) may not spill
     for name in ("flash_attention_fwd", "flash_attention_bwd",
                  "paged_attention_decode", "paged_attention_append"):
         emit({"phase": "ptxas", "kernel": name,
@@ -2476,7 +2648,7 @@ def main():
     ]
     for q in QUANTS:
         for form, src, replaces, err, t, n in (
-                ("decode", PAGED_Q_SRC, PAGED_REPLACES, paged_q_err[q],
+                ("decode", PAGED_SRC, PAGED_REPLACES, paged_q_err[q],
                  qt[q][0], quant_launches[q][0]),
                 ("append", APPEND_SRC, APPEND_REPLACES, append_q_err[q],
                  qt[q][1], quant_launches[q][1])):
@@ -2502,4 +2674,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--profile-quant"] and len(sys.argv) == 3:
+        sys.exit(profile_quant_main(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,7 @@
-// What the attention kernels share: the tile shape and the mma.sync
-// fragment helpers of the paged append, and the bf16 packing, the launch
-// order and the dropout hash that the flash forward and backward
+// What the attention kernels share: the mma.sync fragment helpers of the
+// paged kernels (csrc/paged_split.cuh), the paged append's thread count,
+// and the bf16 packing, the launch order and the dropout hash that the
+// flash forward and backward
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, built on
 // sm90_common.cuh) use too. The backward
 // is right only if it rebuilds the forward's dropout mask bit for bit, so
@@ -14,10 +15,7 @@
 
 namespace {
 
-constexpr int BQ = 64;       // q rows per tile (4 warps x 16)
-constexpr int BK = 64;       // kv rows per tile
-constexpr int NTHREADS = 128;
-constexpr int PAD = 8;       // bf16 elements of padding per shared row
+constexpr int NTHREADS = 128;   // the paged append's write passes
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

@@ -31,9 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: every kernel source under ``csrc/`` (``<name>.cu``), what
 #: :func:`build_all` compiles for a run that drives all the paths
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
-           "paged_attention_decode", "paged_attention_append",
-           "paged_attention_decode_quant", "fused_adamw", "fused_adamw_sr",
-           "int4_matmul")
+           "paged_attention_decode", "paged_attention_append", "fused_adamw",
+           "fused_adamw_sr", "int4_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -10,14 +10,17 @@ Replaces two Pallas kernels with hand-written CUDA kernels:
   through ``paged_attention_append`` ``:784``) with
   ``paddle_tpu_torch/csrc/paged_attention_append.cu``.
 
-The source notes there give each design and its bound on the H100. B2
-and B3 share one walk (``csrc/paged_split.cuh``): a sequence's kv walk is
-split across CTAs whose float32 partials merge in a fixed order (B2: spans
-of whole blocks, :func:`decode_launch_config`; B3: the last real tile of a
-sequence when it holds few rows, :func:`append_tile_splits`), with the
-pool blocks fed by TMA through an mbarrier ring. The wrapper passes each a
-float32 scratch and an int32 counter per (sequence, kv head), kept per
-device and stream (:func:`_split_buffers`).
+The source notes there give each design and its bound on the H100. B2,
+B3 and both forms of B4 share one walk (``csrc/paged_split.cuh``): a
+sequence's kv walk is split across CTAs whose float32 partials merge in a
+fixed order (B2: spans of whole blocks, :func:`decode_launch_config`; B3:
+the last real tile of a sequence when it holds few rows,
+:func:`append_tile_splits`), with the pool blocks fed by TMA through an
+mbarrier ring (B4: payload bytes, each tile row's scales beside its
+position; B4-decode's last block j_last has a split of its own, whose CTA
+requantizes it, :func:`decode_walks`). The wrapper passes each a float32
+scratch and an int32 counter per (sequence, kv head), kept per device and
+stream (:func:`_split_buffers`).
 
 Decode: one query token per sequence, straight off the physical
 block pools ``[NB, Hkv, bs, D]`` through ``block_tables [B, MB]`` (-1 =
@@ -63,11 +66,12 @@ it wrote. Decode rewrites the last live block; append rewrites every
 window block ``w0 <= j <= j_last`` and leaves a ``q_lens == 0`` slot's
 blocks unchanged. A ``-1`` target parks payload and scale in the scratch
 block. The plain versions' attention math is float32 throughout (P is not
-rounded); the append kernel rounds P times each key's V scale to bf16 for
-its tensor-core product, as it rounds P over bf16 pools. These forms are
-kernel B4 (``csrc/paged_attention_decode_quant.cu``, and the int8/int4
-instantiations of ``csrc/paged_attention_append.cu``; rules shared in
-``csrc/kv_quant.cuh``).
+rounded); B4-append rounds P times each key's V scale to bf16 for its
+tensor-core product, as B3 rounds P over bf16 pools, and B4-decode keeps
+that product to float32 precision as three exact bf16 terms. These forms are
+kernel B4 (the int8/int4 instantiations of
+``csrc/paged_attention_decode.cu`` and ``csrc/paged_attention_append.cu``;
+rules shared in ``csrc/kv_quant.cuh``).
 """
 from __future__ import annotations
 
@@ -84,7 +88,6 @@ from . import _build
 
 KERNEL = "paged_attention_decode"
 APPEND_KERNEL = "paged_attention_append"
-QUANT_KERNEL = "paged_attention_decode_quant"
 
 #: symmetric integer grid per KV quantization mode; int4 is [-7, 7] (not
 #: -8), stored offset by +8 in a nibble
@@ -368,7 +371,7 @@ def _check_kernel_args(what, rows, pools, ints, D, G, bs, quant=None,
 
 
 # ---------------------------------------------------------------------------
-# B2/B3 launch geometry (csrc/paged_split.cuh states the same constants)
+# B2/B3/B4 launch geometry (csrc/paged_split.cuh states the same constants)
 # ---------------------------------------------------------------------------
 
 #: q rows of a tile and kv rows of a ring stage; threads of a CTA (four
@@ -384,19 +387,33 @@ DECODE_SPAN_POS, DECODE_TARGET_CTAS = 512, 1056
 APPEND_MAX_SPLITS, APPEND_SPLIT_MAX_ROWS, APPEND_SPLIT_MIN_POS = 8, 32, 256
 
 
-def split_stages(D):
-    """Stages of the kv ring: 3 at head dim 128, 4 at 64 (96 and 64 KB, so
-    two CTAs fit on an SM)."""
-    return 3 if D == 128 else 4
+#: bits of a pool element per ``quant``
+POOL_BITS = {None: 16, "int8": 8, "int4": 4}
 
 
-def split_smem_bytes(D):
-    """Dynamic shared memory of a B2/B3 CTA: 1024 bytes of alignment
-    slack, the ring (K and V tiles of 64 rows per stage), each stage's 64
-    tile-row positions, a full and an empty mbarrier per stage, two ints."""
-    st = split_stages(D)
-    return 1024 + st * 2 * SPLIT_ROWS * D * 2 + st * SPLIT_ROWS * 4 \
-        + st * 16 + 16
+def split_stages(D, quant=None):
+    """Stages of the kv ring: bf16 3 at head dim 128, 4 at 64 (96 and 64
+    KB, so two CTAs fit on an SM); a byte pool as many stages as those
+    bytes hold, at most 8 (int8: 6 and 8, int4: 8 and 8)."""
+    bits = POOL_BITS[quant]
+    if bits == 16:
+        return 3 if D == 128 else 4
+    ring = 98304 if D == 128 else 65536
+    return min(8, ring // (2 * SPLIT_ROWS * D * bits // 8))
+
+
+def split_smem_bytes(D, quant=None):
+    """Dynamic shared memory of a B2/B3/B4 CTA: 1024 bytes of alignment
+    slack, the ring (K and V tiles of 64 pool rows per stage), each
+    stage's 64 tile-row positions (a byte pool: and their K factors and V
+    scales), a full and an empty mbarrier per stage, two ints (a byte
+    pool: and the block requantization's reduction, 8 words, and byte
+    table, 256 bytes)."""
+    bits = POOL_BITS[quant]
+    st = split_stages(D, quant)
+    scales = st * 2 * SPLIT_ROWS * 4 if bits < 16 else 0
+    return 1024 + st * 2 * SPLIT_ROWS * D * bits // 8 \
+        + st * SPLIT_ROWS * 4 + scales + st * 16 + (304 if bits < 16 else 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -413,41 +430,49 @@ class PagedLaunch:
 
 
 @functools.lru_cache(maxsize=256)
-def decode_launch_config(B, Hq, Hkv, D, bs, MB):
-    """B2's launch geometry, from what the host knows (no read of lens): a
-    span of ``max(ceil(DECODE_SPAN_POS / bs), ceil(MB * B * Hkv /
-    DECODE_TARGET_CTAS))`` blocks (at most MB), ``ceil(MB / span)`` splits
-    per sequence; grid (splits, Hkv, B). A CTA whose span starts past its
-    sequence's last live block exits at once (:func:`decode_walks`)."""
+def decode_launch_config(B, Hq, Hkv, D, bs, MB, quant=None):
+    """B2's (and B4-decode's) launch geometry, from what the host knows (no
+    read of lens): a span of ``max(ceil(DECODE_SPAN_POS / bs), ceil(MB * B
+    * Hkv / DECODE_TARGET_CTAS))`` blocks (at most MB), ``ceil(MB / span)``
+    splits per sequence (B4: ``ceil((MB - 1) / span)`` spans of the
+    history and one split that owns the last block); grid (splits, Hkv,
+    B). A CTA whose split lies past its sequence's walks exits at once
+    (:func:`decode_walks`)."""
     span = min(MB, max(-(-DECODE_SPAN_POS // bs),
                        -(-(MB * B * Hkv) // DECODE_TARGET_CTAS)))
-    splits = -(-MB // span)
+    splits = -(-MB // span) if quant is None else -(-(MB - 1) // span) + 1
     rows = splits * (Hq // Hkv)
-    return PagedLaunch((splits, Hkv, B), span, splits, split_smem_bytes(D),
-                       split_stages(D), SPLIT_THREADS, rows,
-                       B * Hkv * rows * (D + 2), B * Hkv)
+    return PagedLaunch((splits, Hkv, B), span, splits,
+                       split_smem_bytes(D, quant), split_stages(D, quant),
+                       SPLIT_THREADS, rows, B * Hkv * rows * (D + 2), B * Hkv)
 
 
 @functools.lru_cache(maxsize=256)
-def append_launch_config(B, S, Hq, Hkv, D):
-    """B3's launch geometry, from S, G, Hkv and B alone: one CTA per
-    64-row tile of the S*G rows of a head group; the split of a sequence's
-    last tile is decided on the device (:func:`append_tile_splits`) and
-    runs on the padding tiles' CTAs, so the grid does not grow with it."""
+def append_launch_config(B, S, Hq, Hkv, D, quant=None):
+    """B3's (and B4-append's) launch geometry, from S, G, Hkv and B alone:
+    one CTA per 64-row tile of the S*G rows of a head group; the split of a
+    sequence's last tile is decided on the device
+    (:func:`append_tile_splits`) and runs on the padding tiles' CTAs, so
+    the grid does not grow with it."""
     G = Hq // Hkv
     return PagedLaunch((-(-S * G // SPLIT_ROWS), Hkv, B), 0,
-                       APPEND_MAX_SPLITS, split_smem_bytes(D),
-                       split_stages(D), SPLIT_THREADS, SPLIT_ROWS,
+                       APPEND_MAX_SPLITS, split_smem_bytes(D, quant),
+                       split_stages(D, quant), SPLIT_THREADS, SPLIT_ROWS,
                        B * Hkv * SPLIT_ROWS * (D + 2), B * Hkv)
 
 
-def decode_walks(L, bs, MB, span):
+def decode_walks(L, bs, MB, span, quant=None):
     """B2's walks of a sequence with ``L`` cached tokens: ``(jb, je)``
     block ranges of splits 0, 1, ... (every block 0 .. j_last once); a
-    split index past the list exits at once."""
+    split index past the list exits at once. B4 (``quant``): spans of
+    blocks 0 .. j_last - 1, then ``(j_last, j_last + 1)``, the split whose
+    CTA requantizes the last block."""
     j_last = min(L // bs, MB - 1)
-    return [(jb, min(jb + span, j_last + 1))
-            for jb in range(0, j_last + 1, span)]
+    if quant is None:
+        return [(jb, min(jb + span, j_last + 1))
+                for jb in range(0, j_last + 1, span)]
+    return [(jb, min(jb + span, j_last))
+            for jb in range(0, j_last, span)] + [(j_last, j_last + 1)]
 
 
 def append_tile_splits(L, QL, S, G, bs, MB):
@@ -488,8 +513,8 @@ def append_tile_walks(L, QL, S, G, bs, MB):
 
 
 def set_decode_tuning(span_pos, target_ctas):
-    """Set B2's span rule in the wrapper and in the kernel's library (for
-    ``tools/paged_sweep.py``; needs the card)."""
+    """Set B2's and B4-decode's span rule in the wrapper and in the
+    kernel's library (for ``tools/paged_sweep.py``; needs the card)."""
     global DECODE_SPAN_POS, DECODE_TARGET_CTAS
     DECODE_SPAN_POS, DECODE_TARGET_CTAS = int(span_pos), int(target_ctas)
     lib = _build.load(KERNEL)
@@ -505,7 +530,7 @@ _SPLIT_LOCK = threading.Lock()
 
 
 def _split_buffers(dev, stream, cfg):
-    """The float32 scratch and int32 counters of B2/B3 on ``dev`` for
+    """The float32 scratch and int32 counters of B2/B3/B4 on ``dev`` for
     launches on ``stream``: allocated once (the counters zeroed; every
     launch leaves them 0) and grown when a launch needs more. Launches on
     one stream run in order, so they share them; a buffer replaced while a
@@ -536,15 +561,16 @@ _ARGTYPES = {
         [_P, _LL] + [_P] * 4 + [_P, _LL, _P, _LL, _P] + [_I] * 7 +
         [_F, _P, _P, _P],
     "pt_paged_attention_decode_int8":
-        [_P, _LL] + [_P] * 6 + [_P, _LL, _P, _LL, _P] + [_I] * 7 + [_F, _P],
+        [_P, _LL] + [_P] * 6 + [_P, _LL, _P, _LL, _P] + [_I] * 7 +
+        [_F, _P, _P, _P],
     "pt_paged_attention_append_bf16":
         [_P, _LL, _LL] + [_P] * 5 + [_P, _LL, _LL] * 2 + [_P] + [_I] * 8 +
         [_F, _P, _P, _P],
     "pt_paged_attention_append_int8":
         [_P, _LL, _LL] + [_P] * 7 + [_P, _LL, _LL] * 2 + [_P] + [_I] * 8 +
-        [_F, _P],
-    "pt_paged_attention_decode_check_launch": [_I] * 15,
-    "pt_paged_attention_append_check_launch": [_I] * 17,
+        [_F, _P, _P, _P],
+    "pt_paged_attention_decode_check_launch": [_I] * 16,
+    "pt_paged_attention_append_check_launch": [_I] * 18,
     "pt_paged_attention_append_splits": [_I] * 6,
 }
 _ARGTYPES["pt_paged_attention_decode_int4"] = \
@@ -568,26 +594,28 @@ def _entry(kernel, name):
 
 
 @functools.lru_cache(maxsize=256)
-def _check_decode_launch(B, Hq, Hkv, D, bs, MB):
-    """Hold B2's rule and constants against :func:`decode_launch_config`
-    for this geometry, once per geometry; raises on a mismatch."""
-    c = decode_launch_config(B, Hq, Hkv, D, bs, MB)
+def _check_decode_launch(B, Hq, Hkv, D, bs, MB, quant=None):
+    """Hold B2's (B4-decode's) rule and constants against
+    :func:`decode_launch_config` for this geometry, once per geometry;
+    raises on a mismatch."""
+    c = decode_launch_config(B, Hq, Hkv, D, bs, MB, quant)
     lib, chk = _entry(KERNEL, "pt_paged_attention_decode_check_launch")
-    code = chk(B, Hq, Hkv, D, bs, MB, *c.grid, c.span, c.splits,
-               c.smem_bytes, c.stages, c.threads, c.scratch_rows)
+    code = chk(B, Hq, Hkv, D, bs, MB, POOL_BITS[quant], *c.grid, c.span,
+               c.splits, c.smem_bytes, c.stages, c.threads, c.scratch_rows)
     _build.check(lib, code, "paged_attention_decode launch geometry")
 
 
 @functools.lru_cache(maxsize=256)
-def _check_append_launch(B, S, Hq, Hkv, D, bs, MB):
-    """Hold B3's constants and split rule's numbers against
+def _check_append_launch(B, S, Hq, Hkv, D, bs, MB, quant=None):
+    """Hold B3's (B4-append's) constants and split rule's numbers against
     :func:`append_launch_config`, once per geometry; raises on a
     mismatch."""
-    c = append_launch_config(B, S, Hq, Hkv, D)
+    c = append_launch_config(B, S, Hq, Hkv, D, quant)
     lib, chk = _entry(APPEND_KERNEL, "pt_paged_attention_append_check_launch")
-    code = chk(B, S, Hq, Hkv, D, bs, MB, *c.grid, c.smem_bytes, c.stages,
-               c.threads, c.scratch_rows, APPEND_MAX_SPLITS,
-               APPEND_SPLIT_MAX_ROWS, APPEND_SPLIT_MIN_POS)
+    code = chk(B, S, Hq, Hkv, D, bs, MB, POOL_BITS[quant], *c.grid,
+               c.smem_bytes, c.stages, c.threads, c.scratch_rows,
+               APPEND_MAX_SPLITS, APPEND_SPLIT_MAX_ROWS,
+               APPEND_SPLIT_MIN_POS)
     _build.check(lib, code, "paged_attention_append launch geometry")
 
 
@@ -624,20 +652,20 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens, new_k,
         quant, dict(k_scale=k_scale, v_scale=v_scale) if quant else None)
     out = torch.empty((B, Hq, D), device=q.device, dtype=q.dtype)
     stream = _build.stream_of(q)
+    _check_decode_launch(B, Hq, Hkv, D, bs, MB, quant)
+    scratch, counters = _split_buffers(
+        q.device, stream, decode_launch_config(B, Hq, Hkv, D, bs, MB, quant))
     if quant:
-        lib, fn = _entry(QUANT_KERNEL, f"pt_paged_attention_decode_{quant}")
+        lib, fn = _entry(KERNEL, f"pt_paged_attention_decode_{quant}")
         code = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(),
                   v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                   block_tables.data_ptr(), seq_lens.data_ptr(),
                   new_k.data_ptr(), new_k.stride(0), new_v.data_ptr(),
                   new_v.stride(0), out.data_ptr(), B, Hq, Hkv, D, bs, MB, NB,
-                  scale, stream)
+                  scale, scratch.data_ptr(), counters.data_ptr(), stream)
         _build.check(lib, code, f"paged_attention_decode ({quant})")
         paged_attention_decode.quant_launches[quant] += 1
         return out, k_pool, v_pool, k_scale, v_scale
-    _check_decode_launch(B, Hq, Hkv, D, bs, MB)
-    scratch, counters = _split_buffers(
-        q.device, stream, decode_launch_config(B, Hq, Hkv, D, bs, MB))
     lib, fn = _entry(KERNEL, "pt_paged_attention_decode_bf16")
     code = fn(q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
               block_tables.data_ptr(), seq_lens.data_ptr(), new_k.data_ptr(),
@@ -799,18 +827,18 @@ def paged_attention_append(q, k_pool, v_pool, block_tables, seq_lens, q_lens,
             new_k.data_ptr(), new_k.stride(0), new_k.stride(1),
             new_v.data_ptr(), new_v.stride(0), new_v.stride(1),
             out.data_ptr(), B, S, Hq, Hkv, D, bs, MB, NB, scale]
+    _check_append_launch(B, S, Hq, Hkv, D, bs, MB, quant)
+    scratch, counters = _split_buffers(
+        q.device, stream, append_launch_config(B, S, Hq, Hkv, D, quant))
+    bufs = [scratch.data_ptr(), counters.data_ptr(), stream]
     if quant:
         lib, fn = _entry(APPEND_KERNEL, f"pt_paged_attention_append_{quant}")
-        code = fn(*head, k_scale.data_ptr(), v_scale.data_ptr(), *rows,
-                  stream)
+        code = fn(*head, k_scale.data_ptr(), v_scale.data_ptr(), *rows, *bufs)
         _build.check(lib, code, f"paged_attention_append ({quant})")
         paged_attention_append.quant_launches[quant] += 1
         return out, k_pool, v_pool, k_scale, v_scale
-    _check_append_launch(B, S, Hq, Hkv, D, bs, MB)
-    scratch, counters = _split_buffers(
-        q.device, stream, append_launch_config(B, S, Hq, Hkv, D))
     lib, fn = _entry(APPEND_KERNEL, "pt_paged_attention_append_bf16")
-    code = fn(*head, *rows, scratch.data_ptr(), counters.data_ptr(), stream)
+    code = fn(*head, *rows, *bufs)
     _build.check(lib, code, "paged_attention_append")
     paged_attention_append.launches += 1
     return out

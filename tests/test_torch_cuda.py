@@ -300,21 +300,25 @@ def test_paged_split_rules_match_the_kernels(cuda):
     (their check entry points; one off in any number is refused), and
     B3's split rule against the kernel's for lengths around every edge."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    for D in (64, 128):
-        for B, Hq, Hkv, bs, MB in ((8, 32, 32, 64, 32), (32, 32, 8, 16, 128),
-                                   (1, 8, 1, 128, 64)):
-            pa._check_decode_launch(B, Hq, Hkv, D, bs, MB)
-            pa._check_append_launch(B, 256, Hq, Hkv, D, bs, MB)
-            c = pa.decode_launch_config(B, Hq, Hkv, D, bs, MB)
-            lib, chk = pa._entry(pa.KERNEL,
-                                 "pt_paged_attention_decode_check_launch")
-            args = [B, Hq, Hkv, D, bs, MB, *c.grid, c.span, c.splits,
-                    c.smem_bytes, c.stages, c.threads, c.scratch_rows]
-            assert chk(*args) == 0
-            for i in range(6, len(args)):
-                bad = list(args)
-                bad[i] += 1
-                assert chk(*bad) != 0
+    for quant in (None, "int8", "int4"):
+        bits = pa.POOL_BITS[quant]
+        for D in (64, 128):
+            for B, Hq, Hkv, bs, MB in ((8, 32, 32, 64, 32),
+                                       (32, 32, 8, 16, 128),
+                                       (1, 8, 1, 128, 64)):
+                pa._check_decode_launch(B, Hq, Hkv, D, bs, MB, quant)
+                pa._check_append_launch(B, 256, Hq, Hkv, D, bs, MB, quant)
+                c = pa.decode_launch_config(B, Hq, Hkv, D, bs, MB, quant)
+                lib, chk = pa._entry(pa.KERNEL,
+                                     "pt_paged_attention_decode_check_launch")
+                args = [B, Hq, Hkv, D, bs, MB, bits, *c.grid, c.span,
+                        c.splits, c.smem_bytes, c.stages, c.threads,
+                        c.scratch_rows]
+                assert chk(*args) == 0
+                for i in range(7, len(args)):
+                    bad = list(args)
+                    bad[i] += 1
+                    assert chk(*bad) != 0
     _, rule = pa._entry(pa.APPEND_KERNEL, "pt_paged_attention_append_splits")
     for S, G, bs, MB in ((256, 1, 64, 32), (64, 4, 16, 128), (40, 8, 128, 8)):
         for L in (0, 1, 63, 64, 255, 256, 511, 1999, 4096, MB * bs):
@@ -494,6 +498,134 @@ def test_paged_quant_kernel_outlier_block_in_history(cuda, quant, form,
     assert err <= tol * max(1.0, ref.abs().max().item())
     for got, want in zip((kp, vp, ks, vs), ref_pools):
         assert torch.equal(got[:NB - 1], want[:NB - 1])
+
+
+QUANT_LONG_BLOCKS = (16, 32, 48, 64, 100, 128)
+
+
+def _quant_pools(rng, shape, quant, dev, dirty=None):
+    """K and V payload pools and scales from unit-normal blocks;
+    ``dirty = (block, row)``: that block's rows from ``row`` on are 100x
+    larger (stale rows past a written slot)."""
+    out = []
+    for _ in range(2):
+        f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        if dirty is not None:
+            f[dirty[0], :, dirty[1]:] *= 100.0
+        sc = kv_block_scale(f, quant, (2, 3))
+        out += [kv_quantize(f, sc[..., None, None], quant).to(dev),
+                sc.to(dev)]
+    return [out[0], out[2], out[1], out[3]]      # k, v, k_scale, v_scale
+
+
+def _quant_twice(fn, pools):
+    """``fn`` on two copies of the quantized pools: outputs, payload and
+    scales bit for bit outside the scratch block (a -1 target's write
+    parks there, and several CTAs may write it)."""
+    a = [p.clone() for p in pools]
+    b = [p.clone() for p in pools]
+    out_a, out_b = fn(a), fn(b)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_b)
+    nb = pools[0].shape[0]
+    assert all(torch.equal(x[:nb - 1], y[:nb - 1]) for x, y in zip(a, b))
+    return out_a, a
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("bs", QUANT_LONG_BLOCKS)
+def test_paged_decode_quant_kernel_long_context(cuda, quant, G, bs):
+    """B4-decode over long histories (MB 128): history spans split many
+    ways and the last block's own split merged in order, a span of -1
+    entries, a -1 entry at j_last (block 0 requantized into scratch, not
+    attended), a wiped slot, a length past the table, a dirty last block,
+    D 64 and block sizes 16-128 (48 and 100: box slots rounded up to 8
+    rows; 100 and 128: two boxes in two stages). Out
+    within 1e-2 of the plain version, payload and scales bit for bit
+    outside scratch, the same bits on two calls."""
+    rng = np.random.default_rng(60 + G + bs + len(quant))
+    D, Hkv, MB = 64, 2, 128
+    cap = MB * bs
+    lens = np.array([min(8191, cap - 1), cap // 2 + 3, 1, 0, cap + 5,
+                     777 % cap, cap // 3, 5 * bs + 2], np.int32)
+    B = len(lens)
+    need = [min(int(L) // bs, MB - 1) + 1 for L in lens]
+    NB = sum(need) + 2
+    tables = _tables(rng, need, MB, NB)
+    tables[3, :] = -1                       # a freed slot
+    tables[0, 40:60] = -1                   # -1 entries inside a long walk
+    tables[7, 5] = -1                       # -1 at j_last
+    slot1 = int(lens[1]) % bs
+    pools = _quant_pools(rng, (NB, Hkv, bs, D), quant, cuda,
+                         (int(tables[1, need[1] - 1]), slot1 + 1))
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    q = _randn(rng, (B, G * Hkv, D), cuda)
+    nk = _randn(rng, (B, Hkv, D), cuda)
+    nv = _randn(rng, (B, Hkv, D), cuda)
+    n0 = paged_attention_decode.quant_launches[quant]
+    out, got = _quant_twice(
+        lambda p: paged_attention_decode(q, p[0], p[1], t, ln, nk, nv,
+                                         k_scale=p[2], v_scale=p[3],
+                                         quant=quant)[0], pools)
+    assert paged_attention_decode.quant_launches[quant] == n0 + 2
+    want = [p.clone() for p in pools]
+    ref, *_ = paged_attention_decode_plain(q, want[0], want[1], t, ln, nk,
+                                           nv, None, want[2], want[3], quant)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_[:NB - 1], w_[:NB - 1])
+    assert not out[3].any()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("bs", QUANT_LONG_BLOCKS)
+def test_paged_append_quant_kernel_long_context(cuda, quant, G, bs):
+    """B4-append over long histories (MB 128): decode rows whose walks
+    split across the padding tiles' CTAs and merge in order, one over -1
+    entries, a chunk and a short tail after long histories, an idle slot,
+    D 64, block sizes 16-128. Real rows within 2e-2, padding rows
+    zero, payload and scales bit for bit outside scratch, the same bits
+    on two calls."""
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        append_tile_splits)
+    rng = np.random.default_rng(70 + G + bs + len(quant))
+    D, Hkv, MB, S = 64, 2, 128, 128
+    cap = MB * bs
+    specs = [(min(8000, cap - 1), 1), (cap // 2, 1), (cap // 3, S),
+             (cap - 40, 9), (100, 0), (cap // 4, 3)]
+    B = len(specs)
+    assert any(append_tile_splits(L, n, S, G, bs, MB)[2] > 1
+               for L, n in specs)
+    need = [0 if n == 0 else min((L + n - 1) // bs, MB - 1) + 1
+            for L, n in specs]
+    NB = sum(need) + 2
+    tables = _tables(rng, need, MB, NB)
+    tables[1, 10:30] = -1
+    pools = _quant_pools(rng, (NB, Hkv, bs, D), quant, cuda)
+    t = torch.from_numpy(tables).to(cuda)
+    ln = torch.tensor([L for L, _ in specs], dtype=torch.int32, device=cuda)
+    ql = torch.tensor([n for _, n in specs], dtype=torch.int32, device=cuda)
+    q = _randn(rng, (B, S, G * Hkv, D), cuda)
+    nk = _randn(rng, (B, S, Hkv, D), cuda)
+    nv = _randn(rng, (B, S, Hkv, D), cuda)
+    out, got = _quant_twice(
+        lambda p: paged_attention_append(q, p[0], p[1], t, ln, ql, nk, nv,
+                                         k_scale=p[2], v_scale=p[3],
+                                         quant=quant)[0], pools)
+    want = [p.clone() for p in pools]
+    ref, *_ = paged_attention_append_plain(q, want[0], want[1], t, ln, ql,
+                                           nk, nv, None, want[2], want[3],
+                                           quant)
+    for b, (_, n) in enumerate(specs):
+        if n:
+            err = (out[b, :n].float() - ref[b, :n].float()).abs().max()
+            assert err.item() <= 2e-2
+        assert not out[b, n:].any()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_[:NB - 1], w_[:NB - 1])
 
 
 def test_quant_kernels_raise_on_untaken_head_dims(cuda):
