@@ -11,10 +11,10 @@ arms' step windows of phase (d''), over the package under ROOT
 Phases:
   (a) build   — compile every kernel of the path from paddle_tpu_torch/csrc
                 with nvcc for sm_90a, all nvcc processes at once, and print
-                B1's, B5's and the paged libraries' ptxas lines (registers,
-                barriers, spills); B5 may neither spill nor have a
-                warpgroup.arrive injected, the paged libraries (B2, B3 and
-                both forms of B4) may not spill;
+                B1's, B5's, the paged libraries' and B8's ptxas lines
+                (registers, barriers, spills); B5 may neither spill nor have
+                a warpgroup.arrive injected, the paged libraries (B2, B3 and
+                both forms of B4) and B8 may not spill;
   (b) parity  — each kernel against its plain PyTorch version on the card,
                 bf16, at the main path's shapes plus edge cases (B1 at
                 D 128 and 64, GQA and one kv head, S 2048, 1000 and 17; B5
@@ -23,8 +23,11 @@ Phases:
                 serving shapes with MHA and G 4, and over long contexts
                 (MB 128, lens up to 8,191) where their walks split; both
                 AdamW kernels with bf16 and float32 grads, bit for bit;
-                B8, the int4 GEMM, at rows 1-128 on five shapes with bf16
-                and float32 x, run twice for the same bits;
+                B8, the int4 GEMM: its launch geometry held against the
+                kernel's constants at rows 1-128 on five shapes, then rows
+                1, 5, 8, 16, 32, 64, 127 and 128 on each with bf16 and
+                float32 x against the plain version, run twice for the
+                same bits;
                 B4's decode and append forms on int8 and int4 pools with
                 payload and scales bit for bit outside the scratch block, a
                 dirty block whose stale rows must not reach its scale, an
@@ -85,17 +88,22 @@ Phases:
                 server health hold; each arm's tokens equal a no-cache
                 forward of its own model where the top-2 margin exceeds
                 the arm's margin (the int4 arm's widened by the logit gap
-                between B8 and the split-nibble route, measured first).
-                Per arm: tokens/s, step ms, weight bytes, drift against
-                bf16, and four traced decode steps' device ms by class
-                (information);
+                between B8 and the split-nibble route, measured first); in
+                four traced decode steps the int4 arm calls B8 exactly 224
+                times a step and the others never, and the trace holds one
+                B8 kernel function and no more B8 kernels than calls (the
+                gap: records the tracer dropped). Per arm: tokens/s,
+                step ms, weight bytes, drift against bf16, and the traced
+                steps' device ms by class (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
                 call beside their device time, B2, B3 and B4 also at Hkv 8,
-                B4-append's two launches apart; B8 at 8 rows on the four
-                7B-scale shapes, its weight out of L2, beside a bf16
-                torch.matmul of the same x); then four decode steps of
+                B4-append's two launches apart; B8 at 8 and at 128 rows on
+                the four 7B-scale shapes, its weight out of L2, beside
+                torch._weight_int4pack_mm and a bf16 torch.matmul of the
+                same x, and a line over the shapes: fixed cost a call and
+                the rate of the rest); then four decode steps of
                 a fresh legacy engine traced with torch.profiler (device
                 time by kernel class, the device's idle share), and fused
                 mixed and all-decode windows at depth 1 and depth 2, untraced
@@ -147,6 +155,7 @@ import copy
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -864,6 +873,7 @@ def profile_decode(model, dev, n_steps=4):
     for _ in range(2):                 # admission + prefill, one warm step
         eng.step()
     torch.cuda.synchronize()
+    n0 = int4_matmul.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -871,7 +881,10 @@ def profile_decode(model, dev, n_steps=4):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return device_breakdown(prof, wall, n_steps)
+    win = device_breakdown(prof, wall, n_steps)
+    if win is not None:
+        win["int4_matmul_launches"] = int4_matmul.launches - n0
+    return win
 
 
 def make_engine(model, dev):
@@ -891,8 +904,10 @@ SERVING_CLASSES = (("paged_decode_kernel", ("paged_decode_kernel",)),
                    ("append_kernels", ("append_split_kernel",
                                        "append_write_kernel",
                                        "append_quant_write_kernel")),
-                   ("int4_gemm", ("int4_mm_partial_kernel",
-                                  "int4_mm_reduce_kernel")))
+                   # B8 by its name stem, so a commit whose B8 launches
+                   # other kernels (a first form's partial and reduce) is
+                   # classed alike
+                   ("int4_gemm", ("int4_mm",)))
 # the quantized arms' windows: B4-append's two launches apart, by the
 # kernels' name stems (the write pass first, then any other append kernel),
 # so a commit whose B4 kernels are named otherwise is classed alike
@@ -927,15 +942,22 @@ def device_breakdown(prof, wall_s, n_steps, classes=SERVING_CLASSES):
         return None
     by = {key: 0.0 for key, _ in classes}
     by.update(gemm=0.0, other=0.0)
+    count = dict.fromkeys(by, 0)
+    names = {key: set() for key, _ in classes}
     spans = []
     for e in dev:
         name = e.get("name", "")
-        key = next((k for k, subs in classes
-                    if any(t in name for t in subs)), None)
+        key, ident = next(((k, re.search(r"\w*%s\w*" % re.escape(t), name)
+                            .group(0))
+                           for k, subs in classes for t in subs
+                           if t in name), (None, None))
         if key is None:
             key = "gemm" if any(t in name.lower() for t in (
                 "gemm", "xmma", "cutlass", "nvjet")) else "other"
         by[key] += e["dur"]
+        count[key] += 1
+        if key in names:
+            names[key].add(ident)
         spans.append((e["ts"], e["ts"] + e["dur"]))
     spans.sort()
     busy, cur_s, cur_e = 0.0, None, None
@@ -952,7 +974,10 @@ def device_breakdown(prof, wall_s, n_steps, classes=SERVING_CLASSES):
             "device_ms_per_step_by_kernel": {
                 k: v / 1e3 / n_steps for k, v in by.items()},
             "device_idle_share": max(0.0, 1.0 - busy / 1e6 / wall_s),
-            "events_per_step": len(dev) / n_steps}
+            "events_per_step": len(dev) / n_steps,
+            "events_per_step_by_kernel": {
+                k: v / n_steps for k, v in count.items()},
+            "kernel_names_by_class": {k: sorted(v) for k, v in names.items()}}
 
 
 def run_serving(model, dev):
@@ -1521,7 +1546,7 @@ def time_append_quant(dev, quant):
 # B8: the weight-only int4 GEMM
 # ---------------------------------------------------------------------------
 
-INT4_ROWS = (1, 5, 8, 16, 127, 128)
+INT4_ROWS = (1, 5, 8, 16, 32, 64, 127, 128)
 # [n_in, n_out]: a small tile, q/k/v/o, fused q/k/v, gate/up and down at
 # hidden 4096, ff 11264
 INT4_SHAPES = ((2048, 512), (4096, 4096), (4096, 12288), (4096, 11264),
@@ -1548,9 +1573,18 @@ def int4_tol(ref, dtype):
 
 
 def check_int4_matmul(dev):
-    """B8 against int4_matmul_plain at every INT4_SHAPES x INT4_ROWS, bf16
-    and float32 x, each within int4_tol; a second run gives the same
-    bits. Returns the largest bf16 error."""
+    """B8's launch geometry (``launch_config``) held against the kernel's
+    constants (``pt_int4_matmul_check_launch``) at every INT4_SHAPES x rows
+    1-128, bf16 and float32 x; then B8 against int4_matmul_plain at every
+    INT4_SHAPES x INT4_ROWS, bf16 and float32 x, each within int4_tol; a
+    second run gives the same bits. Returns the largest bf16 error."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    geoms = [(rows, n_in, n_out, x_bf16) for n_in, n_out in INT4_SHAPES
+             for rows in range(1, 129) for x_bf16 in (True, False)]
+    for g in geoms:
+        i4_mod._check_launch(*g, n_sm)   # raises on a mismatch
+    emit({"phase": "launch_check", "kernel": "int4_matmul",
+          "geometries": len(geoms), "n_sm": n_sm})
     rng = np.random.default_rng(21)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for n_in, n_out in INT4_SHAPES:
@@ -1581,16 +1615,36 @@ def check_int4_matmul(dev):
     return worst[torch.bfloat16]
 
 
+def int4pack_operands(packed, scales):
+    """The same function's operands for ``torch._weight_int4pack_mm``
+    (timed as B8's library call, used nowhere in the port): the weight as
+    its uint8 ``[n_out, n_in / 2]`` (k 2i in the high nibble, 2i + 1 in
+    the low, each offset by 8) tiled by ``_convert_weight_to_int4pack``,
+    and the per-channel scales repeated over groups of 256 k with zero
+    points 0, in bf16 as the call takes them."""
+    low, high = i4_mod.nibbles(packed)
+    q = ((low.int() + 8) << 4 | (high.int() + 8)).to(torch.uint8)
+    w = torch._convert_weight_to_int4pack(q.t().contiguous(), 8)
+    s = scales.to(torch.bfloat16).expand(packed.shape[0] // 128, -1)
+    return w, torch.stack([s, torch.zeros_like(s)], -1).contiguous()
+
+
 def time_int4_matmul(dev, rows=8):
-    """B8 at ``rows`` on the four 7B-scale shapes, each launch on another
+    """B8 at ``rows`` (8: a decode step; 128: the most B8 takes) on the
+    four 7B-scale shapes, each launch on another
     copy of the weight so no launch finds it in the 50 MB L2 (a decode
     step reads each layer's weights once). Bound bytes: the packed weight,
-    x, the scales read once and the output written once. bf16_gemm_ms:
+    x, the scales read once and the output written once. library_ms:
+    ``torch._weight_int4pack_mm`` (int4pack_operands, group 256), timed the
+    same way, after its result is held within 2^-6 of the output's
+    largest magnitude (its scales are rounded to bf16). bf16_gemm_ms:
     torch.matmul of the same x against a bf16 [n_in, n_out] weight (the
     unquantized layer), timed the same way. wrapper_host_us: the host's
     time per call of the wrapper (information: decode steps are paced by
     the host). The ``layer`` entry sums one decoder layer's seven
-    projections (INT4_LAYER)."""
+    projections (INT4_LAYER); its ``fit`` is the least-squares line of
+    B8's time over the four shapes' weight bytes: a fixed cost per call
+    and the rate of the rest."""
     rng = np.random.default_rng(22)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     res = {}
@@ -1611,6 +1665,18 @@ def time_int4_matmul(dev, rows=8):
         torch.cuda.synchronize()
         plain_ms = cuda_ms(lambda: int4_matmul_plain(x, packed, scales), 20)
         del ws
+        wl, sz = int4pack_operands(packed, scales)
+        ref = int4_matmul_plain(x, packed, scales).float()
+        lib_err = (torch._weight_int4pack_mm(x, wl, 256, sz).float()
+                   - ref).abs().max().item()
+        require(lib_err <= 2 ** -6 * ref.abs().max().item(),
+                f"torch._weight_int4pack_mm {[n_in, n_out]}: error "
+                f"{lib_err} against the plain version")
+        wls = [wl.clone() for _ in range(copies)]
+        it = iter(range(1 << 30))
+        lib_ms = cuda_ms(lambda: torch._weight_int4pack_mm(
+            x, wls[next(it) % copies], 256, sz), 200)
+        del wls, wl
         wb = torch.from_numpy(rng.standard_normal((n_in, n_out)).astype(
             np.float32)).to(dev).to(torch.bfloat16)
         wcopies = max(2, -(-120_000_000 // (2 * wb.numel())))
@@ -1624,22 +1690,28 @@ def time_int4_matmul(dev, rows=8):
         nbytes = n_in // 2 * n_out + 2 * rows * n_in + 4 * n_out \
             + 2 * rows * n_out
         res[f"{n_in}x{n_out}"] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=None, bf16_gemm_ms=gemm_ms,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library_max_abs_err=lib_err, bf16_gemm_ms=gemm_ms,
             wrapper_host_us=host_us,
             bf16_gemm_bound_ms=(2 * n_in * n_out + 2 * rows * n_in
                                 + 2 * rows * n_out) / PEAK_BYTES * 1e3,
-            splits=i4_mod.split_count(n_in, n_out, n_sm),
+            splits=i4_mod.launch_config(rows, n_in, n_out, True,
+                                        n_sm).splits,
             **bound(ops, nbytes))
     layer = [res[f"{a}x{b}"] for a, b in INT4_LAYER]
     res["layer"] = {k: sum(t[k] for t in layer)
-                    for k in ("ms", "plain_ms", "bound_ms", "bf16_gemm_ms",
-                              "wrapper_host_us", "ops", "bytes")}
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                              "bf16_gemm_ms", "wrapper_host_us", "ops",
+                              "bytes")}
+    slope, fixed = np.polyfit([a // 2 * b for a, b in INT4_SHAPES[1:]],
+                              [res[f"{a}x{b}"]["ms"]
+                               for a, b in INT4_SHAPES[1:]], 1)
     res["layer"].update(
-        bound_by=layer[0]["bound_by"], library_ms=None, rows=rows,
+        bound_by=layer[0]["bound_by"], rows=rows,
         shapes=[list(s) for s in INT4_LAYER],
-        library_reason="no single PyTorch call computes this function: "
-                       "torch._weight_int4pack_mm takes grouped scales with "
-                       "zero points in its own tile layout")
+        library="torch._weight_int4pack_mm",
+        fit={"fixed_us_per_call": float(fixed) * 1e3,
+             "rest_tb_per_s": 1e-9 / float(slope)})
     return res
 
 
@@ -1995,6 +2067,25 @@ def wo_arm(model, dev, prompts, name, margin):
                greedy_checked=checked, greedy_excused_near_ties=excused,
                greedy_mismatched=mismatched,
                decode_window=profile_decode(model, dev))
+    win = arm["decode_window"]
+    if win is not None:
+        # one B8 kernel per call: the launch counter shows exactly 7 calls
+        # a layer in each traced step of the int4 arm and none in the
+        # other arms; the trace shows one kernel function and no more
+        # kernels than calls (the gap: records the tracer dropped)
+        calls = 7 * model.config.num_hidden_layers * win["steps"] \
+            if name == "int4" else 0
+        got = round(win["events_per_step_by_kernel"]["int4_gemm"]
+                    * win["steps"])
+        kinds = win["kernel_names_by_class"]["int4_gemm"]
+        win["int4_gemm_records_dropped"] = calls - got
+        require(win["int4_matmul_launches"] == calls,
+                f"{name} arm: {win['int4_matmul_launches']} B8 launches in "
+                f"the traced decode steps, expected {calls}")
+        require(got <= calls and (got > 0) == (calls > 0)
+                and len(kinds) <= 1,
+                f"{name} arm: {got} int4_gemm kernels in the traced decode "
+                f"steps ({sorted(kinds)}) for {calls} calls of one kernel")
     require(mismatched == 0, f"{name} arm: {mismatched} greedy tokens "
             f"disagree with its own no-cache forward beyond {margin}")
     return arm, toks
@@ -2516,17 +2607,20 @@ def main():
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
-    # B1's, B5's and the paged libraries' own lines: each instantiation's
-    # registers, shared memory, spills, and any wgmma the compiler
-    # serialised (C75xx notes); B5 may neither spill nor have a
+    # B1's, B5's, the paged libraries' and B8's own lines: each
+    # instantiation's registers, shared memory, spills, and any wgmma the
+    # compiler serialised (C75xx notes); B5 may neither spill nor have a
     # warpgroup.arrive injected, B2, B3 and B4 (the int8/int4
-    # instantiations of the decode and append sources) may not spill
+    # instantiations of the decode and append sources) and B8 may not
+    # spill
     for name in ("flash_attention_fwd", "flash_attention_bwd",
-                 "paged_attention_decode", "paged_attention_append"):
+                 "paged_attention_decode", "paged_attention_append",
+                 "int4_matmul"):
         emit({"phase": "ptxas", "kernel": name,
               "lines": [ln.strip() for ln in logs[name].splitlines()
                         if "ptxas" in ln or "spill" in ln]})
-    for name in ("paged_attention_decode", "paged_attention_append"):
+    for name in ("paged_attention_decode", "paged_attention_append",
+                 "int4_matmul"):
         require(all("0 bytes spill stores, 0 bytes spill loads" in ln
                     for ln in logs[name].splitlines() if "spill" in ln),
                 f"{name}: ptxas reports a spill")
@@ -2578,7 +2672,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     i4t = time_int4_matmul(dev)
-    emit({"phase": "timing", "int4_matmul": i4t})
+    emit({"phase": "timing", "int4_matmul": i4t,
+          "int4_matmul_rows128": time_int4_matmul(dev, rows=128)})
     torch.cuda.empty_cache()
 
     train_launches = collections.Counter()

@@ -1,5 +1,6 @@
 // What the attention kernels share: the mma.sync fragment helpers of the
-// paged kernels (csrc/paged_split.cuh), the paged append's thread count,
+// paged kernels (csrc/paged_split.cuh) and of the int4 GEMM
+// (int4_matmul.cu), the paged append's thread count,
 // and the bf16 packing, the launch order and the dropout hash that the
 // flash forward and backward
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, built on
@@ -41,6 +42,28 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// (a, b) as three bf16x2 terms whose sum is exactly (a, b): each term is
+// the bf16 rounding of what the terms before it left (a float of 24
+// significant bits in three of 8).
+__device__ __forceinline__ void split3_bf16(float a, float b,
+                                            uint32_t (&t)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    a = __fsub_rn(a, __low2float(h));
+    b = __fsub_rn(b, __high2float(h));
+  }
 }
 
 // Heads per launch group of the flash kernels: a group's operands stay in L2.

@@ -74,12 +74,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <unordered_map>
-
-#include "flash_common.cuh"   // mma16816, pack_bf16, lds32
+#include "flash_common.cuh"   // mma16816, ldsm_x4, split3_bf16, pack_bf16
 #include "kv_quant.cuh"       // kv_requant
-#include "sm90_common.cuh"    // mbarriers, TMA, named barriers
+#include "sm90_common.cuh"    // mbarriers, TMA, named barriers, tensor maps
 
 namespace {
 
@@ -242,20 +239,6 @@ __device__ __forceinline__ uint32_t i4x2_bf16(uint32_t w, int shift) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// (a, b) as three bf16x2 terms whose sum is exactly (a, b): each term is
-// the bf16 rounding of what the terms before it left (a float of 24
-// significant bits in three of 8).
-__device__ __forceinline__ void split3_bf16(float a, float b,
-                                            uint32_t (&t)[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    t[i] = *reinterpret_cast<const uint32_t*>(&h);
-    a = __fsub_rn(a, __low2float(h));
-    b = __fsub_rn(b, __high2float(h));
-  }
-}
-
 // The head dim of accumulator e (0, 1) of output n8 tile n for a thread of
 // quad index t, on a byte pool of Dp-byte rows: int8 tile n = 2c + s holds
 // dims 16c + 4t + 2e + s; int4 tile n = 4c + 2h + s holds nibble half h,
@@ -264,14 +247,6 @@ template <int BITS>
 __device__ __forceinline__ int quant_dim(int n, int e, int t, int Dp) {
   if constexpr (BITS == 8) return 16 * (n >> 1) + 4 * t + 2 * e + (n & 1);
   return ((n >> 1) & 1) * Dp + 16 * (n >> 2) + 4 * t + 2 * e + (n & 1);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
@@ -945,58 +920,6 @@ __device__ __forceinline__ void split_walk(const CUtensorMap* tmk,
 
 // ---- host ----------------------------------------------------------------
 
-// A pool [rows = NB*Hkv*bs, cols] as a 2-D tensor map with boxes of
-// (box_cols columns, br rows): bf16 with 64-column (128-byte) boxes, or a
-// byte pool with whole-row boxes of Dp = 128, 64 or 32 bytes; the swizzle
-// is the box row's width. Rows past the end arrive as zeros. Encoded once
-// per (pool, geometry, element type, swizzle) and cached: pools live as
-// long as their engine, and the same key always encodes the same map.
-inline bool pool_tensor_map(CUtensorMap* map, const void* base,
-                            long long rows, int cols, int br,
-                            CUtensorMapDataType dtype, int elem_bytes,
-                            int box_cols, CUtensorMapSwizzle swizzle) {
-  struct Key {
-    const void* base;
-    long long rows;
-    int cols, br, dtype, swizzle;
-    bool operator==(const Key& o) const {
-      return base == o.base && rows == o.rows && cols == o.cols &&
-             br == o.br && dtype == o.dtype && swizzle == o.swizzle;
-    }
-  };
-  struct Hash {
-    size_t operator()(const Key& k) const {
-      return std::hash<const void*>()(k.base) ^
-             (std::hash<long long>()(k.rows) * 31u) ^
-             ((size_t)k.cols << 20) ^ (size_t)k.br ^
-             ((size_t)k.dtype << 12) ^ ((size_t)k.swizzle << 16);
-    }
-  };
-  static std::mutex mu;
-  static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{base, rows, cols, br, (int)dtype, (int)swizzle};
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *map = it->second;
-    return true;
-  }
-  const EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)br};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return true;
-}
-
 // Validates what every split launch needs and encodes the pools' maps:
 // bf16 pools [NB, Hkv, bs, D] (BITS 16), or byte pools of D * BITS / 8
 // bytes a row.
@@ -1011,21 +934,21 @@ inline bool split_pool_maps(CUtensorMap* tk, CUtensorMap* tv,
     return false;
   const int br = pool_boxes(bs).br;
   if constexpr (BITS == 16) {
-    return pool_tensor_map(tk, k_pool, rows, D, br,
-                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64,
-                           CU_TENSOR_MAP_SWIZZLE_128B) &&
-           pool_tensor_map(tv, v_pool, rows, D, br,
-                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
+    return tensor_map_2d(tk, k_pool, rows, D, br,
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B) &&
+           tensor_map_2d(tv, v_pool, rows, D, br,
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
   } else {
     const int dp = D * BITS / 8;
     const CUtensorMapSwizzle sw = dp == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : dp == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-    return pool_tensor_map(tk, k_pool, rows, dp, br,
-                           CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dp, sw) &&
-           pool_tensor_map(tv, v_pool, rows, dp, br,
-                           CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dp, sw);
+    return tensor_map_2d(tk, k_pool, rows, dp, br,
+                         CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dp, sw) &&
+           tensor_map_2d(tv, v_pool, rows, dp, br,
+                         CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dp, sw);
   }
 }
 

@@ -15,6 +15,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <unordered_map>
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -345,6 +348,60 @@ inline bool bshd_tensor_map(CUtensorMap* map, const void* base, int B, int S,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major 2-D tensor [rows, cols] of `elem_bytes`-byte elements as a
+// tensor map with boxes of (box_cols columns, br rows) and the given
+// swizzle; rows past the end arrive as zeros. Encoded once per (base,
+// geometry, element type, swizzle) and cached: the same key always
+// encodes the same map (the paged kernels' pools, csrc/paged_split.cuh;
+// the int4 GEMM's packed weight and its x, int4_matmul.cu).
+inline bool tensor_map_2d(CUtensorMap* map, const void* base,
+                          long long rows, int cols, int br,
+                          CUtensorMapDataType dtype, int elem_bytes,
+                          int box_cols, CUtensorMapSwizzle swizzle) {
+  struct Key {
+    const void* base;
+    long long rows;
+    int cols, br, dtype, box_cols, swizzle;
+    bool operator==(const Key& o) const {
+      return base == o.base && rows == o.rows && cols == o.cols &&
+             br == o.br && dtype == o.dtype && box_cols == o.box_cols &&
+             swizzle == o.swizzle;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.base) ^
+             (std::hash<long long>()(k.rows) * 31u) ^
+             ((size_t)k.cols << 20) ^ (size_t)k.br ^
+             ((size_t)k.dtype << 12) ^ ((size_t)k.box_cols << 40) ^
+             ((size_t)k.swizzle << 16);
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  const Key key{base, rows, cols, br, (int)dtype, box_cols, (int)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)br};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return true;
 }
 
 }  // namespace

@@ -136,6 +136,7 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device, as a ``c_void_p``."""
+    """PyTorch's current stream on ``t``'s device, as a ``c_void_p`` (read
+    raw: no Stream object per launch)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))

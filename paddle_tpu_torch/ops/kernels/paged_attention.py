@@ -530,11 +530,12 @@ _SPLIT_LOCK = threading.Lock()
 
 
 def _split_buffers(dev, stream, cfg):
-    """The float32 scratch and int32 counters of B2/B3/B4 on ``dev`` for
-    launches on ``stream``: allocated once (the counters zeroed; every
-    launch leaves them 0) and grown when a launch needs more. Launches on
-    one stream run in order, so they share them; a buffer replaced while a
-    launch on that stream still uses it is reused only after it."""
+    """The float32 scratch and int32 counters of B2/B3/B4 and of B8
+    (``int4_matmul``) on ``dev`` for launches on ``stream``: allocated once
+    (the counters zeroed; every launch leaves them 0) and grown when a
+    launch needs more. Launches on one stream run in order, so they share
+    them; a buffer replaced while a launch on that stream still uses it is
+    reused only after it."""
     key = (dev.index, stream.value)
 
     def fits(bufs):

@@ -25,6 +25,7 @@ from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_update_plain, sr_seed)
 from paddle_tpu_torch.nn.quant import (WeightOnlyLinear, weight_only_linear,
                                        weight_quantize)
+from paddle_tpu_torch.ops.kernels import int4_matmul as i4_mod
 from paddle_tpu_torch.ops.kernels.int4_matmul import (int4_matmul,
                                                       int4_matmul_plain)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
@@ -889,6 +890,74 @@ def test_int4_matmul_wrapper_raises(cuda):
         int4_matmul(x[:8], packed, scales.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_matmul_kernel_every_row_count(cuda, dtype):
+    """[4096, 4096] at every row count 1-128 (each row tile, its padding,
+    the K splits): within tolerance and the same bits twice."""
+    rng = np.random.default_rng(11)
+    packed, scales = _int4_case(rng, 4096, 4096, cuda)
+    x_all = torch.from_numpy(rng.standard_normal((128, 4096))
+                             .astype(np.float32)).to(cuda).to(dtype)
+    for rows in range(1, 129):
+        x = x_all[:rows]
+        out = int4_matmul(x, packed, scales)
+        again = int4_matmul(x, packed, scales)
+        ref = int4_matmul_plain(x, packed, scales)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), rows
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= _int4_tol(ref, dtype), (rows, err)
+
+
+def test_int4_matmul_kernel_launch_geometry(cuda):
+    """launch_config against the kernel's constants at every shape and row
+    count, bf16 and float32 x (pt_int4_matmul_check_launch)."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n_in, n_out in INT4_SHAPES:
+        for rows in range(1, 129):
+            for x_bf16 in (True, False):
+                i4_mod._check_launch(rows, n_in, n_out, x_bf16, n_sm)
+
+
+def test_int4_matmul_kernel_packed_view_at_an_offset(cuda):
+    """A packed weight that is a 16-byte-aligned view into a larger buffer
+    (and strided, misaligned x) gives the plain version's result."""
+    rng = np.random.default_rng(12)
+    big, scales = _int4_case(rng, 4096 + 64, 4096, cuda)
+    packed = big[16:16 + 2048]
+    assert packed.data_ptr() % 16 == 0 and packed.data_ptr() != \
+        big.data_ptr()
+    x = torch.from_numpy(rng.standard_normal((8, 4097)).astype(np.float32)) \
+        .to(cuda).to(torch.bfloat16)
+    for xv in (x[:, :4096], x.reshape(-1)[1:1 + 8 * 4096].view(8, 4096)):
+        out = int4_matmul(xv, packed, scales)
+        ref = int4_matmul_plain(xv, packed, scales)
+        assert (out.float() - ref.float()).abs().max().item() <= \
+            _int4_tol(ref, torch.bfloat16)
+
+
+def test_int4_matmul_kernel_scratch_per_stream(cuda):
+    """Calls interleaved on two streams (each with its own scratch and
+    counters) give each stream's inputs their own result, bit for bit as
+    on the default stream."""
+    rng = np.random.default_rng(13)
+    packed, scales = _int4_case(rng, 11264, 4096, cuda)
+    xs = [torch.from_numpy(rng.standard_normal((rows, 11264))
+                           .astype(np.float32)).to(cuda).to(torch.bfloat16)
+          for rows in (8, 8, 32, 1)]
+    want = [int4_matmul(x, packed, scales) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for _ in range(3):
+        for i, x in enumerate(xs):
+            with torch.cuda.stream(streams[i % 2]):
+                got.append((i, int4_matmul(x, packed, scales)))
+    torch.cuda.synchronize()
+    for i, out in got:
+        assert torch.equal(out, want[i]), i
+
+
 def test_int4_linear_routes_decode_rows_to_the_kernel(cuda):
     """A tileable int4 layer takes B8 for <= 128 rows and the split path
     above, each within its own tolerance of the dequantized product."""
@@ -898,7 +967,7 @@ def test_int4_linear_routes_decode_rows_to_the_kernel(cuda):
         .astype(np.float32)).to(cuda).to(torch.bfloat16))
     lin.bias = None
     layer = WeightOnlyLinear(lin, "int4")
-    for rows, launched in ((8, 1), (128, 1), (129, 0)):
+    for rows, launched in ((8, 1), (127, 1), (128, 1), (129, 0)):
         x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
             (rows, 4096)).astype(np.float32)).to(cuda).to(torch.bfloat16)
         n0 = int4_matmul.launches
