@@ -94,7 +94,41 @@ Phases:
                 B8 kernel function and no more B8 kernels than calls (the
                 gap: records the tracer dropped). Per arm: tokens/s,
                 step ms, weight bytes, drift against bf16, and the traced
-                steps' device ms by class (information);
+                steps' device ms by class (information); then (d-iv)'s
+                generate at the static cache with the int4 model: B8 once
+                per projection it takes a decode step, none in the
+                prefill, the greedy check under the int4 arm's margin;
+  (d-iv) generate — LlamaForCausalLM.generate, greedy, B 8, prompt 512,
+                128 new tokens (the reference's llama_decode and
+                llama_paged_decode rungs): the smoke's 32-layer model
+                through the static cache (gates: one B1 launch per layer in
+                the prefill, no paged kernel, no plain version, no
+                synchronizing call, every token the no-cache argmax where
+                the top-2 margin exceeds 0.05; with an eos id a row emits,
+                at most one read a decode window and each row the free
+                run's tokens up to its eos), then the paged rung's model (3
+                layers, 8 kv heads, block 64): B2 once a layer a one-token
+                step, the same greedy check, then the same with
+                use_paged_attention off (no B2, the plain decode once a
+                layer a step). Per arm the rungs' two-length differential
+                (decode tokens/s and ms a token at 128 against 16 new
+                tokens, prefill tokens/s) and drift against the static
+                cache and the kernel (information);
+  (d-v) prefix_cache — the llama_serve_prefix_cache rung's traffic on the
+                32-layer model: 16 requests (a shared 256-token system
+                prompt before tails of 64-127 tokens, 64 new tokens each;
+                and all-unique prompts of the same lengths) through
+                AsyncLLMServer over the fused engine (8 slots, chunk 256,
+                block 64, capacity 512), cache on and off, the shared
+                prompts also under the legacy scheduler and over an int8
+                pool, with PADDLE_TPU_POOL_CHECKS=1. Gates: each stream
+                equals its cache-off reference (served step by step, each
+                token's margin read from the engine's logits) up to where
+                that margin is at most 0.05; hits on every shared cache-on
+                arm and none elsewhere; the pool audit; the serving arms'
+                launch, plain-call and sync gates. Per arm: tokens/s, hit
+                rate, hit tokens, COW and evicted blocks, TTFT p50, the
+                unique arms' overhead (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
@@ -185,7 +219,11 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
     fused_adamw_update_plain, sr_seed, tile_plan)
-from paddle_tpu_torch.nn.quant import (quantize_linears_for_inference,
+from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch.models.llama import GEN_WINDOW
+from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
+                                       int4_routes_to_kernel,
+                                       quantize_linears_for_inference,
                                        weight_quantize)
 from paddle_tpu_torch.ops.kernels import int4_matmul as i4_mod
 from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
@@ -1067,9 +1105,9 @@ def greedy_check(model, dev, prompts, outs, margin=MARGIN):
 
 
 def make_fused_engine(model, dev, **kw):
-    return LLMEngine(model, cache_impl="paged", scheduler="fused",
-                     max_batch=8, block_size=64, chunk_size=256,
-                     max_seq_len=2048, device=dev, **kw)
+    return LLMEngine(model, **{**dict(
+        cache_impl="paged", scheduler="fused", max_batch=8, block_size=64,
+        chunk_size=256, max_seq_len=2048, device=dev), **kw})
 
 
 @contextlib.contextmanager
@@ -1725,13 +1763,16 @@ SERVE_POOL_FRAC = 0.5       # the bf16 arm holds half the full block demand
 @contextlib.contextmanager
 def counting_plain():
     """Count calls of the plain paged versions and B8's plain version for
-    the duration: on the card no part of the serving path may reach
+    the duration, by name: those the kernels' wrappers reach and those
+    ``block_multihead_attention`` calls itself when the kernels do not
+    take a call. On the card no part of the serving path may reach
     them."""
     calls = collections.Counter()
-    mods = {"paged_attention_decode_plain": pa_mod,
-            "paged_attention_append_plain": pa_mod,
-            "int4_matmul_plain": i4_mod}
-    saved = {n: getattr(m, n) for n, m in mods.items()}
+    targets = [(m, n) for m in (pa_mod, IF)
+               for n in ("paged_attention_decode_plain",
+                         "paged_attention_append_plain")]
+    targets.append((i4_mod, "int4_matmul_plain"))
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
 
     def wrap(name, fn):
         def counted(*a, **k):
@@ -1739,13 +1780,13 @@ def counting_plain():
             return fn(*a, **k)
         return counted
 
-    for n, fn in saved.items():
-        setattr(mods[n], n, wrap(n, fn))
+    for m, n, fn in saved:
+        setattr(m, n, wrap(n, fn))
     try:
         yield calls
     finally:
-        for n, fn in saved.items():
-            setattr(mods[n], n, fn)
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 def kernel_counts():
@@ -1787,14 +1828,16 @@ def drift(ref_toks, arm_toks):
             "token_parity": first_div is None}
 
 
-def serve_arm(model, dev, prompts, quant, n_blocks, name=None):
-    """One arm: the fused engine over ``n_blocks`` pool blocks of dtype
-    ``quant``, the 12 requests through AsyncLLMServer (default depth),
-    every step_begin under the sync watch on the engine thread; B8's
-    launches are counted per step by kind."""
+def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
+              **engine_kw):
+    """One arm: the fused engine (or another, by ``engine_kw``) over
+    ``n_blocks`` pool blocks of dtype ``quant``, the requests through
+    AsyncLLMServer (default depth) with ``n_new`` new tokens each, every
+    step_begin under the sync watch on the engine thread; B8's launches
+    are counted per step by kind."""
     name = name or quant or "bf16"
     eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
-                            kv_cache_dtype=quant)
+                            kv_cache_dtype=quant, **engine_kw)
     syncs, kinds, step_ms = [], {}, {"mixed": [], "decode": []}
     b8_steps = {"mixed": collections.Counter(),
                 "decode": collections.Counter()}
@@ -1826,7 +1869,7 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None):
     with counting_plain() as plain_calls:
         server.start()
         t0 = clock["prev"] = time.perf_counter()
-        handles = [server.submit(p, max_new_tokens=64) for p in prompts]
+        handles = [server.submit(p, max_new_tokens=n_new) for p in prompts]
         outs, resident = [], []
         for h in handles:
             while True:
@@ -1880,11 +1923,16 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None):
            "finish_reasons": sorted({o.finish_reason for o in outs}),
            "step_begin_syncs": len(syncs),
            "step_begin_sync_messages": sorted(set(syncs))[:5],
-           "pool_invariants": invariants, "healthy_at_end": health["healthy"]}
+           "pool_invariants": invariants, "healthy_at_end": health["healthy"],
+           "scheduler": eng.scheduler,
+           "prefix": {k: eng.stats[k] for k in (
+               "prefix_hit_tokens", "prefix_cow_blocks",
+               "prefix_evicted_blocks", "prefill_tokens")}}
     require(all(o.finished and o.finish_reason == "length" and
-                len(o.token_ids) == 64 for o in outs) and len(outs) == 12,
+                len(o.token_ids) == n_new for o in outs) and
+            len(outs) == len(prompts),
             f"{name} arm: a request did not finish with its "
-            f"64 tokens")
+            f"{n_new} tokens")
     require(not syncs, f"{name} arm: step_begin made "
             f"{len(syncs)} synchronizing calls")
     require(health["healthy"], f"{name} arm: server "
@@ -1893,8 +1941,11 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None):
             f"ran on the card: {dict(plain_calls)}")
     dec = "b2_decode" if quant is None else f"b4_decode_{quant}"
     app = "b3_append" if quant is None else f"b4_append_{quant}"
-    require(launches[app] == n_mixed * L and launches[app] > 0 and
-            launches[dec] == n_decode * L and launches[dec] > 0,
+    # the legacy scheduler prefills at admission through the static cache:
+    # its steps all decode, and it never appends
+    legacy = eng.scheduler == "legacy"
+    require(launches[app] == n_mixed * L and (launches[app] > 0) != legacy
+            and launches[dec] == n_decode * L and launches[dec] > 0,
             f"{name} arm: launches {launches} against "
             f"{n_mixed} mixed and {n_decode} all-decode steps x {L}")
     require(all(n == 0 for k, n in launches.items() if k not in (dec, app)),
@@ -2141,7 +2192,393 @@ def run_weight_only_serving(model, dev):
         else:
             require(arm["b8_launches"] == 0, f"{name} arm launched B8 "
                     f"{arm['b8_launches']} times")
-    return arms["int4"]["b8_launches"]
+    return arms["int4"]["b8_launches"], arms["int4"]["greedy_margin"]
+
+
+# ---------------------------------------------------------------------------
+# (d-iv) generate: LlamaForCausalLM.generate, the llama_decode and
+# llama_paged_decode rungs
+# ---------------------------------------------------------------------------
+
+GEN_B, GEN_PROMPT, GEN_NEW = 8, 512, 128
+# bench.py's control length for the two-length differential:
+# min(max(128 // 8, 8), 128 // 2)
+GEN_SHORT = 16
+GEN_REPS = 3
+GEN_LAYERS_PAGED, GEN_KV_HEADS_PAGED = 3, 8
+
+
+def gen_ids(vocab):
+    return torch.from_numpy(np.random.default_rng(5).integers(
+        0, vocab, (GEN_B, GEN_PROMPT)))
+
+
+def gen_differential(model, ids, cache_impl, block_size=64):
+    """The rungs' two-length differential (bench.py:425-470) over the
+    port's ``_gen_programs``: wall time of prefill + decode at 128 and at
+    16 new tokens, the decode rate from the difference, and the prefill
+    alone; medians of GEN_REPS after one warm run of each."""
+    def programs(n_new):
+        return model._gen_programs(GEN_B, GEN_PROMPT, n_new,
+                                   GEN_PROMPT + n_new, 0.0, 0, 1.0, None,
+                                   cache_impl, block_size)
+
+    def pair(n_new):
+        prefill, decode = programs(n_new)
+
+        def run():
+            logits, kb, vb = prefill(ids)
+            decode(kb, vb, logits)
+            torch.cuda.synchronize()
+        return run
+
+    def run_prefill():
+        programs(GEN_NEW)[0](ids)
+        torch.cuda.synchronize()
+
+    def timed(fn):
+        walls = []
+        for _ in range(GEN_REPS):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls))
+
+    run_long, run_short = pair(GEN_NEW), pair(GEN_SHORT)
+    for fn in (run_long, run_short, run_prefill):
+        fn()
+    t_prefill = timed(run_prefill)
+    t_short, t_long = timed(run_short), timed(run_long)
+    t_decode = max(t_long - t_short, 1e-9)
+    n_delta = GEN_NEW - GEN_SHORT
+    return {"decode_tokens_per_s": GEN_B * n_delta / t_decode,
+            "decode_ms_per_token": t_decode / n_delta * 1e3,
+            "prefill_tokens_per_s": GEN_B * GEN_PROMPT / t_prefill,
+            "prefill_s": t_prefill, "long_s": t_long, "short_s": t_short,
+            "new_tokens_long_short": [GEN_NEW, GEN_SHORT],
+            "reps": GEN_REPS}
+
+
+def gen_decode_window(model, ids, cache_impl, n_steps=4):
+    """Where a decode step's time goes: ``n_steps`` one-token steps of
+    ``_gen_programs``' decode traced with torch.profiler after a warm
+    run (device ms by kernel class, the device's idle share)."""
+    prefill, decode = model._gen_programs(
+        GEN_B, GEN_PROMPT, n_steps + 1, GEN_PROMPT + n_steps + 1, 0.0, 0,
+        1.0, None, cache_impl, 64)
+    logits, kb, vb = prefill(ids)
+    decode(kb, vb, logits)             # warm
+    logits, kb, vb = prefill(ids)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(kb, vb, logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_breakdown(prof, wall, n_steps)
+
+
+def gen_main_run(model, ids, cache_impl, eos=None):
+    """One ``generate`` at 128 new tokens, after a warm call at the short
+    length (any once-per-geometry launch check runs there): the tokens, the
+    kernels' launches with their counts set to 0 just before, the plain
+    versions called, and the synchronizing calls the whole call made."""
+    model.generate(ids, max_new_tokens=GEN_SHORT, cache_impl=cache_impl,
+                   eos_token_id=eos)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    flash_attention_fwd.launches = 0
+    syncs = []
+    with counting_plain() as plain:
+        with sync_watch(syncs):
+            out = model.generate(ids, max_new_tokens=GEN_NEW,
+                                 cache_impl=cache_impl, eos_token_id=eos)
+        torch.cuda.synchronize()
+    return out.cpu().numpy(), {
+        "b1_flash": flash_attention_fwd.launches,
+        "b8_int4": int4_matmul.launches, **kernel_counts(),
+        "plain_calls": dict(plain), "syncs": len(syncs),
+        "sync_messages": sorted(set(syncs))[:5]}
+
+
+def gen_greedy(model, dev, ids, toks, margin=MARGIN):
+    out = collections.namedtuple("Out", "token_ids")
+    return greedy_check(model, dev, ids.cpu().numpy(),
+                        [out(list(t)) for t in toks], margin)
+
+
+def routed_int4(model, rows):
+    """The quantized projections B8 takes at ``rows`` rows."""
+    return sum(1 for m in model.modules()
+               if isinstance(m, WeightOnlyLinear)
+               and m.weight_dtype == "int4"
+               and int4_routes_to_kernel(rows, m.in_features,
+                                         m.out_features, model.device))
+
+
+def gen_arm_report(name, model, dev, ids, cache_impl, margin=MARGIN,
+                   kernels=True):
+    """An arm's main run, greedy check and differential. ``kernels``: the
+    arm runs no plain paged version, which would wait on the device."""
+    toks, counts = gen_main_run(model, ids, cache_impl)
+    checked, excused, mismatched = gen_greedy(model, dev, ids, toks, margin)
+    arm = {"arm": name, "cache_impl": cache_impl,
+           "layers": model.config.num_hidden_layers,
+           "kv_heads": model.config.num_key_value_heads,
+           "launches": counts, "greedy_checked": checked,
+           "greedy_excused_near_ties": excused,
+           "greedy_mismatched": mismatched, "margin": margin,
+           **gen_differential(model, ids, cache_impl),
+           "decode_window": gen_decode_window(model, ids, cache_impl)}
+    L = model.config.num_hidden_layers
+    require(toks.shape == (GEN_B, GEN_NEW), f"generate {name}: tokens of "
+            f"shape {toks.shape}")
+    require(counts["b1_flash"] == L, f"generate {name}: {counts['b1_flash']}"
+            f" flash launches in the prefill, expected {L}")
+    require(counts["syncs"] == 0 or not kernels, f"generate {name}: "
+            f"{counts['syncs']} synchronizing calls without an eos id")
+    require(mismatched == 0, f"generate {name}: {mismatched} tokens disagree "
+            f"with the no-cache forward beyond the {margin} margin")
+    return arm, toks
+
+
+def run_generate(model, dev):
+    """The llama_decode rung on the smoke's 32-layer model (static cache:
+    B1 in the prefill, masked plain attention in the decode, as the
+    reference), then the llama_paged_decode rung on its 3-layer GQA model,
+    B2 in the decode, against the static cache of the same model and the
+    plain paged versions (use_paged_attention off)."""
+    t_phase = time.perf_counter()
+    ids = gen_ids(model.config.vocab_size).to(dev)
+    arms = {}
+    arms["static"], static_toks = gen_arm_report("static", model, dev, ids,
+                                                 "static")
+    c = arms["static"]["launches"]
+    require(not c["plain_calls"] and all(
+        c[k] == 0 for k in ("b8_int4", *kernel_counts())),
+        f"generate static: other kernels or plain versions ran: {c}")
+    # an eos id a row emits mid-run: the decode reads the device once a
+    # window; each row's tokens up to its first eos are the free run's
+    eos = int(static_toks[0, GEN_NEW // 2])
+    eos_toks, eos_counts = gen_main_run(model, ids, "static", eos=eos)
+    windows = -(-GEN_NEW // GEN_WINDOW)
+    rows_ok = True
+    for free, got in zip(static_toks, eos_toks):
+        hits = np.nonzero(free == eos)[0]
+        cut = int(hits[0]) + 1 if len(hits) else GEN_NEW
+        rows_ok &= bool((got[:min(cut, len(got))] == free[:min(cut, len(got))]
+                         ).all() and (got[cut:] == eos).all())
+    arms["static_eos"] = {"eos_token_id": eos, "n": int(eos_toks.shape[1]),
+                          "syncs": eos_counts["syncs"],
+                          "windows": windows, "rows_match": rows_ok}
+    require(eos_counts["syncs"] <= windows and rows_ok,
+            f"generate static with eos: {arms['static_eos']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    paged = build_model(dev, num_hidden_layers=GEN_LAYERS_PAGED,
+                        num_key_value_heads=GEN_KV_HEADS_PAGED)
+    L = GEN_LAYERS_PAGED
+    ref_toks, _ = gen_main_run(paged, ids, "static")
+    arms["paged"], paged_toks = gen_arm_report("paged", paged, dev, ids,
+                                               "paged")
+    c = arms["paged"]["launches"]
+    steps = GEN_NEW - 1
+    require(c["b2_decode"] == L * steps and not c["plain_calls"] and all(
+        c[k] == 0 for k in c if k.startswith(("b3", "b4", "b8"))),
+        f"generate paged: launches {c}, expected {L * steps} B2 "
+        f"({L} layers x {steps} one-token steps) and nothing else")
+    arms["paged"]["drift_vs_static"] = drift(ref_toks.tolist(),
+                                             paged_toks.tolist())
+    saved = get_flags("FLAGS_use_paged_attention")
+    try:
+        set_flags({"FLAGS_use_paged_attention": False})
+        arms["paged_plain"], plain_toks = gen_arm_report(
+            "paged_plain", paged, dev, ids, "paged", kernels=False)
+    finally:
+        set_flags(saved)
+    c = arms["paged_plain"]["launches"]
+    require(c["b2_decode"] == 0 and
+            c["plain_calls"].get("paged_attention_decode_plain", 0)
+            == L * steps,
+            f"generate paged, kernel off: launches {c}, expected no B2 and "
+            f"{L * steps} plain decode calls")
+    arms["paged_plain"]["drift_vs_kernel"] = drift(paged_toks.tolist(),
+                                                   plain_toks.tolist())
+    arms["paged"]["kernel_speedup"] = \
+        arms["paged"]["decode_tokens_per_s"] / \
+        arms["paged_plain"]["decode_tokens_per_s"]
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "generate", "batch": GEN_B, "prompt": GEN_PROMPT,
+          "new_tokens": GEN_NEW, "window": GEN_WINDOW, "arms": arms,
+          "seconds": time.perf_counter() - t_phase})
+    return {"b1": arms["static"]["launches"]["b1_flash"]
+            + arms["paged"]["launches"]["b1_flash"]
+            + arms["paged_plain"]["launches"]["b1_flash"],
+            "b2": arms["paged"]["launches"]["b2_decode"]}
+
+
+def run_generate_int4(model, dev, margin):
+    """The llama_decode rung with int4 weights, on the weight_only_serving
+    model after its int4 arm: B8 in every decode step (8 rows) for each
+    projection it takes, the split-nibble route in the prefill (4,096
+    rows); tokens under the int4 arm's widened margin."""
+    t_phase = time.perf_counter()
+    ids = gen_ids(model.config.vocab_size).to(dev)
+    arm, _ = gen_arm_report("int4", model, dev, ids, "static", margin)
+    c = arm["launches"]
+    per_step = routed_int4(model, GEN_B)
+    want = per_step * (GEN_NEW - 1)
+    arm["b8_projections_per_step"] = per_step
+    emit({"phase": "generate_int4", "batch": GEN_B, "prompt": GEN_PROMPT,
+          "new_tokens": GEN_NEW, "ff": model.config.intermediate_size,
+          "arm": arm, "seconds": time.perf_counter() - t_phase})
+    require(per_step > 0 and c["b8_int4"] == want and
+            routed_int4(model, GEN_B * GEN_PROMPT) == 0 and
+            not c["plain_calls"],
+            f"generate int4: {c['b8_int4']} B8 launches, expected {want} "
+            f"({per_step} projections x {GEN_NEW - 1} steps); plain calls "
+            f"{c['plain_calls']}")
+    return {"b1": c["b1_flash"], "b8": c["b8_int4"]}
+
+
+# ---------------------------------------------------------------------------
+# (d-v) prefix cache: the llama_serve_prefix_cache rung
+# ---------------------------------------------------------------------------
+
+PC_REQUESTS, PC_SYS, PC_TAIL, PC_NEW = 16, 256, 128, 64
+# the rung's capacity: the longest prompt plus its tokens, in chunks of 256
+PC_CAP = -(-(PC_SYS + PC_TAIL + PC_NEW) // 256) * 256
+
+
+def prefix_prompts(vocab):
+    """The rung's traffic (bench.py:1117-1122): a shared 256-token system
+    prompt before tails of 64-127 tokens, and all-unique prompts of the
+    same lengths."""
+    rng = np.random.default_rng(6)
+    sys_prompt = rng.integers(0, vocab, (PC_SYS,)).astype(np.int32)
+    tails = [rng.integers(0, vocab, (PC_TAIL // 2 + int(x),)).astype(
+        np.int32) for x in rng.integers(0, PC_TAIL // 2, size=PC_REQUESTS)]
+    shared = [np.concatenate([sys_prompt, t]) for t in tails]
+    unique = [rng.integers(0, vocab, (PC_SYS + len(t),)).astype(np.int32)
+              for t in tails]
+    return shared, unique
+
+
+def margin_run(model, dev, prompts, quant=None):
+    """A cache-off reference served step by step (no server, depth 1):
+    each request's tokens and, per token, the top-1/top-2 margin of the
+    logits it was sampled from (the engine's carried logits after the step
+    before it)."""
+    eng = make_fused_engine(model, dev, max_seq_len=PC_CAP,
+                            kv_cache_dtype=quant)
+    rids = [eng.add_request(p, max_new_tokens=PC_NEW) for p in prompts]
+    gaps = {r: {} for r in rids}
+    while eng.has_unfinished():
+        eng.step()
+        top2 = torch.topk(eng._logits, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        for b, slot in enumerate(eng.slots):
+            if slot is not None and not slot.ramping:
+                gaps[slot.req.request_id][len(slot.generated)] = \
+                    float(gap[b])
+    toks = [list(eng.finished_outputs.pop(r).token_ids) for r in rids]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, [gaps[r] for r in rids]
+
+
+def against_reference(ref, ref_gaps, toks):
+    """Each stream against the reference's up to its first difference:
+    the streams that differ and the reference's margin there (a
+    divergence where it exceeds MARGIN is a fault)."""
+    at = []
+    for want, gaps, got in zip(ref, ref_gaps, toks):
+        i = next((k for k, (a, b) in enumerate(zip(want, got)) if a != b),
+                 None)
+        if i is None and len(want) == len(got):
+            continue
+        i = min(len(want), len(got)) if i is None else i
+        at.append({"step": i, "margin": gaps.get(i, float("inf"))})
+    return {"diverged": len(at), "faults": sum(d["margin"] > MARGIN
+                                               for d in at),
+            "divergences": at}
+
+
+def hit_rate(arm):
+    hit = arm["prefix"]["prefix_hit_tokens"]
+    pre = arm["prefix"]["prefill_tokens"]
+    return hit / (hit + pre) if hit + pre else 0.0
+
+
+def run_prefix_cache(model, dev):
+    """The llama_serve_prefix_cache rung's traffic on the smoke's 32-layer
+    model: 16 requests through AsyncLLMServer over the fused engine (8
+    slots, chunk 256, block 64), shared and unique prompts with the cache
+    on and off, the shared ones again under the legacy scheduler and over
+    an int8 pool, every engine auditing its pool after each operation."""
+    t_phase = time.perf_counter()
+    saved_env = os.environ.get("PADDLE_TPU_POOL_CHECKS")
+    os.environ["PADDLE_TPU_POOL_CHECKS"] = "1"
+    try:
+        shared, unique = prefix_prompts(model.config.vocab_size)
+        refs = {"shared": margin_run(model, dev, shared),
+                "unique": margin_run(model, dev, unique),
+                "shared_int8": margin_run(model, dev, shared, "int8")}
+        arms = {}
+        for name, prompts, ref, quant, kw in (
+                ("shared_on", shared, "shared", None,
+                 dict(enable_prefix_cache=True)),
+                ("shared_off", shared, "shared", None, {}),
+                ("unique_on", unique, "unique", None,
+                 dict(enable_prefix_cache=True)),
+                ("unique_off", unique, "unique", None, {}),
+                ("shared_on_legacy", shared, "shared", None,
+                 dict(enable_prefix_cache=True, scheduler="legacy")),
+                ("shared_on_int8", shared, "shared_int8", "int8",
+                 dict(enable_prefix_cache=True))):
+            arm, toks = serve_arm(model, dev, prompts, quant,
+                                  8 * (PC_CAP // 64), name=name,
+                                  n_new=PC_NEW, max_seq_len=PC_CAP, **kw)
+            arm["hit_rate"] = hit_rate(arm)
+            arm["against_cache_off"] = against_reference(*refs[ref], toks)
+            arms[name] = arm
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if saved_env is None:
+            os.environ.pop("PADDLE_TPU_POOL_CHECKS", None)
+        else:
+            os.environ["PADDLE_TPU_POOL_CHECKS"] = saved_env
+    overhead = (1.0 - arms["unique_on"]["tokens_per_s"]
+                / arms["unique_off"]["tokens_per_s"]) * 100
+    emit({"phase": "prefix_cache", "requests": PC_REQUESTS,
+          "system_prompt": PC_SYS, "tails": [PC_TAIL // 2, PC_TAIL - 1],
+          "new_tokens": PC_NEW, "capacity": PC_CAP, "arms": arms,
+          "speedup_shared": arms["shared_on"]["tokens_per_s"]
+          / arms["shared_off"]["tokens_per_s"],
+          "unique_overhead_pct": overhead, "margin": MARGIN,
+          "seconds": time.perf_counter() - t_phase})
+    for name, arm in arms.items():
+        cache_on = name.endswith(("_on", "_legacy", "_int8"))
+        require(arm["pool_invariants"], f"prefix {name}: pool audit")
+        require(arm["against_cache_off"]["faults"] == 0,
+                f"prefix {name}: a stream leaves its cache-off reference "
+                f"where the margin exceeds {MARGIN}: "
+                f"{arm['against_cache_off']['divergences']}")
+        if name.startswith("shared") and cache_on:
+            require(arm["hit_rate"] > 0, f"prefix {name}: no hit")
+        else:
+            require(arm["hit_rate"] == 0.0, f"prefix {name}: hit rate "
+                    f"{arm['hit_rate']} where nothing is shared or cached")
+    total = collections.Counter()
+    for arm in arms.values():
+        total.update(arm["launches"])
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -2652,6 +3089,10 @@ def main():
     torch.cuda.empty_cache()
     quant_launches = run_quant_serving(model, dev)
     torch.cuda.empty_cache()
+    gen_launches = run_generate(model, dev)
+    torch.cuda.empty_cache()
+    prefix_launches = run_prefix_cache(model, dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -2667,7 +3108,8 @@ def main():
     del model
     torch.cuda.empty_cache()
     model = build_model(dev, intermediate_size=WO_FF)
-    int4_launches = run_weight_only_serving(model, dev)
+    int4_launches, int4_margin = run_weight_only_serving(model, dev)
+    gen_int4_launches = run_generate_int4(model, dev, int4_margin)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2700,19 +3142,22 @@ def main():
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_REPLACES,
-         "launches": flash_launches + train_launches["flash_attention_fwd"],
+         "launches": flash_launches + train_launches["flash_attention_fwd"]
+         + gen_launches["b1"] + gen_int4_launches["b1"],
          "max_abs_err": flash_err, "ms": ft["ms"], "plain_ms": ft["plain_ms"],
          "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
          "library_ms": ft["library_ms"]},
         {"name": "paged_attention_decode", "route": "cuda",
          "source": PAGED_SRC, "replaces": PAGED_REPLACES,
-         "launches": paged_launches + fused_decode_launches,
+         "launches": paged_launches + fused_decode_launches
+         + gen_launches["b2"] + prefix_launches.get("b2_decode", 0),
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
         {"name": "paged_attention_append", "route": "cuda",
          "source": APPEND_SRC, "replaces": APPEND_REPLACES,
-         "launches": append_launches, "max_abs_err": append_err,
+         "launches": append_launches + prefix_launches.get("b3_append", 0),
+         "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
          "library_ms": at["library_ms"]},
@@ -2749,14 +3194,16 @@ def main():
                  qt[q][1], quant_launches[q][1])):
             kernels.append(
                 {"name": f"paged_attention_{form}_{q}", "route": "cuda",
-                 "source": src, "replaces": replaces, "launches": n,
+                 "source": src, "replaces": replaces,
+                 "launches": n + prefix_launches.get(f"b4_{form}_{q}", 0),
                  "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})
     lt = i4t["layer"]
     kernels.append(
         {"name": "int4_matmul", "route": "cuda", "source": INT4_SRC,
-         "replaces": INT4_REPLACES, "launches": int4_launches,
+         "replaces": INT4_REPLACES,
+         "launches": int4_launches + gen_int4_launches["b8"],
          "max_abs_err": int4_err, "ms": lt["ms"], "plain_ms": lt["plain_ms"],
          "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
          "library_ms": lt["library_ms"]})

@@ -55,15 +55,26 @@ reference's serving surface: ``reset`` (crash recovery), ``cancel``,
 ``emit_backdate_s`` and the pool-capacity accounting (``kv_pool_nbytes``,
 ``kv_bytes_per_block``, ``kv_pool_effective_blocks``).
 
+``enable_prefix_cache=True`` makes the allocator a ref-counted,
+content-addressed store (reference ``llm_engine.py:2119-2356``): every
+full block is keyed by a blake2b hash chained over the whole prefix,
+blocks freed at refcount 0 park in an LRU of cached content instead of
+the free heap, and admission attaches the longest cached prefix by table
+writes and refcount bumps (legacy: whole chunks; fused: whole blocks plus
+a copy-on-write tail, a private clone of a cached block whose leading
+tokens continue the prompt). Shared blocks are never written. Allocation
+evicts the oldest LRU block before any slot is preempted.
+
 Not in this port yet (each raises ``NotImplementedError``): the dense
 cache, speculation, multi-step readout, LoRA adapters, the host KV tier,
-meshes, embedding requests, KV export and the prefix cache; sampling with
-``temperature > 0`` waits for the threefry port (ROADMAP A7).
+meshes, embedding requests and KV export; sampling with ``temperature >
+0`` waits for the threefry port (ROADMAP A7).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import heapq
 import os
 import time
@@ -87,9 +98,16 @@ def default_engine_stats():
     engine's paths touch (the server reads them by name)."""
     return {"steps": 0, "prefill_chunks": 0, "tokens_generated": 0,
             "preemptions": 0, "prefill_tokens": 0, "fused_steps": 0,
+            "prefix_hit_tokens": 0, "prefix_cow_blocks": 0,
+            "prefix_evicted_blocks": 0,
             "decode_time_s": 0.0, "admit_time_s": 0.0,
             "dispatch_time_s": 0.0, "host_sync_time_s": 0.0,
             "emit_time_s": 0.0}
+
+
+#: chain-hash seed of block 0 of every sequence (reference
+#: ``llm_engine.py:99``): equal first blocks collide, across packages too
+_ROOT_HASH = b"paddle-tpu-prefix-root"
 
 
 class PoolCapacityError(RuntimeError):
@@ -116,12 +134,18 @@ class RequestOutput:
 
 
 class _Slot:
-    __slots__ = ("req", "generated", "prompt_len", "prefill_pos", "inflight")
+    __slots__ = ("req", "generated", "prompt_len", "prefill_pos", "inflight",
+                 "chain", "reg_blocks")
 
     def __init__(self, req, prompt_len, prefill_pos=None):
         self.req = req
         self.generated = []
         self.prompt_len = prompt_len
+        #: prefix cache: the chain hash of each registered full block of
+        #: the slot's committed stream, and how many are registered
+        #: (admission seeds both from the probe's hit)
+        self.chain = []
+        self.reg_blocks = 0
         #: prompt tokens whose prefill has been DISPATCHED (== prompt_len
         #: once ramp-in completes; legacy admission prefills everything up
         #: front). The fused scheduler advances it one chunk grant at a time
@@ -189,6 +213,10 @@ class LLMEngine:
                  adapter_cache_slots=4, kv_cache_dtype=None,
                  kv_host_swap=False, kv_host_spill_bytes=0,
                  sampling_seed=None, device=None):
+        if enable_prefix_cache and cache_impl != "paged":
+            raise ValueError("enable_prefix_cache needs cache_impl='paged' "
+                             "(content-hashed block reuse lives in the "
+                             "paged pool's table indirection)")
         if kv_cache_dtype is not None:
             if kv_cache_dtype not in ("int8", "int4"):
                 raise ValueError(
@@ -215,8 +243,6 @@ class LLMEngine:
             _unported("the host KV tier", "A8(g)")
         if mesh is not None:
             _unported("mesh (multi-process / tensor-parallel serving)", "A14")
-        if enable_prefix_cache:
-            _unported("enable_prefix_cache", "A8(c)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
@@ -224,6 +250,7 @@ class LLMEngine:
         self.model = model
         self.scheduler = scheduler
         self.cache_impl = cache_impl
+        self.prefix_cache = bool(enable_prefix_cache)
         #: KV-pool quantization mode (None = bf16 pools)
         self.kv_quant = kv_cache_dtype
         c = model.config
@@ -316,6 +343,17 @@ class LLMEngine:
         #: still write it; a block freed while fenced waits in quarantine
         self._write_fence = {}
         self._quarantine = set()
+        # the content-addressed store (enable_prefix_cache): chain hash ->
+        # phys for every registered full block, and per block its hash,
+        # parent hash and token bytes; parent hash -> registered children
+        self._store = {}
+        self._block_hash = {}
+        self._block_parent = {}
+        self._block_tokens = {}
+        self._children = {}
+        #: refcount-0 registered blocks, oldest freed first: allocation
+        #: evicts from here before any slot is preempted
+        self._lru = collections.OrderedDict()
         self._logits = torch.zeros((self.B, self.model.config.vocab_size),
                                    dtype=torch.float32, device=dev)
         self._lens = torch.zeros((self.B,), dtype=torch.int32, device=dev)
@@ -325,8 +363,8 @@ class LLMEngine:
         server's crash-recovery hook. Every slot, waiting request, finished
         output and preemption stitch drops, and the pools (scale arrays
         included), carried logits, lens and allocator are rebuilt from
-        zeros. The request-id counter and the cumulative ``stats``
-        survive."""
+        zeros, and the prefix store empties. The request-id counter and the
+        cumulative ``stats`` survive."""
         self.slots = [None] * self.B
         self.waiting.clear()
         self.finished_outputs.clear()
@@ -457,17 +495,29 @@ class LLMEngine:
     # paged-pool allocator (host side; tables upload with every dispatch)
     # ------------------------------------------------------------------
     def _n_allocatable(self):
-        """Blocks a new allocation may claim: the free ones (the reference
-        adds its prefix cache's evictable blocks; there is none here)."""
-        return len(self._free_blocks)
+        """Blocks a new allocation may claim: the free ones plus the LRU
+        of cached content, which is evicted before any slot is
+        preempted."""
+        return len(self._free_blocks) + len(self._lru)
+
+    def _pop_block(self):
+        """One writable block: the smallest free index, else the oldest
+        LRU block, whose content identity is unregistered."""
+        if self._free_blocks:
+            return heapq.heappop(self._free_blocks)
+        phys, _ = self._lru.popitem(last=False)
+        self._unregister(phys)
+        self.stats["prefix_evicted_blocks"] += 1
+        return phys
 
     def _alloc_blocks(self, slot_idx, n):
-        """Grow slot ``slot_idx`` by ``n`` blocks. False = pool dry."""
-        if len(self._free_blocks) < n:
+        """Grow slot ``slot_idx`` by ``n`` private blocks (refcount 1,
+        unregistered). False = pool dry."""
+        if self._n_allocatable() < n:
             return False
         blocks = self._slot_blocks[slot_idx]
         for _ in range(n):
-            phys = heapq.heappop(self._free_blocks)
+            phys = self._pop_block()
             self._block_ref[phys] = 1
             self._tables[slot_idx, len(blocks)] = phys
             blocks.append(phys)
@@ -477,12 +527,23 @@ class LLMEngine:
     def _release_block(self, phys):
         """Drop one reference. At refcount 0 the FENCE is authoritative: a
         block an in-flight dispatch may still write parks in quarantine
-        (never in the free heap) until that dispatch lands."""
+        (never in a pool allocation hands out from) until that dispatch
+        lands. Registered blocks can be fenced: a mixed step's prefill
+        grant registers the blocks it fills at dispatch."""
         self._block_ref[phys] -= 1
         if self._block_ref[phys] > 0:
             return
         if self._write_fence.get(phys):
             self._quarantine.add(phys)
+        else:
+            self._park_free_block(phys)
+
+    def _park_free_block(self, phys):
+        """Where an unfenced refcount-0 block goes, for release and the
+        quarantine drain alike: the LRU if its content is registered (it
+        stays probe-able), the free heap otherwise."""
+        if phys in self._block_hash:
+            self._lru[phys] = None
         else:
             heapq.heappush(self._free_blocks, phys)
 
@@ -501,8 +562,8 @@ class LLMEngine:
 
     def _unfence(self, fenced):
         """Drop one fence per listed block (its dispatch's device work has
-        landed). A quarantined block whose last fence drops returns to the
-        free heap."""
+        landed). A quarantined block whose last fence drops is parked by
+        :meth:`_park_free_block`."""
         for phys in fenced:
             n = self._write_fence.get(phys, 0) - 1
             if n > 0:
@@ -511,36 +572,43 @@ class LLMEngine:
                 self._write_fence.pop(phys, None)
                 if phys in self._quarantine:
                     self._quarantine.discard(phys)
-                    heapq.heappush(self._free_blocks, phys)
+                    self._park_free_block(phys)
         if fenced:
             self._check_pool_invariants()
 
     def _check_pool_invariants(self):
         """Allocator audit (``PADDLE_TPU_POOL_CHECKS=1``): every block sits
-        in exactly one of {free heap, live-referenced, quarantined}; a
-        quarantined block is fenced and a free one is not; refcounts equal
-        table references; table rows mirror ``_slot_blocks`` with a -1
-        tail; the scratch block never circulates."""
+        in exactly one of {free heap, LRU cached, live-referenced,
+        quarantined}; a quarantined block is fenced and a free or cached
+        one is not; a cached block is registered; refcounts equal table
+        references; table rows mirror ``_slot_blocks`` with a -1 tail; the
+        scratch block never circulates."""
         if not self._debug_pool:
             return
         free = set(self._free_blocks)
+        cached = set(self._lru)
         quarantined = set(self._quarantine)
         live = [p for blocks in self._slot_blocks for p in blocks]
         live_set = set(live)
         assert len(free) == len(self._free_blocks), "free heap duplicates"
-        pools = (free, live_set, quarantined)
+        pools = (free, cached, live_set, quarantined)
         for i, a in enumerate(pools):
             for bset in pools[i + 1:]:
                 assert not (a & bset), "block in two pools"
-        assert free | live_set | quarantined == set(range(self.n_blocks)), (
-            f"pool leak: free({len(free)}) + live({len(live_set)}) + "
-            f"quarantined({len(quarantined)}) != n_blocks({self.n_blocks})")
+        assert free | cached | live_set | quarantined == \
+            set(range(self.n_blocks)), (
+                f"pool leak: free({len(free)}) + cached({len(cached)}) + "
+                f"live({len(live_set)}) + quarantined({len(quarantined)}) "
+                f"!= n_blocks({self.n_blocks})")
         for phys in quarantined:
             assert self._write_fence.get(phys), \
                 f"unfenced block {phys} stuck in quarantine"
-        for phys in free:
+        for phys in free | cached:
             assert not self._write_fence.get(phys), \
-                f"fenced block {phys} in the free heap"
+                f"fenced block {phys} in an allocatable pool"
+        for phys in cached:
+            assert phys in self._block_hash, \
+                f"unregistered block {phys} in the cached LRU"
         refs = collections.Counter(live)
         for phys in range(self.n_blocks):
             assert self._block_ref[phys] == refs.get(phys, 0), (
@@ -552,6 +620,197 @@ class LLMEngine:
             assert list(row[:len(blocks)]) == blocks, f"table row {b} drift"
             assert all(x == -1 for x in row[len(blocks):]), \
                 f"table row {b} stale tail"
+
+    # ------------------------------------------------------------------
+    # the content-addressed store (enable_prefix_cache)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _tenant_root(adapter_id=0):
+        """The hash chain's root for a tenant: adapter id 0 (the base
+        model) keeps ``_ROOT_HASH``; adapters are not ported."""
+        if adapter_id:
+            _unported("adapter tenants in the prefix cache", "A10")
+        return _ROOT_HASH
+
+    @staticmethod
+    def _chain_hash(parent, tokens):
+        """Rolling prefix hash of one full block: blake2b over the parent
+        hash and the block's int32 token bytes, 16-byte digest (reference
+        ``:2120-2127``, the same bytes)."""
+        return hashlib.blake2b(
+            parent + np.asarray(tokens, np.int32).tobytes(),
+            digest_size=16).digest()
+
+    def _register_block(self, phys, chain_hash, parent, tokens):
+        """Publish a full private block's content identity. The first
+        writer wins: a hash already in the store leaves ``phys``
+        unregistered, to free normally."""
+        if chain_hash in self._store or phys in self._block_hash:
+            return
+        self._store[chain_hash] = phys
+        self._block_hash[phys] = chain_hash
+        self._block_parent[phys] = parent
+        self._block_tokens[phys] = np.asarray(tokens, np.int32).tobytes()
+        self._children.setdefault(parent, []).append(phys)
+
+    def _unregister(self, phys):
+        h = self._block_hash.pop(phys, None)
+        if h is None:
+            return
+        self._store.pop(h, None)
+        parent = self._block_parent.pop(phys)
+        kids = self._children.get(parent)
+        if kids is not None:
+            kids.remove(phys)
+            if not kids:
+                del self._children[parent]
+        self._block_tokens.pop(phys, None)
+
+    @staticmethod
+    def _slot_token_range(slot, lo, hi):
+        """Token ids at positions [lo, hi) of ``slot``'s committed stream
+        (prompt, then generated)."""
+        P = slot.prompt_len
+        if hi <= P:
+            return slot.req.prompt_ids[lo:hi]
+        gen = np.asarray(slot.generated, np.int32)
+        if lo >= P:
+            return gen[lo - P:hi - P]
+        return np.concatenate([slot.req.prompt_ids[lo:], gen[:hi - P]])
+
+    def _register_upto(self, slot_idx, slot, upto_pos):
+        """Register every newly full block of ``slot``'s committed stream
+        [0, upto_pos), extending its chain. Hit blocks were registered by
+        their first writer and are skipped through ``reg_blocks``."""
+        if not self.prefix_cache:
+            return
+        bs = self.block_size
+        blocks = self._slot_blocks[slot_idx]
+        n_full = min(upto_pos // bs, len(blocks))
+        while slot.reg_blocks < n_full:
+            i = slot.reg_blocks
+            toks = self._slot_token_range(slot, i * bs, (i + 1) * bs)
+            parent = slot.chain[i - 1] if i else self._tenant_root()
+            h = self._chain_hash(parent, toks)
+            slot.chain.append(h)
+            self._register_block(blocks[i], h, parent, toks)
+            slot.reg_blocks += 1
+
+    def _probe_prefix(self, slot_idx, token_ids, chunk_granular=False):
+        """Attach the longest cached prefix of ``token_ids`` to slot
+        ``slot_idx`` by table writes and refcount bumps; the hit is capped
+        at P - 1 tokens, so the last prompt position is always computed
+        and admission has its logits. ``chunk_granular`` (legacy): the
+        hit rounds down to whole chunks, since legacy windows scatter
+        whole chunk spans and must never write a shared block. Otherwise
+        a copy-on-write tail extends it to token granularity. Returns
+        ``(hit tokens, chain hashes of the full-block hits)``."""
+        P = len(token_ids)
+        bs = self.block_size
+        max_full = (P - 1) // bs
+        if chunk_granular:
+            max_full = ((P - 1) // self.chunk) * (self.chunk // bs)
+        found, parent = [], self._tenant_root()
+        for k in range(min(max_full, self._max_blocks)):
+            h = self._chain_hash(parent, token_ids[k * bs:(k + 1) * bs])
+            phys = self._store.get(h)
+            if phys is None:
+                break
+            # claim it now. A registered block may sit in quarantine
+            # (released while its writer's dispatch was in flight):
+            # attaching it is safe, the write precedes any reader on the
+            # stream, but it must leave quarantine or its unfence would
+            # free a live block
+            if self._block_ref[phys] == 0:
+                self._lru.pop(phys, None)
+                self._quarantine.discard(phys)
+            self._block_ref[phys] += 1
+            found.append((h, phys))
+            parent = h
+        if chunk_granular:
+            per = self.chunk // bs
+            keep = (len(found) // per) * per
+            for _, phys in found[keep:]:
+                self._release_block(phys)
+            found = found[:keep]
+        blocks = self._slot_blocks[slot_idx]
+        chain = []
+        for k, (h, phys) in enumerate(found):
+            self._tables[slot_idx, k] = phys
+            blocks.append(phys)
+            chain.append(h)
+        hit = len(found) * bs
+        if not chunk_granular:
+            hit += self._cow_tail(slot_idx, token_ids, hit, chain)
+        self._check_pool_invariants()
+        return hit, chain
+
+    def prefix_chain_hashes(self, token_ids, adapter_id=0):
+        """Chain hashes of the full blocks of ``token_ids`` (at most
+        ``max_blocks``; the last token never counts): the router's
+        affinity key, equal to the reference's bytes. Empty when the
+        prefix cache is off."""
+        if not self.prefix_cache:
+            return []
+        ids = np.asarray(token_ids, np.int32).reshape(-1)
+        bs = self.block_size
+        parent, out = self._tenant_root(adapter_id), []
+        for k in range(min((len(ids) - 1) // bs, self._max_blocks)):
+            parent = self._chain_hash(parent, ids[k * bs:(k + 1) * bs])
+            out.append(parent)
+        return out
+
+    def probe_prefix_len(self, token_ids, chain_hashes=None, adapter_id=0):
+        """Read-only probe: how many leading tokens of ``token_ids`` the
+        store could serve now, in full blocks (no COW, no refcounts, no
+        table writes). 0 when the prefix cache is off."""
+        if not self.prefix_cache:
+            return 0
+        if chain_hashes is None:
+            chain_hashes = self.prefix_chain_hashes(token_ids, adapter_id)
+        hit = 0
+        for h in chain_hashes[:self._max_blocks]:
+            if h not in self._store:
+                break
+            hit += self.block_size
+        return hit
+
+    def _cow_tail(self, slot_idx, token_ids, hit, chain):
+        """Copy-on-write tail: if a cached full block continues the hit's
+        chain and its leading tokens match the rest of the prompt, clone
+        it into a fresh private block (the slot will append into it) and
+        count the matched tokens as hit. Returns them (0: no match or the
+        pool is dry)."""
+        P = len(token_ids)
+        bs = self.block_size
+        cap = min(bs - 1, P - 1 - hit)
+        if cap <= 0:
+            return 0
+        parent = chain[-1] if chain else self._tenant_root()
+        rem = np.asarray(token_ids[hit:hit + cap], np.int32)
+        best, best_t = None, 0
+        for phys in self._children.get(parent, ()):
+            cand = np.frombuffer(self._block_tokens[phys],
+                                 np.int32)[:len(rem)]
+            t = int(np.cumprod(cand == rem).sum())
+            if t > best_t:
+                best, best_t = phys, t
+        if best is None or not self._alloc_blocks(slot_idx, 1):
+            return 0
+        self._cow_copy(best, self._slot_blocks[slot_idx][-1])
+        self.stats["prefix_cow_blocks"] += 1
+        return best_t
+
+    def _cow_copy(self, src, dst):
+        """Clone block ``src`` into ``dst`` in every layer's K and V pool,
+        with a quantized pool's scale rows, bit for bit (COW never
+        re-rounds). The copies go on the engine's stream now, so they read
+        ``src`` before any later dispatch can overwrite it, even when
+        allocating ``dst`` just evicted ``src``; nothing waits."""
+        for pools in (self._k, self._v, self._k_scale, self._v_scale):
+            for t in pools:
+                if t is not None:
+                    t[dst].copy_(t[src])
 
     def _ensure_blocks(self, slot_idx, upto_pos):
         """Blocks covering positions [0, upto_pos]. False = pool dry."""
@@ -727,21 +986,27 @@ class LLMEngine:
 
     def _admit(self, slot_idx, req):
         """Legacy admission: chunked prefill of ``req`` into slot
-        ``slot_idx``. Returns False when the pool cannot cover the prompt's
-        chunk windows."""
+        ``slot_idx``, from the prefix cache's chunk-granular hit on.
+        Returns False when the pool cannot cover the prompt's chunk
+        windows (the hit is rolled back)."""
         t0 = time.perf_counter()
         P = len(req.prompt_ids)
+        hit, chain = 0, []
+        if self.prefix_cache:
+            hit, chain = self._probe_prefix(slot_idx, req.prompt_ids,
+                                            chunk_granular=True)
         # prefill writes whole chunks: cover round_up(P, chunk), then
         # release the over-allocation down to the prompt's own blocks
         pad_end = self.prefill_blocks_needed(P) * self.block_size
         if not self._ensure_blocks(slot_idx, pad_end - 1):
             self._release_slot_blocks(slot_idx)
             return False
+        self.stats["prefix_hit_tokens"] += hit
         padded = np.zeros((max(-(-P // self.chunk) * self.chunk,
                                self.chunk),), np.int32)
         padded[:P] = req.prompt_ids
         table_row = self._tables[slot_idx].copy()
-        off = 0
+        off = hit
         logits_row = None
         while off < P:
             take = min(self.chunk, P - off)
@@ -765,19 +1030,30 @@ class LLMEngine:
         # fill_, not item assignment: assigning a Python number copies it
         # from pageable host memory, a blocking copy
         self._lens[slot_idx].fill_(P)
-        self.slots[slot_idx] = _Slot(req, P)
+        slot = self.slots[slot_idx] = _Slot(req, P)
+        slot.chain, slot.reg_blocks = chain, len(chain)
+        # the whole prompt is prefilled: publish its full blocks
+        self._register_upto(slot_idx, slot, P)
         self._check_pool_invariants()
         self.stats["admit_time_s"] += time.perf_counter() - t0
         return True
 
     def _admit_fused(self, slot_idx, req):
-        """Fused admission: slot ASSIGNMENT only (device lens set to 0). No
-        prefill dispatch and no block allocation: both happen chunk by
-        chunk inside the step scheduler, so admission never stalls the
+        """Fused admission: slot ASSIGNMENT, plus the prefix cache's probe
+        (hit blocks attach by table writes, a COW tail costs one block's
+        clone); the device lens and ``prefill_pos`` start at the hit. No
+        prefill dispatch and no other block allocation: both happen chunk
+        by chunk inside the step scheduler, so admission never stalls the
         running decodes."""
         t0 = time.perf_counter()
-        self._lens[slot_idx].fill_(0)
-        self.slots[slot_idx] = _Slot(req, len(req.prompt_ids), prefill_pos=0)
+        hit, chain = 0, []
+        if self.prefix_cache:
+            hit, chain = self._probe_prefix(slot_idx, req.prompt_ids)
+        self._lens[slot_idx].fill_(hit)
+        slot = self.slots[slot_idx] = _Slot(req, len(req.prompt_ids),
+                                            prefill_pos=hit)
+        slot.chain, slot.reg_blocks = chain, len(chain)
+        self.stats["prefix_hit_tokens"] += hit
         self._admit_order[slot_idx] = self._admit_seq
         self._admit_seq += 1
         self.stats["admit_time_s"] += time.perf_counter() - t0
@@ -816,7 +1092,7 @@ class LLMEngine:
                         for i, s in enumerate(self.slots)
                         if s is not None and s.ramping)
                     if ramp_deficit and \
-                            need + ramp_deficit > len(self._free_blocks):
+                            need + ramp_deficit > self._n_allocatable():
                         break
                 self.waiting.popleft()
                 if fused:
@@ -978,7 +1254,7 @@ class LLMEngine:
             cur = slot.sched_len()
             last_pos = min(cur + stride - 1, self.capacity - 1)
             while not self._ensure_blocks(b, last_pos):
-                avail = len(self._free_blocks)
+                avail = self._n_allocatable()
                 if avail:
                     self._alloc_blocks(b, avail)
                 covered = len(self._slot_blocks[b]) * self.block_size
@@ -1104,7 +1380,7 @@ class LLMEngine:
             pos = slot.prefill_pos
             take = min(S, slot.prompt_len - pos, grant_cap)
             if take > 0 and not self._ensure_blocks(b, pos + take - 1):
-                avail = len(self._free_blocks)
+                avail = self._n_allocatable()
                 if avail:
                     self._alloc_blocks(b, avail)
                 covered = len(self._slot_blocks[b]) * self.block_size
@@ -1159,6 +1435,10 @@ class LLMEngine:
                 slot.prefill_pos += int(q_lens[b])
                 self.stats["prefill_chunks"] += 1
                 self.stats["prefill_tokens"] += int(q_lens[b])
+                # the blocks this grant fills are prompt content: publish
+                # them now, so a request admitted next step hits them (its
+                # reads are dispatched after this grant's writes)
+                self._register_upto(int(b), slot, slot.prefill_pos)
         pending = self._dispatched(toks, was_active, pool_done, sched,
                                    fenced)
         dt = time.perf_counter() - t0
@@ -1203,14 +1483,20 @@ class LLMEngine:
             if slot is None or self.slots[b] is not slot:
                 continue
             finish_reason = None
+            n_read = 0
             for k in range(toks_np.shape[0]):
                 if not act_np[k, b]:
                     break  # deactivated on the device at an earlier row
                 tok = int(toks_np[k, b])
                 slot.generated.append(tok)
+                n_read += 1
                 self.stats["tokens_generated"] += 1
                 if self.stream_callback is not None:
                     self.stream_callback(slot.req.request_id, tok)
+                    if self.slots[b] is not slot:
+                        # the callback cancelled the request: keep the
+                        # 'cancelled' output it recorded
+                        break
                 if slot.req.eos_token_id is not None and \
                         tok == slot.req.eos_token_id:
                     finish_reason = "eos"
@@ -1221,6 +1507,13 @@ class LLMEngine:
                     finish_reason = "capacity"
                 if finish_reason:
                     break
+            if self.slots[b] is not slot:
+                continue
+            if n_read:
+                # decode-filled blocks register too: a follow-up prompt
+                # carrying this stream hits them
+                self._register_upto(b, slot,
+                                    slot.prefill_pos + len(slot.generated))
             if finish_reason:
                 out = RequestOutput(
                     slot.req.request_id,

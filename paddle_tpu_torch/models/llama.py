@@ -23,13 +23,19 @@ A :class:`PagedKVCache` may carry int8/int4 quantized pools with their
 scale arrays (the engine's ``kv_cache_dtype``); attention routes them to
 the quantized paged kernels.
 
+``LlamaForCausalLM.generate`` is the reference's greedy decode over the
+static or the paged cache, run eagerly in windows of ``GEN_WINDOW`` steps.
+
 Not in this port yet, each raising where reached: LoRA scopes, the slot
-and chunk caches of the dense engine and ``LlamaForCausalLM.generate``.
+and chunk caches of the dense engine, and sampling in ``generate``
+(``temperature > 0``).
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -109,6 +115,11 @@ def apply_rope(q, k, cos, sin, position_offset=0):
         rotated = torch.cat([-x2, x1], dim=-1)
         return (x32 * cos_t + rotated * sin_t).to(x.dtype)
     return rot(q), rot(k)
+
+
+#: greedy decode steps between two reads of the finished flags (with an
+#: eos id): the host waits on the device once a window, not once a token
+GEN_WINDOW = 16
 
 
 class StaticKVCache:
@@ -402,7 +413,180 @@ class LlamaForCausalLM(nn.Module):
         embed = 2 * d * c.vocab_size
         return 3 * (L * per_layer + embed)
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LlamaForCausalLM.generate is not ported yet; serve through "
-            "paddle_tpu_torch.inference.LLMEngine(cache_impl='paged')")
+    def _gen_programs(self, B, prompt_len, limit, total, temperature, top_k,
+                      top_p, eos_token_id, cache_impl, block_size):
+        """The two generation programs (reference ``llama.py:649-776``),
+        built once per key and cached on the model:
+
+        - ``prefill(ids [B, prompt_len])`` -> ``(logits [B, V], k_bufs,
+          v_bufs)``: embed, every layer with empty tuple caches (the
+          causal forward, so the flash kernel at bf16 D 64/128), the
+          last position's logits, and each layer's K/V laid out as the
+          decode's caches: ``StaticKVCache`` buffers ``[B, total, Hkv,
+          D]``, or paged pools ``[B * mb + 1, Hkv, block_size, D]`` in
+          which logical block ``i`` of sequence ``b`` is physical block
+          ``b * mb + i`` (``mb = ceil(total / block_size)``; the trailing
+          block is the paged kernels' scratch target, which no table
+          entry names);
+        - ``decode(k_bufs, v_bufs, logits)`` -> ``(buf [B, limit] int64,
+          n)``: the greedy loop over the caches it is given (updated in
+          place), ``buf[:, :n]`` the tokens.
+
+        Both run eagerly on the model's device under ``no_grad``.
+        ``temperature > 0`` raises until the sampler is ported."""
+        if float(temperature) > 0.0:
+            raise NotImplementedError(
+                "generate with temperature > 0 is not ported yet: ROADMAP "
+                "A7 (sampling, the threefry fold_in keys)")
+        use_top_p = bool(top_p) and float(top_p) < 1.0
+        key = (B, prompt_len, limit, total, True, int(top_k), use_top_p,
+               eos_token_id, cache_impl, int(block_size))
+        cache = getattr(self, "_gen_cache", None)
+        if cache is None:
+            cache = self._gen_cache = {}
+        if key in cache:
+            return cache[key]
+
+        c = self.config
+        D = c.hidden_size // c.num_attention_heads
+        Hkv, L = c.num_key_value_heads, c.num_hidden_layers
+        paged = cache_impl == "paged"
+        bs = int(block_size)
+        mb = -(-total // bs)
+        dev = self.device
+        dt = self.llama.embed_tokens.weight.dtype
+        tables = torch.arange(B * mb, dtype=torch.int32,
+                              device=dev).view(B, mb) if paged else None
+
+        def lay_out(t):
+            """One layer's prompt K or V ``[B, prompt_len, Hkv, D]`` as the
+            decode's cache (reference ``:701-721``)."""
+            if not paged:
+                buf = torch.zeros((B, total, Hkv, D), dtype=t.dtype,
+                                  device=dev)
+                buf[:, :prompt_len] = t
+                return buf
+            rows = torch.zeros((B, mb * bs, Hkv, D), dtype=t.dtype,
+                               device=dev)
+            rows[:, :prompt_len] = t
+            pool = torch.zeros((B * mb + 1, Hkv, bs, D), dtype=t.dtype,
+                               device=dev)
+            pool[:B * mb] = rows.view(B, mb, bs, Hkv, D).transpose(2, 3) \
+                .reshape(B * mb, Hkv, bs, D)
+            return pool
+
+        @torch.no_grad()
+        def prefill(ids):
+            ids = ids.to(device=dev, dtype=torch.long)
+            empty = [(torch.zeros((B, 0, Hkv, D), dtype=dt, device=dev),
+                      torch.zeros((B, 0, Hkv, D), dtype=dt, device=dev))
+                     for _ in range(L)]
+            hidden, grown = self.llama(ids, kv_caches=empty,
+                                       position_offset=0)
+            logits = self._logits(hidden[:, -1:])[:, 0]
+            return (logits, [lay_out(k) for k, _ in grown],
+                    [lay_out(v) for _, v in grown])
+
+        def one_token(tok, off, k_bufs, v_bufs):
+            """One model step on ``tok [B]`` at position ``off``; the caches
+            update in place. Returns the next logits."""
+            if paged:
+                lens = torch.full((B,), off, dtype=torch.int32, device=dev)
+                caches = [PagedKVCache(k, v, tables, lens)
+                          for k, v in zip(k_bufs, v_bufs)]
+            else:
+                caches = [StaticKVCache(k, v) for k, v in zip(k_bufs, v_bufs)]
+            hidden, _ = self.llama(tok[:, None], kv_caches=caches,
+                                   position_offset=off)
+            return self._logits(hidden)[:, 0]
+
+        eos = eos_token_id
+
+        @torch.no_grad()
+        def decode(k_bufs, v_bufs, logits):
+            # The reference's while_loop runs body i (sample, latch, write
+            # buf[:, i], one step) while i < limit and, with eos, not every
+            # row has finished: it returns n = the first i + 1 after which
+            # every row had finished, else limit. Here the loop runs in
+            # windows of GEN_WINDOW steps and reads the finished flags once
+            # a window: n is the first step of the window whose flags show
+            # every row finished, plus one. Steps run past n in that window
+            # only append eos to finished rows and are cut off, so buf[:, :n]
+            # is the reference's buffer. No step after the last token runs:
+            # its logits would not be read.
+            buf = torch.zeros((B, limit), dtype=torch.int64, device=dev)
+            finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+            i = 0
+            while i < limit:
+                end = min(i + GEN_WINDOW, limit)
+                all_done = []
+                for j in range(i, end):
+                    nxt = torch.argmax(logits.float(), dim=-1)
+                    if eos is not None:
+                        nxt = nxt.masked_fill(finished, eos)
+                        finished = finished | (nxt == eos)
+                        all_done.append(finished.all())
+                    buf[:, j] = nxt
+                    if j + 1 < limit:
+                        logits = one_token(nxt, prompt_len + j, k_bufs,
+                                           v_bufs)
+                if eos is not None:
+                    # the window's one read of the device
+                    flags = torch.stack(all_done).cpu().numpy()
+                    if flags.any():
+                        return buf, i + int(np.argmax(flags)) + 1
+                i = end
+            return buf, limit
+
+        cache[key] = (prefill, decode)
+        return cache[key]
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, cache_impl="static",
+                 block_size=64):
+        """Greedy autoregressive decoding (reference ``llama.py:778-846``):
+        one prefill over the prompt, then one token a step through
+        :class:`StaticKVCache` buffers (``cache_impl="static"``: masked
+        plain attention, as the reference) or paged pools of
+        ``block_size``-token blocks (``"paged"``: the paged-decode kernel
+        through ``block_multihead_attention``). Returns an int64 tensor
+        ``[B, n]`` on the model's device: ``n`` is ``max_new_tokens``
+        capped at the rope table's end (with a ``RuntimeWarning``), or
+        fewer when every row has emitted ``eos_token_id``, after which a
+        row emits only ``eos_token_id``. The decode reads the device once
+        every ``GEN_WINDOW`` steps with ``eos_token_id``, and never
+        without it. ``temperature > 0`` (sampling) raises
+        ``NotImplementedError`` until the sampler is ported."""
+        c = self.config
+        dev = self.device
+        ids = input_ids if isinstance(input_ids, torch.Tensor) \
+            else torch.as_tensor(np.asarray(input_ids))
+        B, prompt_len = int(ids.shape[0]), int(ids.shape[1])
+        if prompt_len >= c.max_position_embeddings:
+            raise ValueError(
+                f"prompt length {prompt_len} >= max_position_embeddings "
+                f"{c.max_position_embeddings}: no positions left to decode")
+        if cache_impl not in ("static", "paged"):
+            raise ValueError(f"unknown cache_impl {cache_impl!r}")
+        limit = min(int(max_new_tokens),
+                    c.max_position_embeddings - prompt_len)
+        if limit < int(max_new_tokens):
+            warnings.warn(
+                f"generate: capping max_new_tokens {max_new_tokens} -> "
+                f"{limit} (rope table ends at position "
+                f"{c.max_position_embeddings})", RuntimeWarning,
+                stacklevel=2)
+        if limit <= 0:
+            return torch.zeros((B, 0), dtype=torch.int64, device=dev)
+        was_training = self.training
+        self.eval()
+        try:
+            prefill, decode = self._gen_programs(
+                B, prompt_len, limit, prompt_len + limit, temperature,
+                top_k, top_p, eos_token_id, cache_impl, block_size)
+            logits, k_bufs, v_bufs = prefill(ids)
+            buf, n = decode(k_bufs, v_bufs, logits)
+        finally:
+            if was_training:
+                self.train()
+        return buf[:, :n]

@@ -55,6 +55,10 @@ from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
 
 __all__ = ["AsyncLLMServer"]
 
+#: engine stats of the prefix cache, booked as telemetry counters
+_PREFIX_COUNTERS = ("prefix_hit_tokens", "prefix_cow_blocks",
+                    "prefix_evicted_blocks")
+
 
 def _a11(what):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP A11")
@@ -607,6 +611,7 @@ class AsyncLLMServer:
         s_disp = eng.stats["dispatch_time_s"]
         s_pre = eng.stats["preemptions"]
         s_ptok = eng.stats["prefill_tokens"]
+        s_pfx = {k: eng.stats.get(k, 0) for k in _PREFIX_COUNTERS}
         t0 = time.perf_counter()
         pending = eng.step_begin()
         wall = time.perf_counter() - t0
@@ -618,6 +623,11 @@ class AsyncLLMServer:
         tel.add_stage("schedule", max(wall - d_admit - d_disp, 0.0))
         if d_ptok:
             tel.inc("prefill_tokens", d_ptok)
+        for key, before in s_pfx.items():
+            # prefix-cache hits, COW clones and LRU evictions all happen
+            # inside step_begin
+            if eng.stats.get(key, 0) > before:
+                tel.inc(key, eng.stats[key] - before)
         if eng.stats["preemptions"] > s_pre:
             # pool-pressure preemptions happen inside step_begin
             tel.inc("preemptions", eng.stats["preemptions"] - s_pre)
@@ -689,6 +699,12 @@ class AsyncLLMServer:
                           1.0 - free / max(eng.n_blocks, 1))
             tel.set_gauge("kv_pool_effective_blocks",
                           eng.kv_pool_effective_blocks())
+            if getattr(eng, "prefix_cache", False):
+                tel.set_gauge("prefix_cached_blocks", len(eng._lru))
+                hit = eng.stats["prefix_hit_tokens"]
+                pre = eng.stats["prefill_tokens"]
+                tel.set_gauge("prefix_cache_hit_rate",
+                              hit / (hit + pre) if hit + pre else 0.0)
         tel.mark_gauge_sample()
 
     def dump_debug_bundle(self, path, reason="manual", detail=None):

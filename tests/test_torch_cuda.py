@@ -1115,3 +1115,126 @@ def test_attention_routing_flags_on_card(cuda):
             assert torch.equal(got, want)
     finally:
         set_flags(saved)
+
+
+@pytest.mark.parametrize("cache_impl", ["static", "paged"])
+def test_generate_float32_on_card_matches_cpu(cuda, cache_impl):
+    """A float32 D-32 model (LlamaConfig.tiny: the kernels take neither)
+    generates on the card through the plain attention math, launches no
+    kernel, and emits the CPU run's tokens on the same weights, with an
+    eos id that ends some rows early."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.tiny()
+    cpu, card = _card_and_cpu(cfg, cuda)
+    ids = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (3, 21)))
+    kw = dict(max_new_tokens=24, cache_impl=cache_impl, block_size=16)
+    want = cpu.generate(ids, **kw)
+    n0 = (_flash_launches(), _paged_launches())
+    got = card.generate(ids.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert (_flash_launches(), _paged_launches()) == n0
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert torch.equal(got.cpu(), want)
+    eos = int(want[0, 5])
+    want = cpu.generate(ids, eos_token_id=eos, **kw)
+    assert torch.equal(card.generate(ids.to(cuda), eos_token_id=eos,
+                                     **kw).cpu(), want)
+
+
+def _bf16_d128(cuda, layers=2, kvh=1):
+    """A bf16 model at head dim 128 (the kernels' shapes), seeded."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=layers, num_attention_heads=2,
+                      num_key_value_heads=kvh, max_position_embeddings=512,
+                      dtype="bfloat16")
+    return LlamaForCausalLM(cfg, device=cuda, seed=5).eval()
+
+
+def _greedy_misses(model, prompts, streams, margin=0.05):
+    """Tokens that differ from a no-cache forward's argmax over their
+    prefix where its top-1/top-2 margin exceeds ``margin``."""
+    bad = 0
+    with torch.no_grad():
+        for p, toks in zip(prompts, streams):
+            p, toks = list(p), list(toks)
+            seq = torch.tensor([p + toks[:-1]], device=model.device)
+            rows = model(seq)[0, len(p) - 1:].float()
+            top2 = torch.topk(rows, 2, dim=-1)
+            gap = (top2.values[:, 0] - top2.values[:, 1]).cpu()
+            arg = top2.indices[:, 0].cpu()
+            bad += sum(int(arg[i]) != t and float(gap[i]) > margin
+                       for i, t in enumerate(toks))
+    return bad
+
+
+def test_generate_bf16_launches_b1_and_b2(cuda):
+    """At the kernels' shapes generate's prefill launches B1 once a layer
+    and its paged decode B2 once a layer a step (no step after the last
+    token); static and paged tokens pass the margin check against a
+    no-cache forward."""
+    model = _bf16_d128(cuda)
+    L = model.config.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 512, (4, 100))).to(cuda)
+    limit = 20
+    out = {}
+    for cache_impl in ("static", "paged"):
+        f0, p0 = flash_attention_fwd.launches, paged_attention_decode.launches
+        out[cache_impl] = model.generate(ids, max_new_tokens=limit,
+                                         cache_impl=cache_impl, block_size=64)
+        torch.cuda.synchronize()
+        assert flash_attention_fwd.launches - f0 == L
+        assert paged_attention_decode.launches - p0 == \
+            (L * (limit - 1) if cache_impl == "paged" else 0)
+        assert out[cache_impl].shape == (4, limit)
+        assert _greedy_misses(model, ids.tolist(),
+                              out[cache_impl].tolist()) == 0
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_prefix_cache_cow_on_card(cuda, monkeypatch, quant):
+    """The fused engine with the prefix cache over bf16 and int8 pools at
+    the kernels' shapes: a shared prompt served twice in turn hits in
+    whole blocks and through a COW tail; every step launches the paged
+    kernels of its pool (B3/B2, or B4's append and decode), once a layer;
+    the pool audit holds after every operation; bf16 streams pass the
+    margin check against a no-cache forward."""
+    from paddle_tpu_torch.inference import LLMEngine
+    monkeypatch.setenv("PADDLE_TPU_POOL_CHECKS", "1")
+    model = _bf16_d128(cuda, kvh=2)
+    L = model.config.num_hidden_layers
+    rng = np.random.default_rng(8)
+    sys_p = rng.integers(0, 512, 40).tolist()       # 40 % 16: a COW tail
+    prompts = [sys_p + rng.integers(0, 512, n).tolist() for n in (9, 13)]
+    eng = LLMEngine(model, device=cuda, cache_impl="paged",
+                    scheduler="fused", max_batch=2, max_seq_len=128,
+                    chunk_size=32, block_size=16, enable_prefix_cache=True,
+                    kv_cache_dtype=quant)
+    assert eng._debug_pool
+    n0 = _paged_launches()
+    streams = []
+    for p in prompts:
+        rid = eng.add_request(p, max_new_tokens=10)
+        while eng.has_unfinished():
+            eng.step()
+        streams.append(list(eng.finished_outputs[rid].token_ids))
+    torch.cuda.synchronize()
+    n1 = _paged_launches()
+    mixed = eng.stats["fused_steps"]
+    decode = eng.stats["steps"] - mixed
+    if quant is None:
+        got = (n1[0] - n0[0], n1[1] - n0[1])
+        assert got == (decode * L, mixed * L)
+    else:
+        got = (n1[2][quant] - n0[2][quant], n1[3][quant] - n0[3][quant])
+        assert got == (decode * L, mixed * L)
+        assert (n1[0], n1[1]) == (n0[0], n0[1])
+    assert eng.stats["prefix_cow_blocks"] >= 1
+    assert eng.stats["prefix_hit_tokens"] >= 40
+    assert all(len(s) == 10 for s in streams)
+    eng._check_pool_invariants()
+    assert len(eng._free_blocks) + len(eng._lru) == eng.n_blocks
+    if quant is None:
+        assert _greedy_misses(model, prompts, streams) == 0

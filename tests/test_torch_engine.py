@@ -156,7 +156,9 @@ def test_unported_options_raise(gqa):
                    dict(speculative_k=2), dict(readout_stride=2),
                    dict(adapter_store=object()),
                    dict(kv_host_swap=True), dict(mesh=object()),
-                   dict(enable_prefix_cache=True)):
+                   # the prefix cache is ported; its host spill is not
+                   dict(enable_prefix_cache=True,
+                        kv_host_spill_bytes=1 << 20)):
             with pytest.raises(NotImplementedError):
                 LLMEngine(tm, device="cpu",
                           **{**_kw(scheduler=scheduler), **kw})

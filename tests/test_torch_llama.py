@@ -113,7 +113,8 @@ def test_unported_options_raise(flag):
     """The fused projections are ported: a fused model holding the
     unfused one's weights, concatenated along the output dimension
     (``[q | k | v]``, ``[gate | up]``), gives its logits (float32, atol
-    1e-5: the same products, summed in one order). ``generate`` still
+    1e-5: the same products, summed in one order), and its greedy
+    ``generate`` the same tokens. Sampling in ``generate`` still
     raises."""
     plain = LlamaForCausalLM(LlamaConfig(**GQA), device="cpu")
     fused = LlamaForCausalLM(LlamaConfig(**GQA, **{flag: True}),
@@ -132,5 +133,8 @@ def test_unported_options_raise(flag):
     with torch.no_grad():
         np.testing.assert_allclose(fused(ids).numpy(), plain(ids).numpy(),
                                    atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="LLMEngine"):
-        fused.generate(torch.zeros(1, 3, dtype=torch.long))
+        np.testing.assert_array_equal(
+            fused.generate(ids[:, :8], max_new_tokens=6).numpy(),
+            plain.generate(ids[:, :8], max_new_tokens=6).numpy())
+    with pytest.raises(NotImplementedError, match="A7"):
+        fused.generate(torch.zeros(1, 3, dtype=torch.long), temperature=0.5)

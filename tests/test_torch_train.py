@@ -295,7 +295,8 @@ def test_optimizer_state_bridge_continues_the_reference_run():
 
 def test_refusals():
     """What this port still refuses, each naming its ROADMAP item:
-    ``generate`` and sampling with ``temperature > 0`` (A7). Quantized KV
+    sampling with ``temperature > 0`` in ``generate`` and in the engine
+    (A7); greedy ``generate`` is ported and runs. Quantized KV
     pools (kernel B4), refused before slice 5, now serve: an int8 engine
     builds and a layer attends through a quantized paged cache."""
     from paddle_tpu_torch.inference import LLMEngine
@@ -321,8 +322,10 @@ def test_refusals():
     assert out.shape == (1, 1, 64) and bool(torch.isfinite(out).all())
     assert cache2.quant == "int8" and int(cache2.seq_lens[0]) == 1
     assert cache.k[0].any() and cache.k_scale[0].all()   # written in place
+    assert tm.generate(torch.from_numpy(ids), max_new_tokens=2).shape \
+        == (1, 2)
     with pytest.raises(NotImplementedError, match="generate"):
-        tm.generate(torch.from_numpy(ids))
+        tm.generate(torch.from_numpy(ids), temperature=0.7)
     eng = LLMEngine(tm, cache_impl="paged", max_seq_len=64, device="cpu")
     with pytest.raises(NotImplementedError, match="temperature"):
         eng.add_request(ids[0], max_new_tokens=4, temperature=0.7)
