@@ -1285,7 +1285,7 @@ def run_fused_serving(model, dev, legacy_tokens):
     require(mismatched == 0, f"fused: {mismatched} greedy tokens disagree "
             f"with the no-cache forward beyond the {MARGIN} margin")
     require(all_free, "fused: blocks still allocated after the drain")
-    return append_launches, decode_launches
+    return append_launches, decode_launches, [list(o.token_ids) for o in outs]
 
 
 BEGIN_SPAN = "chip_smoke::step_begin"
@@ -1828,16 +1828,13 @@ def drift(ref_toks, arm_toks):
             "token_parity": first_div is None}
 
 
-def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
-              **engine_kw):
-    """One arm: the fused engine (or another, by ``engine_kw``) over
-    ``n_blocks`` pool blocks of dtype ``quant``, the requests through
-    AsyncLLMServer (default depth) with ``n_new`` new tokens each, every
-    step_begin under the sync watch on the engine thread; B8's launches
-    are counted per step by kind."""
-    name = name or quant or "bf16"
-    eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
-                            kv_cache_dtype=quant, **engine_kw)
+def serve_engine(eng, prompts, name, n_new=64):
+    """The requests through AsyncLLMServer (default depth) over ``eng``
+    with ``n_new`` new tokens each, every step_begin under the sync watch
+    on the engine thread; B8's launches are counted per step by kind.
+    Gates: every request finishes with its tokens, no synchronizing call,
+    no plain version, the server healthy at the end. Returns the arm's
+    line (without the pool's fields) and its outputs."""
     syncs, kinds, step_ms = [], {}, {"mixed": [], "decode": []}
     b8_steps = {"mixed": collections.Counter(),
                 "decode": collections.Counter()}
@@ -1866,6 +1863,7 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
     eng.step_begin, eng.step_finish = watched_begin, timed_finish
     server = AsyncLLMServer(eng, max_queue_size=len(prompts) + 1)
     reset_kernel_counts()
+    b1 = flash_attention_fwd.launches
     with counting_plain() as plain_calls:
         server.start()
         t0 = clock["prev"] = time.perf_counter()
@@ -1886,23 +1884,12 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
         server.stop()
     launches = kernel_counts()
     b8 = int4_matmul.launches
+    b1 = flash_attention_fwd.launches - b1
     snap = server.telemetry.snapshot(wall_s=wall)
-    L = model.config.num_hidden_layers
     n_mixed = eng.stats["fused_steps"]
     n_decode = eng.stats["steps"] - n_mixed
-    saved_debug = eng._debug_pool
-    eng._debug_pool = True
-    try:
-        eng._check_pool_invariants()
-        invariants = True
-    finally:
-        eng._debug_pool = saved_debug
     n_tok = sum(len(o.token_ids) for o in outs)
-    arm = {"arm": name, "kv_cache_dtype": quant or "bf16",
-           "pool_blocks": n_blocks,
-           "pool_bytes": eng.kv_pool_nbytes(),
-           "bytes_per_block": eng.kv_bytes_per_block(),
-           "effective_blocks": eng.kv_pool_effective_blocks(),
+    arm = {"arm": name, "cache_impl": eng.cache_impl,
            "pipeline_depth": server.pipeline_depth,
            "requests": len(outs), "tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall,
@@ -1916,18 +1903,17 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
            if step_ms["decode"] else None,
            "ttft_p50_s": snap["latency"]["ttft"]["p50_s"],
            "ttft_p90_s": snap["latency"]["ttft"]["p90_s"],
+           "admission_stall_p50_s":
+               snap["latency"]["admission_stall"]["p50_s"],
            "stage_shares": snap["attribution"],
-           "launches": launches, "b8_launches": b8,
+           "launches": launches, "b8_launches": b8, "b1_launches": b1,
            "b8_launches_per_step": {k: dict(c) for k, c in b8_steps.items()},
            "plain_calls": dict(plain_calls),
            "finish_reasons": sorted({o.finish_reason for o in outs}),
            "step_begin_syncs": len(syncs),
            "step_begin_sync_messages": sorted(set(syncs))[:5],
-           "pool_invariants": invariants, "healthy_at_end": health["healthy"],
-           "scheduler": eng.scheduler,
-           "prefix": {k: eng.stats[k] for k in (
-               "prefix_hit_tokens", "prefix_cow_blocks",
-               "prefix_evicted_blocks", "prefill_tokens")}}
+           "healthy_at_end": health["healthy"],
+           "scheduler": eng.scheduler}
     require(all(o.finished and o.finish_reason == "length" and
                 len(o.token_ids) == n_new for o in outs) and
             len(outs) == len(prompts),
@@ -1939,6 +1925,41 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
             f"{health['state']} at the end")
     require(not plain_calls, f"{name} arm: plain versions "
             f"ran on the card: {dict(plain_calls)}")
+    # the watch wrappers close over the engine: drop them so the engine's
+    # buffers are freed with it, not at the next garbage collection
+    del eng.step_begin, eng.step_finish
+    return arm, outs
+
+
+def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
+              **engine_kw):
+    """One paged arm: the fused engine (or another, by ``engine_kw``) over
+    ``n_blocks`` pool blocks of dtype ``quant`` through
+    :func:`serve_engine`; the pool invariants hold at the end, and the arm
+    launches only its own paged kernels (one per layer per step of each
+    kind)."""
+    name = name or quant or "bf16"
+    eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
+                            kv_cache_dtype=quant, **engine_kw)
+    arm, outs = serve_engine(eng, prompts, name, n_new)
+    launches = arm["launches"]
+    L = model.config.num_hidden_layers
+    n_mixed, n_decode = arm["mixed_steps"], arm["all_decode_steps"]
+    saved_debug = eng._debug_pool
+    eng._debug_pool = True
+    try:
+        eng._check_pool_invariants()
+        invariants = True
+    finally:
+        eng._debug_pool = saved_debug
+    arm.update({"kv_cache_dtype": quant or "bf16", "pool_blocks": n_blocks,
+                "pool_bytes": eng.kv_pool_nbytes(),
+                "bytes_per_block": eng.kv_bytes_per_block(),
+                "effective_blocks": eng.kv_pool_effective_blocks(),
+                "pool_invariants": invariants,
+                "prefix": {k: eng.stats[k] for k in (
+                    "prefix_hit_tokens", "prefix_cow_blocks",
+                    "prefix_evicted_blocks", "prefill_tokens")}})
     dec = "b2_decode" if quant is None else f"b4_decode_{quant}"
     app = "b3_append" if quant is None else f"b4_append_{quant}"
     # the legacy scheduler prefills at admission through the static cache:
@@ -1951,9 +1972,6 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
     require(all(n == 0 for k, n in launches.items() if k not in (dec, app)),
             f"{name} arm: other paged kernels launched: "
             f"{launches}")
-    # the watch wrappers close over the engine: drop them so the engine's
-    # pool is freed with it, not at the next garbage collection
-    del eng.step_begin, eng.step_finish
     return arm, [list(o.token_ids) for o in outs]
 
 
@@ -2582,6 +2600,153 @@ def run_prefix_cache(model, dev):
 
 
 # ---------------------------------------------------------------------------
+# (d-vi) the dense engine: the llama_serve_fused rung's traffic
+# ---------------------------------------------------------------------------
+
+#: the rung's model and traffic (bench.py:967-1010): 7B widths with ff
+#: hidden * 11 // 4, 3 layers, MHA, bf16, seed 0; 8 slots, capacity 512 +
+#: 64, chunk 256, horizon 64; 16 requests of 256-511 tokens, 64 new each
+DENSE_LAYERS, DENSE_FF, DENSE_SLOTS = 3, 11264, 8
+DENSE_REQUESTS, DENSE_NEW, DENSE_CHUNK, DENSE_HORIZON = 16, 64, 256, 64
+DENSE_CAP = 512 + DENSE_NEW
+#: the paged comparison arm's capacity: paged KV needs a multiple of the
+#: chunk (its rope table is the model's; the prompts never reach it)
+DENSE_PAGED_CAP = 768
+
+
+def dense_prompts(vocab):
+    """The rung's prompts: 256 + U[0, 256) tokens of uniform ids."""
+    rng = np.random.default_rng(0)
+    lens = [256 + int(x) for x in rng.integers(0, 256, size=DENSE_REQUESTS)]
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+def rung_engine(model, dev, scheduler, **over):
+    """The rung's engine: ``LLMEngine(model)`` with the rung's arguments,
+    so dense unless ``over`` says otherwise."""
+    return LLMEngine(model, **{**dict(
+        max_batch=DENSE_SLOTS, max_seq_len=DENSE_CAP, chunk_size=DENSE_CHUNK,
+        horizon=DENSE_HORIZON, scheduler=scheduler, device=dev), **over})
+
+
+def dense_arm(model, dev, prompts, name, eng, warm=True):
+    """One arm of (d-vi): ``eng`` warmed as the rung warms it (one request
+    of 2 tokens, then the stats reset), the requests through
+    :func:`serve_engine`, then the greedy check against the model's
+    no-cache forward. Returns the arm's line and its tokens."""
+    if warm:
+        eng.generate([prompts[0]], max_new_tokens=2)
+        torch.cuda.synchronize()
+        eng.reset_stats()
+    arm, outs = serve_engine(eng, prompts, name, DENSE_NEW)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    checked, excused, mismatched = greedy_check(model, dev, prompts, outs)
+    arm.update(greedy_checked=checked, greedy_excused_near_ties=excused,
+               greedy_mismatched=mismatched)
+    return arm, [list(o.token_ids) for o in outs]
+
+
+def profile_dense(model, dev, prompts, n_mixed=4):
+    """Where a dense fused step's time goes: the rung's first eight
+    requests in a fresh dense fused engine, ``n_mixed`` mixed steps
+    during the ramp-in and then one all-decode step (``horizon`` tokens a
+    slot), each traced at depth 1: device busy, idle share, products and
+    the rest."""
+    eng = rung_engine(model, dev, "fused")
+    for p in prompts[:8]:
+        eng.add_request(p, max_new_tokens=DENSE_NEW)
+    run_window(eng, 2, 1)                         # warm
+    res = {}
+    for kind, n in (("mixed", n_mixed), ("decode", 1)):
+        if kind == "decode":
+            while any(s is not None and s.ramping for s in eng.slots):
+                eng.step()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, got, _ = run_window(eng, n, 1)
+            wall = time.perf_counter() - t0
+        require(got == (n if kind == "mixed" else 0),
+                f"dense profile {kind}: {got} mixed steps of {n}")
+        res[kind] = device_breakdown(prof, wall, n)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_dense_serving(model, dev, fused_tokens):
+    """(d-vi): the dense engine, the reference's default. First the
+    smoke's 32-layer model serves phase (d)'s 12 requests through a dense
+    fused engine (capacity 2,048); then the llama_serve_fused rung's model
+    serves the rung's 16 requests through AsyncLLMServer over
+    ``LLMEngine(model)`` with the fused and then the legacy scheduler, and
+    over the paged fused engine for a comparison within this run. Gates:
+    every request finishes with its 64 tokens, no flash, paged or int4
+    kernel launches and no plain version is reached in a dense arm, no
+    synchronizing call in a step_begin, the server healthy at the end, and
+    every token the no-cache argmax where the top-2 margin exceeds 0.05.
+    Returns the paged arm's kernel launches."""
+    t_phase = time.perf_counter()
+    prompts32 = serving_prompts(model.config.vocab_size)
+    arms = {}
+    arms["dense_fused_32_layers"], toks32 = dense_arm(
+        model, dev, prompts32, "dense_fused_32_layers",
+        LLMEngine(model, max_batch=8, chunk_size=256, max_seq_len=2048,
+                  scheduler="fused", device=dev), warm=False)
+    same = sum(int(a == b) for got, ref in zip(toks32, fused_tokens)
+               for a, b in zip(got, ref))
+    arms["dense_fused_32_layers"].update(
+        tokens_equal_to_fused_phase=same,
+        first_divergence=drift(fused_tokens, toks32)["first_divergence_step"])
+    rung = build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                       intermediate_size=DENSE_FF,
+                       max_position_embeddings=DENSE_PAGED_CAP)
+    prompts = dense_prompts(rung.config.vocab_size)
+    toks = {}
+    for name, scheduler, over in (
+            ("dense_fused", "fused", {}), ("dense_legacy", "legacy", {}),
+            ("paged_fused", "fused", dict(cache_impl="paged", block_size=64,
+                                          max_seq_len=DENSE_PAGED_CAP))):
+        arms[name], toks[name] = dense_arm(
+            rung, dev, prompts, name,
+            rung_engine(rung, dev, scheduler, **over))
+    profile_win = profile_dense(rung, dev, prompts)
+    del rung
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("dense_legacy", "paged_fused"):
+        arms[name]["drift_vs_dense_fused"] = drift(toks["dense_fused"],
+                                                   toks[name])
+    emit({"phase": "dense_serving", "layers": DENSE_LAYERS, "ff": DENSE_FF,
+          "slots": DENSE_SLOTS, "capacity": DENSE_CAP, "chunk": DENSE_CHUNK,
+          "horizon": DENSE_HORIZON, "requests": len(prompts),
+          "prompt_lens": [len(p) for p in prompts], "new_tokens": DENSE_NEW,
+          "paged_capacity": DENSE_PAGED_CAP,
+          "scheduler_speedup": arms["dense_fused"]["tokens_per_s"]
+          / arms["dense_legacy"]["tokens_per_s"],
+          "paged_over_dense_fused": arms["paged_fused"]["tokens_per_s"]
+          / arms["dense_fused"]["tokens_per_s"],
+          "arms": arms, "profile": profile_win, "margin": MARGIN,
+          "seconds": time.perf_counter() - t_phase})
+    for name, arm in arms.items():
+        if arm["cache_impl"] == "dense":
+            require(all(n == 0 for n in arm["launches"].values())
+                    and arm["b8_launches"] == 0 and arm["b1_launches"] == 0,
+                    f"dense {name}: kernels launched: {arm['launches']}, "
+                    f"B8 {arm['b8_launches']}, B1 {arm['b1_launches']}")
+        require(arm["greedy_mismatched"] == 0,
+                f"dense {name}: {arm['greedy_mismatched']} greedy tokens "
+                f"disagree with the no-cache forward beyond {MARGIN}")
+    paged = arms["paged_fused"]["launches"]
+    require(paged["b2_decode"] > 0 and paged["b3_append"] > 0,
+            f"dense phase's paged arm: launches {paged}")
+    return paged
+
+
+# ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
 
@@ -3084,14 +3249,16 @@ def main():
     torch.cuda.empty_cache()
     paged_launches, legacy_tokens = run_serving(model, dev)
     torch.cuda.empty_cache()
-    append_launches, fused_decode_launches = run_fused_serving(
-        model, dev, legacy_tokens)
+    append_launches, fused_decode_launches, fused_tokens = \
+        run_fused_serving(model, dev, legacy_tokens)
     torch.cuda.empty_cache()
     quant_launches = run_quant_serving(model, dev)
     torch.cuda.empty_cache()
     gen_launches = run_generate(model, dev)
     torch.cuda.empty_cache()
     prefix_launches = run_prefix_cache(model, dev)
+    torch.cuda.empty_cache()
+    dense_launches = run_dense_serving(model, dev, fused_tokens)
     torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
@@ -3150,13 +3317,15 @@ def main():
         {"name": "paged_attention_decode", "route": "cuda",
          "source": PAGED_SRC, "replaces": PAGED_REPLACES,
          "launches": paged_launches + fused_decode_launches
-         + gen_launches["b2"] + prefix_launches.get("b2_decode", 0),
+         + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
+         + dense_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
         {"name": "paged_attention_append", "route": "cuda",
          "source": APPEND_SRC, "replaces": APPEND_REPLACES,
-         "launches": append_launches + prefix_launches.get("b3_append", 0),
+         "launches": append_launches + prefix_launches.get("b3_append", 0)
+         + dense_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],

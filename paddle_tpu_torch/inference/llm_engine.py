@@ -1,63 +1,82 @@
-"""LLM serving engine over a paged KV pool (counterpart:
-``paddle_tpu/inference/llm_engine.py``): the legacy admit-then-decode
-scheduler and the fused token-budget scheduler.
+"""LLM serving engine (counterpart: ``paddle_tpu/inference/llm_engine.py``)
+over dense per-slot KV buffers or a paged KV pool: the legacy
+admit-then-decode scheduler and the fused token-budget scheduler.
 
-What this port serves — ``LLMEngine(cache_impl="paged")`` with
+What this port serves — ``LLMEngine(cache_impl="dense" | "paged")`` with
 
 * ``scheduler="legacy"`` (the reference's "parity reference for the fused
   path"): a request ADMITS into a free slot by prefilling its whole prompt
-  as a train of block-aligned ``chunk_size`` windows (each window gathers
-  the slot's blocks, runs the masked plain attention of the static-cache
-  path, and scatters its new K/V back into the blocks), then the chunk
-  over-allocation is released; every ``step`` decodes one token for every
-  active slot, ``horizon`` times, through the paged-decode kernel;
+  as a train of ``chunk_size`` windows through the static-cache path
+  (masked plain attention); every ``step`` decodes one token for every
+  active slot, ``horizon`` times;
 * ``scheduler="fused"`` (Sarathi-style chunked-prefill + decode fusion,
   how the reference serves): admission is slot ASSIGNMENT only. A step
   with a ramping slot is ONE mixed dispatch: per slot either one bounded
   prefill chunk (``_Slot.prefill_pos`` tracks progress) or one decode
-  token, under the per-step token budget ``max_step_tokens``, all through
-  the paged-append kernel. All-decode steps fall through to the legacy
-  decode path (with ``horizon``). Blocks allocate chunk by chunk inside
-  the scheduler, exactly (not chunk-rounded).
+  token, under the per-step token budget ``max_step_tokens``. All-decode
+  steps fall through to the legacy decode path (with ``horizon``).
+
+``cache_impl="dense"`` (the reference's default) keeps one zeroed ``[B,
+capacity, Hkv, D]`` K and V buffer per layer, a slot's rows at its own
+positions. Its admission windows run on the slot's buffer rows (the last
+window slides back when it would cross the buffer's end, as the
+reference's clamped slice does), its decode steps through
+:class:`~paddle_tpu_torch.models.llama.SlotKVCache` and its mixed steps
+through :class:`~paddle_tpu_torch.models.llama.ChunkKVCache`: masked
+attention, so no flash or paged kernel runs (a model with weight-only
+int4 projections still runs B8 in its decode steps). There is no
+allocator, no preemption and no pool audit.
+
+``cache_impl="paged"``: legacy admission windows are block-aligned (each
+gathers the slot's blocks and scatters its new K/V back) and decode runs
+the paged-decode kernel; the fused mixed step runs the paged-append
+kernel and blocks allocate chunk by chunk inside the scheduler, exactly
+(not chunk-rounded). The block allocator lives on the host (min-heap of
+free blocks, one reference per block); when the pool runs dry the newest
+slot is PREEMPTED back to the waiting queue and re-prefills on
+re-admission, so greedy output is unchanged.
 
 Both are greedy (``temperature <= 0``) from the carried logits; eos,
-budget and capacity deactivate a slot, and the host retires it at
-readout. The block allocator lives on the host (min-heap of free blocks,
-one reference per block); when the pool runs dry the newest slot is
-PREEMPTED back to the waiting queue and re-prefills on re-admission, so
-greedy output is unchanged.
+budget and capacity deactivate a slot on the device, and the host retires
+it at readout.
 
 Pipelining: ``step_begin`` enqueues its work and returns without waiting
 on the device. Host arrays go up through pinned staging buffers owned by
 the dispatch, the step's token and activity rows come back into pinned
 host memory, and a CUDA event marks the step's end; ``step_finish`` waits
-on that event only. The fused engine keeps a host mirror of each slot's
-scheduled length (``_Slot.sched_len``), so it may dispatch up to
-``max_pipeline_depth()`` steps before reading the first back; the
-in-flight WRITE FENCE parks a block freed while a dispatch may still
-write it in quarantine until that dispatch lands.
+on that event only. Up to ``max_pipeline_depth()`` steps may be in flight
+(the reference's contract: dense fused 3, dense legacy 2, paged fused 3
+or 2, paged legacy 1). Host state is then up to ``depth - 1`` steps
+stale: the in-graph guards deactivate finished slots on the device, a
+slot that finished in flight keeps dispatching until its first readout,
+and later pendings drop its column by the slot-identity check. The fused
+engine keeps a host mirror of each slot's scheduled length
+(``_Slot.sched_len``); on a paged pool the in-flight WRITE FENCE parks a
+block freed while a dispatch may still write it in quarantine until that
+dispatch lands.
 
 The K/V pools ``[n_blocks + 1, Hkv, block_size, D]`` per layer live on the
 engine's device and are updated IN PLACE (the reference is functional and
-donates its buffers). The trailing block is scratch: the kernels park
-there the writes of slots whose target table entry is -1.
-``kv_cache_dtype="int8"|"int4"`` makes them quantized pools: int8 payload
-``[n_blocks + 1, Hkv, block_size, kv_packed_dim(D)]`` with one float32
-scale per (block, kv head) beside each (``_k_scale``/``_v_scale``); the
-paged kernels dequantize on read and requantize what they write (kernel
-B4), and the legacy admission prefill gathers dequantized blocks and
-scatters requantized ones.
+donates its buffers), as are the dense buffers. The trailing block is
+scratch: the kernels park there the writes of slots whose target table
+entry is -1. ``kv_cache_dtype="int8"|"int4"`` makes them quantized pools:
+int8 payload ``[n_blocks + 1, Hkv, block_size, kv_packed_dim(D)]`` with
+one float32 scale per (block, kv head) beside each
+(``_k_scale``/``_v_scale``); the paged kernels dequantize on read and
+requantize what they write (kernel B4), and the legacy admission prefill
+gathers dequantized blocks and scatters requantized ones.
 
 For :class:`~paddle_tpu_torch.serving.AsyncLLMServer` the engine keeps the
 reference's serving surface: ``reset`` (crash recovery), ``cancel``,
-``reset_stats``, re-admission with ``committed_tokens``, the
-``fault_injector`` hooks at ``step_begin``/``step_finish``,
+``reset_stats``, ``throughput``, re-admission with ``committed_tokens``,
+the ``fault_injector`` hooks at ``step_begin``/``step_finish``,
 ``emit_backdate_s`` and the pool-capacity accounting (``kv_pool_nbytes``,
-``kv_bytes_per_block``, ``kv_pool_effective_blocks``).
+``kv_bytes_per_block``, ``kv_pool_effective_blocks``; 0 on a dense
+engine).
 
-``enable_prefix_cache=True`` makes the allocator a ref-counted,
-content-addressed store (reference ``llm_engine.py:2119-2356``): every
-full block is keyed by a blake2b hash chained over the whole prefix,
+``enable_prefix_cache=True`` (paged only) makes the allocator a
+ref-counted, content-addressed store (reference ``llm_engine.py:2119-2356``):
+every full block is keyed by a blake2b hash chained over the whole prefix,
 blocks freed at refcount 0 park in an LRU of cached content instead of
 the free heap, and admission attaches the longest cached prefix by table
 writes and refcount bumps (legacy: whole chunks; fused: whole blocks plus
@@ -65,10 +84,15 @@ a copy-on-write tail, a private clone of a cached block whose leading
 tokens continue the prompt). Shared blocks are never written. Allocation
 evicts the oldest LRU block before any slot is preempted.
 
-Not in this port yet (each raises ``NotImplementedError``): the dense
-cache, speculation, multi-step readout, LoRA adapters, the host KV tier,
-meshes, embedding requests and KV export; sampling with ``temperature >
-0`` waits for the threefry port (ROADMAP A7).
+``add_request`` takes the reference's keyword arguments. Values the
+reference leaves inert on such an engine (a ``readout_stride`` pin,
+``spec_ewma``, ``trace_ctx``) are stored on the request; embedding
+requests (ROADMAP A10) and KV export (A8(h)) raise
+``NotImplementedError``.
+
+Not in this port yet (each raises ``NotImplementedError``): speculation,
+multi-step readout, LoRA adapters, the host KV tier and meshes; sampling
+with ``temperature > 0`` waits for the threefry port (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -85,7 +109,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..incubate.nn.functional import _kv_quant_gather
-from ..models.llama import PagedKVCache, StaticKVCache
+from ..models.llama import (ChunkKVCache, PagedKVCache, SlotKVCache,
+                            StaticKVCache)
 from ..ops.kernels.paged_attention import (kv_block_scale, kv_packed_dim,
                                            kv_quantize)
 
@@ -123,6 +148,16 @@ class GenerationRequest:
     temperature: float = 0.0         # <=0 -> greedy
     top_p: float = 1.0
     eos_token_id: int | None = None
+    #: the reference's per-request fields, stored as given: a multi-step
+    #: readout pin (inert at ``readout_stride=1``), the tenant (0 = the
+    #: base model), the grant kind, the speculation EWMA seed (inert
+    #: without speculation), the KV-export flag and the trace context
+    readout_stride: int | None = None
+    adapter_id: int = 0
+    kind: str = "generate"
+    spec_ewma: float | None = None
+    export_kv: bool = False
+    trace_ctx: object | None = None
 
 
 @dataclasses.dataclass
@@ -193,11 +228,11 @@ def _unported(what, item):
 
 
 class LLMEngine:
-    """Continuous-batching engine over a paged KV pool for a
-    ``paddle_tpu_torch`` ``LlamaForCausalLM``. The signature and defaults
-    are the reference's; values outside this port raise
-    ``NotImplementedError`` (``cache_impl`` must be ``"paged"``).
-    ``device`` defaults to the card and must hold the model.
+    """Continuous-batching engine over dense slot buffers or a paged KV
+    pool for a ``paddle_tpu_torch`` ``LlamaForCausalLM``. The signature and
+    defaults are the reference's (``cache_impl="dense"``); values outside
+    this port raise ``NotImplementedError``. ``device`` defaults to the
+    card and must hold the model.
 
     ``scheduler="fused"``: per-step token budget ``max_step_tokens``
     (default ``chunk_size + max_batch - 1``: one full chunk plus a decode
@@ -227,9 +262,7 @@ class LLMEngine:
                     "kv_cache_dtype needs cache_impl='paged': per-block "
                     "quantization scales live at the paged pool's block "
                     "granularity")
-        if cache_impl == "dense":
-            _unported("cache_impl='dense' (the SlotKVCache engine)", "A8(a)")
-        if cache_impl != "paged":
+        if cache_impl not in ("dense", "paged"):
             raise ValueError(f"unknown cache_impl {cache_impl!r}")
         if scheduler not in ("legacy", "fused"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
@@ -271,19 +304,23 @@ class LLMEngine:
             raise ValueError(f"max_step_tokens must be >= 1, got "
                              f"{self.max_step_tokens}")
         self.stream_callback = stream_callback
-        self.block_size = int(block_size)
-        if self.chunk % self.block_size:
-            raise ValueError(f"chunk_size {self.chunk} must be a multiple "
-                             f"of block_size {self.block_size}")
-        if self.capacity % self.chunk:
-            raise ValueError(f"capacity {self.capacity} must be a multiple "
-                             f"of chunk_size {self.chunk} under paged KV")
-        self._max_blocks = self.capacity // self.block_size
-        self.n_blocks = int(kv_pool_blocks or self.B * self._max_blocks)
+        self._paged = cache_impl == "paged"
         #: allocator audit after every alloc/free, on under
-        #: PADDLE_TPU_POOL_CHECKS=1 (as in the reference)
-        self._debug_pool = os.environ.get(
-            "PADDLE_TPU_POOL_CHECKS", "0") not in ("", "0")
+        #: PADDLE_TPU_POOL_CHECKS=1 (as in the reference; paged only)
+        self._debug_pool = False
+        if self._paged:
+            self.block_size = int(block_size)
+            if self.chunk % self.block_size:
+                raise ValueError(f"chunk_size {self.chunk} must be a "
+                                 f"multiple of block_size {self.block_size}")
+            if self.capacity % self.chunk:
+                raise ValueError(f"capacity {self.capacity} must be a "
+                                 f"multiple of chunk_size {self.chunk} "
+                                 f"under paged KV")
+            self._max_blocks = self.capacity // self.block_size
+            self.n_blocks = int(kv_pool_blocks or self.B * self._max_blocks)
+            self._debug_pool = os.environ.get(
+                "PADDLE_TPU_POOL_CHECKS", "0") not in ("", "0")
         self._kvh = c.num_key_value_heads
         self._head_dim = c.hidden_size // c.num_attention_heads
         self._n_layers = c.num_hidden_layers
@@ -313,12 +350,25 @@ class LLMEngine:
     # device state
     # ------------------------------------------------------------------
     def _init_device_state(self):
-        """(Re)build the pools (with the trailing scratch block; quantized
-        pools with their scale arrays: zero payload under zero scales is
-        the same cold state), carried logits, lens, and the host
-        allocator. Called by ``__init__`` and :meth:`reset`."""
+        """(Re)build the KV buffers, carried logits and lens: on a dense
+        engine one zeroed ``[B, capacity, Hkv, D]`` K and V buffer per
+        layer; on a paged one the pools (with the trailing scratch block;
+        quantized pools with their scale arrays: zero payload under zero
+        scales is the same cold state) and the host allocator. Called by
+        ``__init__`` and :meth:`reset`."""
         dev = self.device
         L = self._n_layers
+        self._logits = torch.zeros((self.B, self.model.config.vocab_size),
+                                   dtype=torch.float32, device=dev)
+        self._lens = torch.zeros((self.B,), dtype=torch.int32, device=dev)
+        self._k_scale = self._v_scale = [None] * L
+        if not self._paged:
+            shape = (self.B, self.capacity, self._kvh, self._head_dim)
+            self._k = [torch.zeros(shape, dtype=self._dtype, device=dev)
+                       for _ in range(L)]
+            self._v = [torch.zeros(shape, dtype=self._dtype, device=dev)
+                       for _ in range(L)]
+            return
         dp = kv_packed_dim(self._head_dim, self.kv_quant)
         pool_shape = (self.n_blocks + 1, self._kvh, self.block_size, dp)
         pool_dtype = torch.int8 if self.kv_quant else self._dtype
@@ -326,7 +376,6 @@ class LLMEngine:
                    for _ in range(L)]
         self._v = [torch.zeros(pool_shape, dtype=pool_dtype, device=dev)
                    for _ in range(L)]
-        self._k_scale = self._v_scale = [None] * L
         if self.kv_quant:
             scale_shape = (self.n_blocks + 1, self._kvh)
             self._k_scale = [torch.zeros(scale_shape, dtype=torch.float32,
@@ -354,9 +403,6 @@ class LLMEngine:
         #: refcount-0 registered blocks, oldest freed first: allocation
         #: evicts from here before any slot is preempted
         self._lru = collections.OrderedDict()
-        self._logits = torch.zeros((self.B, self.model.config.vocab_size),
-                                   dtype=torch.float32, device=dev)
-        self._lens = torch.zeros((self.B,), dtype=torch.int32, device=dev)
 
     def reset(self):
         """Tear the engine down to EMPTY and re-arm it: the supervised
@@ -379,12 +425,20 @@ class LLMEngine:
         for key in self.stats:
             self.stats[key] = 0.0 if key.endswith("_s") else 0
 
+    def throughput(self):
+        """Tokens generated per second of decode time (dispatch and
+        readout wait of every step, as the reference books it)."""
+        dt = self.stats["decode_time_s"]
+        return self.stats["tokens_generated"] / dt if dt > 0 else 0.0
+
     # ------------------------------------------------------------------
     # KV-pool capacity accounting
     # ------------------------------------------------------------------
     def kv_pool_nbytes(self):
         """Device bytes of the K/V pools INCLUDING the scale arrays, summed
-        off the real tensors."""
+        off the real tensors; 0 on a dense engine, as in the reference."""
+        if not self._paged:
+            return 0
         return sum(t.numel() * t.element_size()
                    for t in (*self._k, *self._v, *self._k_scale,
                              *self._v_scale) if t is not None)
@@ -392,12 +446,17 @@ class LLMEngine:
     def kv_bytes_per_block(self):
         """Device bytes one pool block costs across all layers (K + V
         payload plus its per-head scales): what an equal-bytes pool sizing
-        divides a memory budget by."""
+        divides a memory budget by; 0 on a dense engine."""
+        if not self._paged:
+            return 0
         return self.kv_pool_nbytes() // (self.n_blocks + 1)
 
     def kv_pool_effective_blocks(self):
         """Pool capacity in unquantized-equivalent blocks: ``n_blocks`` on
-        an unquantized pool, ~2x/~4x under int8/int4 (less the scales)."""
+        an unquantized pool, ~2x/~4x under int8/int4 (less the scales); 0
+        on a dense engine."""
+        if not self._paged:
+            return 0
         if not self.kv_quant:
             return self.n_blocks
         unquant = self._n_layers * 2 * self._kvh * self.block_size * \
@@ -407,34 +466,64 @@ class LLMEngine:
 
     def max_pipeline_depth(self):
         """How many ``step_begin()`` dispatches may be in flight at once
-        (the reference's contract, paged rows): fused on a full pool 3 —
-        allocation cannot fail in steady state and every grant reads the
-        host lens mirror; fused on an oversubscribed pool 2 — the write
-        fence makes mid-flight eviction memory-safe, but each stale step
-        a preemption decision lags costs re-prefill churn; legacy 1 — its
-        slots have no lens mirror, so the allocator and the admission
-        prefill need each step's post-readout lens."""
+        (the reference's contract): fused dense 3 — every grant reads the
+        host lens mirror, and the in-graph guards and the slot-identity
+        check absorb host state up to two steps stale; fused paged on a
+        full pool 3 — allocation cannot fail in steady state; fused paged
+        on an oversubscribed pool 2 — the write fence makes mid-flight
+        eviction memory-safe, but each stale step a preemption decision
+        lags costs re-prefill churn; legacy dense 2 — host request state
+        one step stale at the chained dispatch; legacy paged 1 — its slots
+        have no lens mirror, so the allocator and the admission prefill
+        need each step's post-readout lens."""
         if self.scheduler == "fused":
-            return 3 if self.n_blocks >= self.B * self._max_blocks else 2
-        return 1
+            if not self._paged or self.n_blocks >= self.B * self._max_blocks:
+                return 3
+            return 2
+        return 1 if self._paged else 2
 
     # ------------------------------------------------------------------
     # requests
     # ------------------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=64, temperature=0.0,
                     top_p=1.0, eos_token_id=None, request_id=None,
-                    committed_tokens=None):
+                    committed_tokens=None, readout_stride=None,
+                    adapter_id=0, kind="generate", spec_ewma=None,
+                    export_kv=False, trace_ctx=None):
         """Queue one request. ``committed_tokens``: tokens ALREADY
         generated for it in a previous life (a supervised restart's or a
         failover's re-admission): they join the prompt for prefill, like a
         preemption, so the stream CONTINUES — only new tokens reach the
         stream callback, the output prepends the committed ones, and
-        ``max_new_tokens`` counts new tokens only."""
+        ``max_new_tokens`` counts new tokens only.
+
+        The reference's other keyword arguments, validated as it does
+        (``llm_engine.py:1902-1950``): ``readout_stride`` (a latency-tier
+        pin, >= 1; inert on this engine, whose readout stride is 1),
+        ``adapter_id`` (nonzero needs an adapter store, which this port
+        does not have yet), ``kind`` ("generate"; "embed" is ROADMAP A10),
+        ``spec_ewma`` (inert without speculation), ``export_kv`` (ROADMAP
+        A8(h)) and ``trace_ctx`` (inert without a flight recorder). The
+        inert ones are stored on the request."""
         ids = np.asarray(
             prompt_ids.cpu().numpy() if isinstance(prompt_ids, torch.Tensor)
             else prompt_ids, dtype=np.int32).reshape(-1)
         if len(ids) == 0:
             raise ValueError("empty prompt")
+        if readout_stride is not None and int(readout_stride) < 1:
+            raise ValueError(f"readout_stride must be >= 1, got "
+                             f"{readout_stride}")
+        adapter_id = int(adapter_id or 0)
+        if adapter_id:
+            raise ValueError(
+                f"adapter_id {adapter_id} on an engine without an "
+                f"adapter_store (LLMEngine(adapter_store=...))")
+        if kind not in ("generate", "embed"):
+            raise ValueError(f"unknown request kind {kind!r}")
+        if kind == "embed":
+            _unported("embedding (prefill-only) requests", "A10")
+        if export_kv:
+            _unported("export_kv (cross-replica KV shipping)", "A8(h)")
         if float(temperature) > 0.0:
             _unported("sampling with temperature > 0 (threefry fold_in keys)",
                       "A7")
@@ -461,7 +550,12 @@ class LLMEngine:
                 self._preempted_prefix.pop(rid, []) + committed
         self.waiting.append(GenerationRequest(
             rid, ids, int(max_new_tokens), float(temperature), float(top_p),
-            eos_token_id))
+            eos_token_id,
+            readout_stride=(int(readout_stride)
+                            if readout_stride is not None else None),
+            adapter_id=adapter_id, kind=kind,
+            spec_ewma=float(spec_ewma) if spec_ewma is not None else None,
+            export_kv=bool(export_kv), trace_ctx=trace_ctx))
         return rid
 
     def has_unfinished(self):
@@ -823,7 +917,11 @@ class LLMEngine:
         Legacy admission writes whole chunk windows (chunk-rounded, then
         block-quantized); the fused scheduler writes exact positions, so it
         needs the prompt's own blocks plus the one the first decode token
-        grows into (position ``prompt_len``)."""
+        grows into (position ``prompt_len``). A dense engine has no pool:
+        0 (the reference's dense engine has no ``block_size`` to divide
+        by and raises AttributeError here)."""
+        if not self._paged:
+            return 0
         if self.scheduler == "fused":
             return -(-(prompt_len + 1) // self.block_size)
         pad_end = min(-(-prompt_len // self.chunk) * self.chunk,
@@ -838,7 +936,10 @@ class LLMEngine:
         self._check_pool_invariants()
 
     def _free_slot(self, slot_idx):
-        self._release_slot_blocks(slot_idx)
+        """Retire slot ``slot_idx``: a paged slot's blocks release; a dense
+        slot's buffer rows are simply overwritten by the next admission."""
+        if self._paged:
+            self._release_slot_blocks(slot_idx)
         self.slots[slot_idx] = None
 
     def _preempt_newest(self, exclude=None, newer_than=None, retired=None):
@@ -886,7 +987,10 @@ class LLMEngine:
         self.waiting.appendleft(GenerationRequest(
             req.request_id, done,
             req.max_new_tokens - len(slot.generated),
-            req.temperature, req.top_p, req.eos_token_id))
+            req.temperature, req.top_p, req.eos_token_id,
+            readout_stride=req.readout_stride,
+            adapter_id=req.adapter_id, kind=req.kind,
+            spec_ewma=req.spec_ewma, export_kv=req.export_kv))
         self._free_slot(b)
         self.stats["preemptions"] += 1
 
@@ -984,46 +1088,71 @@ class LLMEngine:
             scatter(v, vs, cc.v)
         return logits_row
 
+    def _prefill_window(self, ids, slot_idx, win, last):
+        """Legacy admission on a dense engine: run prompt window ``ids [1,
+        chunk]`` at position ``win`` through a static cache over slot
+        ``slot_idx``'s own buffer rows (masked plain attention; the
+        window's K/V land in the buffers in place). Returns the logits of
+        in-window row ``last``."""
+        caches = [StaticKVCache(k[slot_idx:slot_idx + 1],
+                                v[slot_idx:slot_idx + 1])
+                  for k, v in zip(self._k, self._v)]
+        hidden, _ = self.model.llama(self._upload(ids), kv_caches=caches,
+                                     position_offset=win)
+        return self.model._logits(hidden[:, last:last + 1])[0, 0].float()
+
     def _admit(self, slot_idx, req):
         """Legacy admission: chunked prefill of ``req`` into slot
         ``slot_idx``, from the prefix cache's chunk-granular hit on.
         Returns False when the pool cannot cover the prompt's chunk
-        windows (the hit is rolled back)."""
+        windows (the hit is rolled back); a dense engine always admits."""
         t0 = time.perf_counter()
         P = len(req.prompt_ids)
         hit, chain = 0, []
         if self.prefix_cache:
             hit, chain = self._probe_prefix(slot_idx, req.prompt_ids,
                                             chunk_granular=True)
-        # prefill writes whole chunks: cover round_up(P, chunk), then
-        # release the over-allocation down to the prompt's own blocks
-        pad_end = self.prefill_blocks_needed(P) * self.block_size
-        if not self._ensure_blocks(slot_idx, pad_end - 1):
-            self._release_slot_blocks(slot_idx)
-            return False
+        if self._paged:
+            # prefill writes whole chunks: cover round_up(P, chunk), then
+            # release the over-allocation down to the prompt's own blocks
+            pad_end = self.prefill_blocks_needed(P) * self.block_size
+            if not self._ensure_blocks(slot_idx, pad_end - 1):
+                self._release_slot_blocks(slot_idx)
+                return False
         self.stats["prefix_hit_tokens"] += hit
         padded = np.zeros((max(-(-P // self.chunk) * self.chunk,
                                self.chunk),), np.int32)
         padded[:P] = req.prompt_ids
-        table_row = self._tables[slot_idx].copy()
+        table_row = self._tables[slot_idx].copy() if self._paged else None
         off = hit
         logits_row = None
         while off < P:
             take = min(self.chunk, P - off)
-            # windows stay block-aligned: off is a multiple of chunk and
-            # capacity % chunk == 0
-            logits_row = self._prefill_chunk(
-                padded[off:off + self.chunk][None], table_row, off,
-                take - 1)
+            if self._paged:
+                # windows stay block-aligned: off is a multiple of chunk
+                # and capacity % chunk == 0
+                logits_row = self._prefill_chunk(
+                    padded[off:off + self.chunk][None], table_row, off,
+                    take - 1)
+            else:
+                # a window that would cross the buffer's end slides BACK,
+                # as the reference's clamped dynamic slice does: positions
+                # [win, off) are recomputed with the same K/V and the new
+                # tokens land at [off, off + take)
+                win = min(off, self.capacity - self.chunk)
+                logits_row = self._prefill_window(
+                    padded[win:win + self.chunk][None], slot_idx, win,
+                    off + take - 1 - win)
             off += take
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += take
-        keep = P // self.block_size + 1
-        blocks = self._slot_blocks[slot_idx]
-        while len(blocks) > keep:
-            phys = blocks.pop()
-            self._tables[slot_idx, len(blocks)] = -1
-            self._release_block(phys)
+        if self._paged:
+            keep = P // self.block_size + 1
+            blocks = self._slot_blocks[slot_idx]
+            while len(blocks) > keep:
+                phys = blocks.pop()
+                self._tables[slot_idx, len(blocks)] = -1
+                self._release_block(phys)
         self._admit_order[slot_idx] = self._admit_seq
         self._admit_seq += 1
         self._logits[slot_idx] = logits_row
@@ -1073,7 +1202,7 @@ class LLMEngine:
                         f"{req.max_new_tokens} -> {room} (engine capacity "
                         f"{self.capacity})", RuntimeWarning, stacklevel=3)
                     req.max_new_tokens = room
-                if fused:
+                if fused and self._paged:
                     need = self.prefill_blocks_needed(len(req.prompt_ids))
                     if need > self.n_blocks:
                         # can never ramp in: leave it at the head;
@@ -1126,9 +1255,17 @@ class LLMEngine:
         return PendingStep(toks, was_active, list(self.slots), pool_done,
                            sched=sched, fenced=fenced, event=event)
 
-    def _paged_caches(self, tables, lens, q_lens=None):
-        """One :class:`PagedKVCache` per layer over the engine's pools (and
-        their scale arrays when quantized)."""
+    def _caches(self, tables, lens, q_lens=None):
+        """One cache per layer over the engine's buffers for a decode step
+        (``q_lens`` None) or a mixed step: a dense engine's
+        :class:`SlotKVCache` or :class:`ChunkKVCache`, a paged one's
+        :class:`PagedKVCache` (with the scale arrays when quantized)."""
+        if not self._paged:
+            if q_lens is None:
+                return [SlotKVCache(k, v, lens)
+                        for k, v in zip(self._k, self._v)]
+            return [ChunkKVCache(k, v, lens, q_lens)
+                    for k, v in zip(self._k, self._v)]
         return [PagedKVCache(k, v, tables, lens, q_lens, ks, vs,
                              self.kv_quant)
                 for k, v, ks, vs in zip(self._k, self._v, self._k_scale,
@@ -1137,10 +1274,11 @@ class LLMEngine:
     def _decode(self, active, eos_ids, budgets):
         """``horizon`` greedy decode iterations for every slot, all on the
         device: sample from the carried logits, one-token model step through
-        the paged pools, carry logits and lens. Inactive slots decode token
-        0 and keep their carried logits (a slot deactivated by the pool
-        budget clamp samples from them next step)."""
-        tables = self._upload(self._tables)
+        the slot buffers or the paged pools, carry logits and lens. Inactive
+        slots decode token 0 and keep their carried logits (a slot
+        deactivated by the pool budget clamp samples from them next
+        step)."""
+        tables = self._upload(self._tables) if self._paged else None
         act = self._upload(active)
         eos = self._upload(eos_ids)
         buds = self._upload(budgets)
@@ -1151,7 +1289,7 @@ class LLMEngine:
         for _ in range(self.horizon):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
-            caches = self._paged_caches(tables, lens)
+            caches = self._caches(tables, lens)
             hidden, _ = model.llama(nxt[:, None], kv_caches=caches,
                                     position_offset=lens)
             new_logits = model._logits(hidden)[:, 0].float()
@@ -1174,7 +1312,7 @@ class LLMEngine:
         positions (``lens``); padding rows write nothing. The LM head runs
         over each slot's last valid row only; inactive slots keep their
         carried logits. Returns ``[1, B]`` token and activity rows."""
-        tables = self._upload(self._tables)
+        tables = self._upload(self._tables) if self._paged else None
         ids_t = self._upload(ids)
         ql = self._upload(q_lens)
         is_dec = self._upload(is_decode)
@@ -1188,7 +1326,7 @@ class LLMEngine:
         nxt = torch.where(dec, nxt, torch.zeros_like(nxt))
         q_eff = torch.where(act, ql, torch.zeros_like(ql))
         ids_t[:, 0] = torch.where(dec, nxt, ids_t[:, 0])
-        caches = self._paged_caches(tables, lens, q_eff)
+        caches = self._caches(tables, lens, q_eff)
         hidden, _ = self.model.llama(ids_t, kv_caches=caches,
                                      position_offset=lens)
         last = (q_eff - 1).clamp(min=0).long()
@@ -1208,19 +1346,19 @@ class LLMEngine:
         fi = self.fault_injector
         if fi is not None:
             fi.on_step_begin(self)
-        if self._inflight >= self.max_pipeline_depth():
+        depth = self.max_pipeline_depth()
+        if self._inflight >= depth:
             raise RuntimeError(
-                "paged engine cannot pipeline step_begin() calls this deep: "
-                "its block allocator needs the previous step's lens "
-                "(step_finish the outstanding PendingStep first; see "
-                "max_pipeline_depth())")
+                f"{self.scheduler} {self.cache_impl} engine cannot pipeline "
+                f"step_begin() calls deeper than {depth} (step_finish the "
+                f"outstanding PendingStep first; see max_pipeline_depth())")
         with torch.no_grad():
             return self._step_begin()
 
     def _step_begin(self):
         self._admit_waiting()
         if not any(s is not None for s in self.slots):
-            if self.waiting:
+            if self.waiting and self._paged:
                 req = self.waiting[0]
                 P = len(req.prompt_ids)
                 need = self.prefill_blocks_needed(P)
@@ -1243,7 +1381,8 @@ class LLMEngine:
         # whatever blocks remain (partial coverage + a budget clamp), then
         # evicts newer slots, and retires only at the pool edge
         order = sorted((b for b, s in enumerate(self.slots) if s is not None),
-                       key=lambda i: self._admit_order[i])
+                       key=lambda i: self._admit_order[i]) \
+            if self._paged else ()
         for b in order:
             slot = self.slots[b]
             if slot is None:
@@ -1289,7 +1428,7 @@ class LLMEngine:
         # write, from each slot's committed length through its scheduled
         # stride
         fenced = []
-        if fused:
+        if fused and self._paged:
             for b, slot in enumerate(self.slots):
                 if slot is not None:
                     lo = slot.prefill_pos + len(slot.generated)
@@ -1340,9 +1479,10 @@ class LLMEngine:
         token (always granted — the budget bounds prefill interference, not
         decode progress) or a prefill chunk grant of up to ``min(chunk,
         remaining prompt, budget left)`` tokens, walked in admission order
-        so older requests ramp first. Blocks allocate here; a ramping slot
-        that cannot cover its grant shrinks it to the blocks it could grab
-        and otherwise waits for a retirement."""
+        so older requests ramp first. Paged blocks allocate here; a ramping
+        slot that cannot cover its grant shrinks it to the blocks it could
+        grab and otherwise waits for a retirement. A dense engine grants
+        without that ladder: its slot buffers hold every position."""
         B, S = self.B, self.chunk
         ids = np.zeros((B, S), np.int32)
         q_lens = np.zeros((B,), np.int32)
@@ -1360,7 +1500,8 @@ class LLMEngine:
             cur = slot.sched_len()
             if cur >= self.capacity:
                 continue  # pipelined overshoot; readout retires it
-            if not self._ensure_pos_covered(b, cur, pool_done):
+            if self._paged and \
+                    not self._ensure_pos_covered(b, cur, pool_done):
                 continue
             q_lens[b] = 1
             is_dec[b] = True
@@ -1379,7 +1520,8 @@ class LLMEngine:
                 continue
             pos = slot.prefill_pos
             take = min(S, slot.prompt_len - pos, grant_cap)
-            if take > 0 and not self._ensure_blocks(b, pos + take - 1):
+            if self._paged and take > 0 and \
+                    not self._ensure_blocks(b, pos + take - 1):
                 avail = self._n_allocatable()
                 if avail:
                     self._alloc_blocks(b, avail)
@@ -1405,7 +1547,8 @@ class LLMEngine:
                 break
             # nothing schedulable: every assigned slot is ramping into a
             # dry pool — park the newest (frees blocks for an older ramp)
-            if self._preempt_newest(retired=pool_done) is None:
+            if not self._paged or \
+                    self._preempt_newest(retired=pool_done) is None:
                 break
         if not active.any():
             if pool_done:
@@ -1414,7 +1557,7 @@ class LLMEngine:
         # write fence over this dispatch's spans: the decode token per
         # decode slot, the granted chunk span per ramping slot
         fenced = []
-        for b in np.nonzero(active)[0]:
+        for b in np.nonzero(active)[0] if self._paged else ():
             slot = self.slots[b]
             lo = slot.prefill_pos + len(slot.generated)
             hi = slot.sched_len() + int(q_lens[b]) - 1 if is_dec[b] \

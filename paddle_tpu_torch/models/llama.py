@@ -23,12 +23,19 @@ A :class:`PagedKVCache` may carry int8/int4 quantized pools with their
 scale arrays (the engine's ``kv_cache_dtype``); attention routes them to
 the quantized paged kernels.
 
+The dense engine's caches, :class:`SlotKVCache` (a decode step, or a
+window of ``s`` rows, per slot at its own length) and
+:class:`ChunkKVCache` (the fused scheduler's mixed step over per-slot
+buffers), write the slot buffers in place and attend with
+:func:`_window_causal_mask`: masked attention, as in the reference, so
+``F.scaled_dot_product_attention`` takes its plain math and no flash or
+paged kernel runs.
+
 ``LlamaForCausalLM.generate`` is the reference's greedy decode over the
 static or the paged cache, run eagerly in windows of ``GEN_WINDOW`` steps.
 
-Not in this port yet, each raising where reached: LoRA scopes, the slot
-and chunk caches of the dense engine, and sampling in ``generate``
-(``temperature > 0``).
+Not in this port yet, each raising where reached: LoRA scopes and
+sampling in ``generate`` (``temperature > 0``).
 """
 from __future__ import annotations
 
@@ -154,6 +161,78 @@ class PagedKVCache:
         self.quant = quant
 
 
+class SlotKVCache:
+    """Per-slot KV buffers ``k``/``v [B, capacity, Hkv, D]`` of the dense
+    engine with per-slot lengths ``lens [B]``: a step writes slot ``b``'s
+    ``s`` new rows at ``lens[b]`` and row ``i`` attends positions ``<=
+    lens[b] + i``. The buffers are updated in place; the engine, not the
+    model, advances ``lens``."""
+
+    __slots__ = ("k", "v", "lens")
+
+    def __init__(self, k, v, lens):
+        self.k, self.v, self.lens = k, v, lens
+
+
+class ChunkKVCache:
+    """The dense engine's cache under the fused scheduler's mixed step:
+    slot buffers ``k``/``v [B, capacity, Hkv, D]``, ``lens [B]`` tokens
+    cached, ``q_lens [B]`` real rows of the step's ``s``. Row ``i`` of slot
+    ``b`` writes position ``lens[b] + i`` only while ``i < q_lens[b]`` and
+    the position is inside the buffer; padding and past-capacity rows are
+    dropped. Row ``i`` attends positions ``<= lens[b] + i``."""
+
+    __slots__ = ("k", "v", "lens", "q_lens")
+
+    def __init__(self, k, v, lens, q_lens):
+        self.k, self.v, self.lens, self.q_lens = k, v, lens, q_lens
+
+
+def _window_causal_mask(s, T):
+    """The additive float32 mask of a per-slot window, the one copy both
+    dense branches use: row ``i`` of slot ``b`` sits at ``lens[b] + i`` and
+    sees positions up to it (0), nothing after (-1e30). Returns
+    ``mask_fn(lens) -> [B, 1, s, T]``."""
+    def mask_fn(lens):
+        rows = lens.to(torch.long)[:, None, None, None] + torch.arange(
+            s, device=lens.device)[None, None, :, None]
+        valid = torch.arange(T, device=lens.device)[None, None, None, :] \
+            <= rows
+        return torch.where(valid, 0.0, -1e30).to(torch.float32)
+    return mask_fn
+
+
+def _slot_write(buf, new, lens):
+    """Slot ``b``'s rows ``new[b]`` into ``buf[b]`` from ``lens[b]``, the
+    start clamped to ``[0, T - s]`` as the reference's dynamic update
+    clamps it (a slot past its end overwrites its own last rows)."""
+    b, s = new.shape[:2]
+    start = lens.to(torch.long).clamp(0, buf.shape[1] - s)
+    pos = start[:, None] + torch.arange(s, device=buf.device)[None]
+    bidx = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    buf[bidx, pos] = new.to(buf.dtype)
+
+
+def _chunk_write(buf, new, lens, q_lens):
+    """Row ``i`` of ``new[b]`` into ``buf[b, lens[b] + i]`` while ``i <
+    q_lens[b]`` and the position is inside the buffer; other rows drop.
+    A boolean selection would read its count back from the card, so every
+    row writes instead: to its position clamped into the buffer, with the
+    value that position holds once the real rows are in (a real row's, or
+    the buffer's own). Rows sharing a position carry equal values."""
+    b, s = new.shape[:2]
+    T = buf.shape[1]
+    lens = lens.to(torch.long)[:, None]
+    tgt = (lens + torch.arange(s, device=buf.device)[None]).clamp(max=T - 1)
+    rel = tgt - lens
+    fresh = (rel >= 0) & (rel < q_lens.to(torch.long)[:, None])
+    bidx = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    src = new.gather(1, rel.clamp(0, s - 1)[:, :, None, None]
+                     .expand(new.shape))
+    buf[bidx, tgt] = torch.where(fresh[:, :, None, None],
+                                 src.to(buf.dtype), buf[bidx, tgt])
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
@@ -249,11 +328,25 @@ class LlamaAttention(nn.Module):
                 training=self.training)
             out = self.o_proj(out.reshape(b, s, H * D))
             return out, kv_cache
+        if isinstance(kv_cache, (ChunkKVCache, SlotKVCache)):
+            # the dense engine's step: the slot buffers take this step's
+            # rows in place, then masked attention against each row's own
+            # absolute position (the plain math, as in the reference)
+            if isinstance(kv_cache, ChunkKVCache):
+                _chunk_write(kv_cache.k, k, kv_cache.lens, kv_cache.q_lens)
+                _chunk_write(kv_cache.v, v, kv_cache.lens, kv_cache.q_lens)
+            else:
+                _slot_write(kv_cache.k, k, kv_cache.lens)
+                _slot_write(kv_cache.v, v, kv_cache.lens)
+            mask = _window_causal_mask(s, kv_cache.k.shape[1])(kv_cache.lens)
+            out = F.scaled_dot_product_attention(
+                q, kv_cache.k, kv_cache.v, attn_mask=mask, is_causal=False,
+                training=self.training)
+            return self.o_proj(out.reshape(b, s, H * D)), kv_cache
         if kv_cache is not None:
             if not isinstance(kv_cache, tuple):
-                raise NotImplementedError(
-                    f"{type(kv_cache).__name__} is not ported yet (the dense "
-                    f"engine's slot and chunk caches come with its slice)")
+                raise TypeError(
+                    f"unknown kv cache {type(kv_cache).__name__}")
             k = torch.cat([kv_cache[0], k], dim=1)
             v = torch.cat([kv_cache[1], v], dim=1)
             kv_cache = (k, v)

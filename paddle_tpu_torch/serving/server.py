@@ -11,8 +11,9 @@ so the host-side readout and request bookkeeping of step N hide under the
 device work of step N+1 (``LLMEngine.step_begin``/``step_finish``: CUDA
 launches return before the card finishes, and ``step_finish`` waits on
 the step's own event). The depth is ``min(pipeline_depth or 2,
-engine.max_pipeline_depth())``: the fused paged engine takes 2 (3 on
-request), the legacy one 1.
+engine.max_pipeline_depth())``: a fused engine (dense, or paged on a full
+pool) and a dense legacy one take 2 (the fused one 3 on request), a
+legacy paged one 1.
 
 On top of the loop sit the two serving layers the engine does not have:
 

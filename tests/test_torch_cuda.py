@@ -1078,6 +1078,48 @@ def test_llm_engine_outside_kernel_shapes_on_card(cuda, scheduler):
     assert all(len(o.token_ids) == 12 for o in got)
 
 
+@pytest.mark.parametrize("scheduler", ["legacy", "fused"])
+def test_dense_llm_engine_on_card(cuda, scheduler, monkeypatch):
+    """The dense engine, ``LLMEngine(model)`` (the reference's default),
+    on the card over LlamaConfig.tiny: its masked attention launches no
+    flash or paged kernel and reaches no kernel's plain version, and the
+    tokens equal the CPU engine's on the same weights."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa_mod
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    plain = []
+    for mod, name in ((pa_mod, "paged_attention_decode_plain"),
+                      (pa_mod, "paged_attention_append_plain"),
+                      (IF, "paged_attention_decode_plain"),
+                      (IF, "paged_attention_append_plain"),
+                      (fa_mod, "flash_attention_fwd_plain")):
+        if hasattr(mod, name):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    cfg = LlamaConfig.tiny()
+    cpu, card = _card_and_cpu(cfg, cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 23, 40)]
+    kw = dict(scheduler=scheduler, max_batch=2, max_seq_len=96,
+              chunk_size=16, horizon=4)
+    n0 = (_flash_launches(), _paged_launches())
+    eng = LLMEngine(card, **kw)
+    assert eng.cache_impl == "dense" and eng.device == card.device
+    got = eng.generate(prompts, max_new_tokens=12)
+    torch.cuda.synchronize()
+    assert (_flash_launches(), _paged_launches()) == n0
+    assert not plain, plain
+    monkeypatch.undo()
+    want = LLMEngine(cpu, device="cpu", **kw).generate(prompts,
+                                                       max_new_tokens=12)
+    assert [list(o.token_ids) for o in got] == \
+        [list(o.token_ids) for o in want]
+    assert all(len(o.token_ids) == 12 for o in got)
+
+
 def test_attention_routing_flags_on_card(cuda):
     """A bf16 D-128 call the kernels take launches them while the flags are
     on; with ``use_pallas_flash_attention`` or ``use_paged_attention`` off

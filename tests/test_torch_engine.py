@@ -152,8 +152,7 @@ def test_pool_capacity_error_and_pool_edge(gqa):
 def test_unported_options_raise(gqa):
     _, tm = gqa
     for scheduler in ("legacy", "fused"):
-        for kw in (dict(cache_impl="dense"),
-                   dict(speculative_k=2), dict(readout_stride=2),
+        for kw in (dict(speculative_k=2), dict(readout_stride=2),
                    dict(adapter_store=object()),
                    dict(kv_host_swap=True), dict(mesh=object()),
                    # the prefix cache is ported; its host spill is not
@@ -166,8 +165,14 @@ def test_unported_options_raise(gqa):
         LLMEngine(tm, device="cpu", **_kw(scheduler="warp"))
     with pytest.raises(ValueError, match="unknown kv_cache_dtype"):
         LLMEngine(tm, device="cpu", **_kw(kv_cache_dtype="fp8"))
-    with pytest.raises(NotImplementedError):
-        LLMEngine(tm)                      # the reference default: dense
+    # the reference default, cache_impl="dense", is ported: it constructs
+    # and serves (tests/test_torch_dense_engine.py holds it to the
+    # reference)
+    dense = LLMEngine(tm, device="cpu", max_batch=2, max_seq_len=64,
+                      chunk_size=16)
+    assert dense.cache_impl == "dense"
+    (out,) = dense.generate(_prompts(5, (9,)), max_new_tokens=4)
+    assert out.finish_reason == "length" and len(out.token_ids) == 4
     eng = LLMEngine(tm, device="cpu", **_kw())
     with pytest.raises(NotImplementedError, match="A7"):
         eng.add_request(np.array([1, 2, 3]), temperature=0.7)
