@@ -129,6 +129,42 @@ Phases:
                 launch, plain-call and sync gates. Per arm: tokens/s, hit
                 rate, hit tokens, COW and evicted blocks, TTFT p50, the
                 unique arms' overhead (information);
+  (d-vi) dense_serving — the dense engine (the reference's default): the
+                32-layer model's 12 requests over a dense fused engine, then
+                the llama_serve_fused rung (7B widths, ff 11264, 3 layers;
+                16 requests of 256-511 tokens, 64 new) over dense fused,
+                dense legacy and paged fused engines; no kernel and no plain
+                version in a dense arm, the sync and greedy gates;
+  (d-vii) serve_rung — the llama_serve rung (the same model and requests;
+                LLMEngine(model, max_batch=8, max_seq_len=576,
+                chunk_size=256, horizon=64), dense legacy) through
+                AsyncLLMServer in the rung's passes: plain, then the flight
+                recorder, supervision (RestartPolicy, step_timeout_s 300),
+                the metrics store and trace contexts each on against off,
+                medians of three alternating passes; the recorder's chrome
+                trace (to a temporary directory), p99 tail and snapshot; the
+                multi-step A/B (tools/multi_step_ab.py: dense fused engines
+                at readout_stride 8 against 1); two traced stride-8 steps;
+                then the 32-layer model's 12 requests over paged fused
+                engines at readout_stride 8 against 1. Every serve runs
+                under CUDA's sync debug mode: no synchronizing call in a
+                step_begin or between steps, none in a step_finish beyond
+                its readout. Gates: every request finishes with its 64
+                tokens, every pass equals the plain pass; for each stride
+                pair (dense rung, 32-layer paged) one wave of 8 requests
+                through engines at stride 1 and 8 is token-exact, the
+                served arms both pass the greedy check (so they agree up
+                to bf16 near-ties: the stride moves admissions, and a
+                token may take a mixed step in one arm and an all-decode
+                step in the other), multi-step dispatches and fewer round
+                trips in the stride arm; each StepRecord's readout_stride
+                matches its dispatch, no kernel or counted plain version in
+                a dense arm, B2 once a layer for each decode iteration of
+                the 32-layer arms (B3 once a layer a mixed step), the server
+                healthy, the greedy check on the plain pass. Per pass
+                tokens/s, the four overheads, TTFT and
+                e2e p50, the p99 tail causes, the A/B's host-tax split, the
+                traced steps' idle share (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
@@ -234,9 +270,12 @@ from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_append_plain, paged_attention_decode,
     paged_attention_decode_plain)
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
-from paddle_tpu_torch.serving import AsyncLLMServer
+from paddle_tpu_torch.profiler import FlightRecorder
+from paddle_tpu_torch.serving import AsyncLLMServer, RestartPolicy
 from paddle_tpu_torch.tools.cuda_timing import cuda_ms, host_us
 from paddle_tpu_torch.tools import paged_sweep
+from paddle_tpu_torch.tools.multi_step_ab import (serve_multi_step_ab,
+                                                  serve_stride_arm)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -2747,6 +2786,467 @@ def run_dense_serving(model, dev, fused_tokens):
 
 
 # ---------------------------------------------------------------------------
+# (d-vii) serve_rung: the llama_serve rung's path (bench.py:709-966)
+# ---------------------------------------------------------------------------
+
+#: the rung's multi-step A/B stride (its BENCH_READOUT_STRIDE default)
+RUNG_STRIDE = 8
+#: each on/off A/B takes the median of this many passes a side
+RUNG_REPS = 3
+
+
+@contextlib.contextmanager
+def window_watch(eng, log):
+    """CUDA's sync debug mode over a whole serve, every thread: each
+    synchronizing call is attributed to where the engine was, in
+    ``step_begin``, in ``step_finish`` (whose wait on its step's event is
+    the readout itself, and a CUDA event wait is not flagged), or
+    elsewhere. Also logs each dispatch (kind, token rows, resident slots),
+    the finish-to-finish ms by kind, the recorder the server attached, and
+    the kernels' launch counts over the serve (reset on entry)."""
+    log.update(begin=0, finish=0, elsewhere=0, finishes=0, dispatches=[],
+               resident=[], step_ms={"mixed": [], "decode": []},
+               messages=[], recorder=None)
+    begin, finish = eng.step_begin, eng.step_finish
+    kinds, clock = {}, {"prev": None}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+
+            def n_syncs():
+                return sum("synchroniz" in str(w.message) for w in caught)
+
+            def watched_begin():
+                n0, f0 = n_syncs(), eng.stats["fused_steps"]
+                pending = begin()
+                log["begin"] += n_syncs() - n0
+                log["recorder"] = eng.flight_recorder
+                if pending is not None and pending.toks is not None:
+                    kind = "mixed" if eng.stats["fused_steps"] > f0 \
+                        else "decode"
+                    kinds[id(pending)] = kind
+                    log["dispatches"].append((kind,
+                                              int(pending.toks.shape[0])))
+                    log["resident"].append(
+                        sum(s is not None for s in eng.slots))
+                return pending
+
+            def watched_finish(pending):
+                n0 = n_syncs()
+                done = finish(pending)
+                log["finish"] += n_syncs() - n0
+                log["finishes"] += 1
+                now = time.perf_counter()
+                kind = kinds.pop(id(pending), None)
+                if kind is not None and clock["prev"] is not None:
+                    log["step_ms"][kind].append((now - clock["prev"]) * 1e3)
+                clock["prev"] = now
+                return done
+
+            eng.step_begin, eng.step_finish = watched_begin, watched_finish
+            reset_kernel_counts()
+            b1, b8 = flash_attention_fwd.launches, int4_matmul.launches
+            clock["prev"] = time.perf_counter()
+            try:
+                yield log
+            finally:
+                del eng.step_begin, eng.step_finish
+                log["launches"] = kernel_counts()
+                log["b1_launches"] = flash_attention_fwd.launches - b1
+                log["b8_launches"] = int4_matmul.launches - b8
+                msgs = [str(w.message) for w in caught
+                        if "synchroniz" in str(w.message)]
+                log["elsewhere"] = len(msgs) - log["begin"] - log["finish"]
+                log["messages"] = sorted(set(msgs))[:5]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def window_gates(name, log, stride=None):
+    """The sync gates of one watched serve: no synchronizing call in a
+    ``step_begin`` or between the loop's steps, and none in a
+    ``step_finish`` beyond its readout; and, with the recorder the server
+    attached, each StepRecord's ``readout_stride`` against its dispatch:
+    a mixed step 1, an all-decode step ``stride`` with at most that many
+    rows read back (``stride`` None: the engine's ``horizon``, exactly)."""
+    require(log["begin"] == 0 and log["elsewhere"] == 0
+            and log["finish"] <= log["finishes"],
+            f"{name}: synchronizing calls in step_begin {log['begin']}, "
+            f"in step_finish {log['finish']} of {log['finishes']} "
+            f"readouts, elsewhere {log['elsewhere']}: {log['messages']}")
+    rec = log["recorder"]
+    if rec is None:
+        return
+    recs = [r for r in rec.records() if r.kind != "drain"]
+    require(len(recs) == len(log["dispatches"]),
+            f"{name}: {len(recs)} step records for "
+            f"{len(log['dispatches'])} dispatches")
+    for r, (kind, rows) in zip(recs, log["dispatches"]):
+        want = 1 if kind == "mixed" else (stride or rows)
+        require(r.kind == kind and r.readout_stride == want
+                and 1 <= rows <= r.readout_stride,
+                f"{name}: step {r.step_id} recorded {r.kind} at stride "
+                f"{r.readout_stride}, dispatched {kind} with {rows} rows")
+
+
+def rung_pass(eng, prompts, name, **server_kw):
+    """One pass of the rung's protocol: the requests through a fresh
+    AsyncLLMServer over ``eng`` with ``server_kw``, the whole serve
+    watched; every request must finish with its 64 tokens and the server
+    be healthy at the end. Returns the pass's line and its tokens."""
+    log = {}
+    srv = AsyncLLMServer(eng, max_queue_size=len(prompts) + 1, **server_kw)
+    with window_watch(eng, log):
+        srv.start()
+        t0 = time.perf_counter()
+        handles = [srv.submit(p, max_new_tokens=DENSE_NEW) for p in prompts]
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        health = srv.health()
+        srv.stop()
+    n_tok = sum(len(o.token_ids) for o in outs)
+    require(all(o.finished and o.finish_reason == "length"
+                and len(o.token_ids) == DENSE_NEW for o in outs),
+            f"{name}: a request did not finish with its {DENSE_NEW} tokens")
+    require(health["healthy"], f"{name}: server {health['state']} at the end")
+    window_gates(name, log)
+    return {"name": name, "tokens_per_s": n_tok / wall, "wall_s": wall,
+            "server": srv, "log": log, "outs": outs,
+            "tokens": [list(o.token_ids) for o in outs]}
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def overhead_pct(off, on):
+    return (median(off) - median(on)) / median(off) * 100
+
+
+def profile_stride(rung, dev, prompts, n_steps=2):
+    """Where a stride-8 all-decode step's time goes: the rung's first
+    eight requests in a fresh dense fused engine at ``readout_stride=8``,
+    ramped in and one stride warmed, then ``n_steps`` strides traced at
+    depth 1."""
+    eng = LLMEngine(rung, max_batch=DENSE_SLOTS, max_seq_len=DENSE_CAP,
+                    chunk_size=DENSE_CHUNK, scheduler="fused",
+                    readout_stride=RUNG_STRIDE, device=dev)
+    for p in prompts[:8]:
+        eng.add_request(p, max_new_tokens=DENSE_NEW)
+    eng.step()                      # admission assigns the slots
+    while any(s is not None and s.ramping for s in eng.slots):
+        eng.step()
+    run_window(eng, 1, 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, mixed, begin_ms = run_window(eng, n_steps, 1)
+        wall = time.perf_counter() - t0
+    require(mixed == 0, f"stride profile: {mixed} mixed steps")
+    win = device_breakdown(prof, wall, n_steps)
+    if win is not None:
+        win["step_begin_host_ms"] = begin_ms
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return win
+
+
+class _Out:
+    """A token list in the shape :func:`greedy_check` reads."""
+
+    def __init__(self, token_ids):
+        self.token_ids = token_ids
+
+
+def one_wave(model, dev, prompts, **engine_kw):
+    """At most one request a slot (no re-admission) through fused engines
+    at ``readout_stride`` 1 and 8, straight from ``generate``: every token
+    takes the same kind of step in both, so the streams must be equal bit
+    for bit (the stride's iterations run the single step's math). Returns
+    whether they are and the stride arm's multi-step dispatches."""
+    toks, multi = {}, 0
+    for stride in (1, RUNG_STRIDE):
+        eng = LLMEngine(model, scheduler="fused", readout_stride=stride,
+                        device=dev, **engine_kw)
+        toks[stride] = [list(o.token_ids) for o in eng.generate(
+            prompts, max_new_tokens=64)]
+        multi = eng.stats["multi_steps"]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return toks[1] == toks[RUNG_STRIDE], multi
+
+
+def arm_greedy(model, dev, prompts, streams, name):
+    """Each arm's tokens against the model's no-cache forward: two arms
+    that both pass agree up to their first near-tie, since up to there
+    they share the prefix the forward reads."""
+    res = {}
+    for arm, toks in streams.items():
+        checked, excused, mismatched = greedy_check(
+            model, dev, prompts, [_Out(t) for t in toks])
+        res[arm] = {"checked": checked, "excused_near_ties": excused,
+                    "mismatched": mismatched}
+        require(mismatched == 0, f"{name} {arm} arm: {mismatched} greedy "
+                f"tokens disagree with the no-cache forward beyond {MARGIN}")
+    return res
+
+
+def stride_pair_32(model, dev):
+    """The 32-layer model serves phase (d)'s 12 requests through paged
+    fused engines (8 slots, block 64, chunk 256, capacity 2,048) at
+    ``readout_stride=8`` and 1, each arm's serve watched. Gates: one wave
+    of 8 requests token-exact across the strides (:func:`one_wave`), both
+    arms of the full traffic through the greedy check (so they agree up
+    to near-ties), multi-step dispatches in the stride arm only and fewer
+    round trips there, B2 launched once a layer for every decode
+    iteration and B3 once a layer a mixed step, the sync and record
+    gates. Returns the pair's line."""
+    prompts = serving_prompts(model.config.vocab_size)
+    paged = dict(cache_impl="paged", block_size=64, max_batch=8,
+                 max_seq_len=2048, chunk_size=256)
+    wave_exact, wave_multi = one_wave(model, dev, prompts[:8], **paged)
+    require(wave_exact and wave_multi > 0,
+            f"32-layer one wave: strides 1 and {RUNG_STRIDE} differ "
+            f"(exact {wave_exact}, multi-steps {wave_multi})")
+    logs, arms, toks = {"off": {}, "on": {}}, {}, {}
+    L = model.config.num_hidden_layers
+    for arm, stride in (("off", 1), ("on", RUNG_STRIDE)):
+        def watch(eng, arm=arm):
+            return window_watch(eng, logs[arm])
+
+        arms[arm], toks[arm] = serve_stride_arm(
+            model, prompts, 64, 8, 2048, stride, chunk_size=256,
+            timeout=600, device=dev,
+            engine_kw=dict(cache_impl="paged", block_size=64), watch=watch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log = logs[arm]
+        window_gates(f"32-layer stride {stride}", log, stride)
+        iters = sum(r for k, r in log["dispatches"] if k == "decode")
+        n_mixed = sum(k == "mixed" for k, _ in log["dispatches"])
+        got = log["launches"]
+        require(got["b2_decode"] == iters * L and
+                got["b3_append"] == n_mixed * L and
+                got["b2_decode"] > 0 and log["b8_launches"] == 0,
+                f"32-layer stride {stride}: launches {got} for {iters} "
+                f"decode iterations and {n_mixed} mixed steps a layer")
+        arms[arm].update(
+            decode_iterations=iters, mixed_steps=n_mixed,
+            launches=got, step_begin_syncs=log["begin"],
+            step_finish_syncs=log["finish"],
+            decode_step_ms_median=median(log["step_ms"]["decode"])
+            if log["step_ms"]["decode"] else None,
+            mixed_step_ms_median=median(log["step_ms"]["mixed"])
+            if log["step_ms"]["mixed"] else None)
+    on, off = arms["on"], arms["off"]
+    require(on["multi_steps"] > 0 and off["multi_steps"] == 0 and
+            on["host_round_trips"] < off["host_round_trips"],
+            f"32-layer stride pair: multi-steps {on['multi_steps']} / "
+            f"{off['multi_steps']}, round trips {on['host_round_trips']} / "
+            f"{off['host_round_trips']}")
+    greedy = arm_greedy(model, dev, prompts, toks, "32-layer stride pair")
+    return {"arms": arms, "speedup": on["tokens_per_sec"]
+            / off["tokens_per_sec"], "one_wave_exact": wave_exact,
+            "one_wave_multi_steps": wave_multi,
+            "drift": drift(toks["off"], toks["on"]), "greedy": greedy,
+            "b2_launches": on["launches"]["b2_decode"]
+            + off["launches"]["b2_decode"],
+            "b3_launches": on["launches"]["b3_append"]
+            + off["launches"]["b3_append"]}
+
+
+def run_serve_rung(model, dev):
+    """(d-vii): the llama_serve rung. Its model (7B widths, ff 11264, 3
+    layers, MHA, bf16, seed 0) and 16 requests (256-511 tokens, 64 new)
+    through AsyncLLMServer over ``LLMEngine(model, max_batch=8,
+    max_seq_len=576, chunk_size=256, horizon=64)`` (dense, legacy) in the
+    rung's passes: a plain pass, then flight recorder on against off,
+    supervision against off, the metrics store against off and trace
+    contexts off against on, each side the median of three alternating
+    passes; the recorder's chrome trace (to a temporary directory), p99
+    tail and snapshot; then the multi-step A/B through
+    ``tools/multi_step_ab.py`` (dense fused engines at readout_stride 8
+    against 1), a few traced stride-8 steps, and the 32-layer model's
+    stride pair (:func:`stride_pair_32`). Gates: every request finishes
+    with its 64 tokens in every pass and arm, every pass's streams equal
+    the plain pass's, one wave of the A/B's engines token-exact
+    (:func:`one_wave`) and both served arms through the greedy check,
+    multi-step dispatches and fewer round trips in the stride arm, no
+    kernel and no counted plain version in a dense arm, the sync and
+    record gates of :func:`window_gates`, the server healthy, the greedy
+    check on the plain pass. Returns the 32-layer pair's B2 and B3
+    launches."""
+    t_phase = time.perf_counter()
+    rung = build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                       intermediate_size=DENSE_FF,
+                       max_position_embeddings=DENSE_CAP)
+    prompts = dense_prompts(rung.config.vocab_size)
+    eng = rung_engine(rung, dev, "legacy")
+    with counting_plain() as plain_calls:
+        eng.generate([prompts[0]], max_new_tokens=2)   # warm
+        torch.cuda.synchronize()
+        rtts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            float(eng._logits[0, 0])
+            rtts.append(time.perf_counter() - t0)
+        rtt = median(rtts)
+        eng.reset_stats()
+        passes = []
+
+        def run(name, **kw):
+            res = rung_pass(eng, prompts, name, **kw)
+            passes.append(res)
+            return res
+
+        plain = run("plain")
+        stats_plain = dict(eng.stats)
+        on_tps, off_tps = [], [plain["tokens_per_s"]]
+        recorder = server_on = None
+        for i in range(RUNG_REPS):
+            recorder = FlightRecorder()
+            res = run(f"recorder_on_{i}", flight_recorder=recorder)
+            on_tps.append(res["tokens_per_s"])
+            server_on, wall_on = res["server"], res["wall_s"]
+            if len(off_tps) < RUNG_REPS:
+                off_tps.append(run(f"recorder_off_{i}")["tokens_per_s"])
+        sup_on, sup_off, ms_on, ms_off, tc_on, tc_off = ([] for _ in range(6))
+        for i in range(RUNG_REPS):
+            sup_on.append(run(f"supervised_{i}", supervise=RestartPolicy(),
+                              step_timeout_s=300.0)["tokens_per_s"])
+            sup_off.append(run(f"unsupervised_{i}")["tokens_per_s"])
+        store_series = 0
+        for i in range(RUNG_REPS):
+            res = run(f"metrics_store_{i}", metrics_store=True)
+            ms_on.append(res["tokens_per_s"])
+            store_series = len(res["server"].metrics_store.snapshot()
+                               ["series"])
+            ms_off.append(run(f"no_metrics_store_{i}")["tokens_per_s"])
+        for i in range(RUNG_REPS):
+            tc_on.append(run(f"trace_context_{i}")["tokens_per_s"])
+            tc_off.append(run(f"no_trace_context_{i}",
+                              trace_context=False)["tokens_per_s"])
+        with tempfile.TemporaryDirectory() as tmp:
+            trace_path = recorder.export_chrome_trace(
+                os.path.join(tmp, "llama_serve_trace.json"))
+            trace_bytes = os.path.getsize(trace_path)
+            with open(trace_path) as f:
+                trace_events = len(json.load(f)["traceEvents"])
+        tail_p99 = recorder.explain_tail(0.99, top=64)
+        rec_snap = recorder.snapshot(tail=tail_p99)
+        on_snap = server_on.telemetry.snapshot(wall_s=wall_on)
+        snap = plain["server"].telemetry.snapshot(wall_s=plain["wall_s"])
+        dense_launches = [(p["name"], p["log"]["launches"],
+                           p["log"]["b1_launches"], p["log"]["b8_launches"])
+                          for p in passes]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        ab_logs = {}
+
+        def ab_watch(arm, eng):
+            return window_watch(eng, ab_logs.setdefault(arm, {}))
+
+        ab_streams = {}
+        multi_ab = serve_multi_step_ab(
+            rung, prompts, DENSE_NEW, DENSE_SLOTS, DENSE_CAP, RUNG_STRIDE,
+            rtt_s=rtt, chunk_size=DENSE_CHUNK, timeout=600, device=dev,
+            watch=ab_watch, streams=ab_streams)
+        for arm, log in ab_logs.items():
+            window_gates(f"multi-step A/B {arm}", log,
+                         RUNG_STRIDE if arm == "on" else 1)
+            dense_launches.append((f"multi_step_{arm}", log["launches"],
+                                   log["b1_launches"], log["b8_launches"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    checked, excused, mismatched = greedy_check(rung, dev, prompts,
+                                                plain["outs"])
+    ab_greedy = arm_greedy(rung, dev, prompts, ab_streams,
+                           "serve_rung multi-step A/B")
+    wave_exact, wave_multi = one_wave(
+        rung, dev, prompts[:DENSE_SLOTS], max_batch=DENSE_SLOTS,
+        max_seq_len=DENSE_CAP, chunk_size=DENSE_CHUNK)
+    stride_profile = profile_stride(rung, dev, prompts)
+    del rung
+    gc.collect()
+    torch.cuda.empty_cache()
+    with counting_plain() as plain_32:
+        pair = stride_pair_32(model, dev)
+    lat = snap["latency"]
+    on, off = multi_ab["on"], multi_ab["off"]
+    emit({"phase": "serve_rung", "layers": DENSE_LAYERS, "ff": DENSE_FF,
+          "slots": DENSE_SLOTS, "capacity": DENSE_CAP, "chunk": DENSE_CHUNK,
+          "horizon": DENSE_HORIZON, "requests": len(prompts),
+          "new_tokens": DENSE_NEW, "readout_stride": RUNG_STRIDE,
+          "rtt_est_ms": rtt * 1e3,
+          "tokens_per_s": {p["name"]: p["tokens_per_s"] for p in passes},
+          # what sets a pass's pace: its dispatches, and how many of the
+          # 8 slots the first one holds (admission races the submits)
+          "dispatches": {p["name"]: len(p["log"]["dispatches"])
+                         for p in passes},
+          "first_dispatch_resident": {
+              p["name"]: p["log"]["resident"][0] for p in passes},
+          "prefill_chunks": stats_plain["prefill_chunks"],
+          "steps": stats_plain["steps"],
+          "flight_recorder_overhead_pct": overhead_pct(off_tps, on_tps),
+          "supervision_overhead_pct": overhead_pct(sup_off, sup_on),
+          "metrics_store_overhead_pct": overhead_pct(ms_off, ms_on),
+          "trace_context_overhead_pct": overhead_pct(tc_off, tc_on),
+          "metrics_store_series": store_series,
+          "ttft_p50_ms": lat["ttft"]["p50_s"] * 1e3,
+          "e2e_p50_ms": lat["e2e"]["p50_s"] * 1e3,
+          "stage_share": snap["attribution"]["stage_share"],
+          "recorder_on_stage_share": on_snap["attribution"]["stage_share"],
+          "tail_causes_p99": rec_snap["tail_causes_p99"],
+          "explain_tail_p99": tail_p99[:4],
+          "recorder_snapshot": rec_snap, "trace_events": trace_events,
+          "trace_bytes": trace_bytes,
+          "multi_step": multi_ab,
+          "multi_step_speedup": multi_ab["multi_step_speedup"],
+          "multi_step_drift": drift(ab_streams["off"], ab_streams["on"]),
+          "multi_step_greedy": ab_greedy,
+          "one_wave_exact": wave_exact, "one_wave_multi_steps": wave_multi,
+          "multi_step_decode_step_ms": {
+              arm: median(log["step_ms"]["decode"])
+              if log["step_ms"]["decode"] else None
+              for arm, log in ab_logs.items()},
+          "multi_step_dispatch_rows": {
+              arm: collections.Counter(r for k, r in log["dispatches"]
+                                       if k == "decode")
+              for arm, log in ab_logs.items()},
+          "stride_profile": stride_profile,
+          "stride_pair_32_layers": pair,
+          "greedy_checked": checked, "greedy_excused_near_ties": excused,
+          "greedy_mismatched": mismatched, "margin": MARGIN,
+          "plain_calls": dict(plain_calls), "plain_calls_32": dict(plain_32),
+          "seconds": time.perf_counter() - t_phase})
+    for name, launches, b1, b8 in dense_launches:
+        require(all(n == 0 for n in launches.values()) and b1 == 0 and b8 == 0,
+                f"serve_rung {name}: kernels launched in a dense arm: "
+                f"{launches}, B1 {b1}, B8 {b8}")
+    require(not plain_calls and not plain_32,
+            f"serve_rung: plain versions ran on the card: "
+            f"{dict(plain_calls)}, {dict(plain_32)}")
+    for p in passes[1:]:
+        require(p["tokens"] == plain["tokens"],
+                f"serve_rung {p['name']}: streams differ from the plain "
+                f"pass: {drift(plain['tokens'], p['tokens'])}")
+    require(on["multi_steps"] > 0 and off["multi_steps"] == 0
+            and on["host_round_trips"] < off["host_round_trips"],
+            f"serve_rung multi-step A/B: {multi_ab}")
+    require(wave_exact and wave_multi > 0,
+            f"serve_rung one wave: strides 1 and {RUNG_STRIDE} differ "
+            f"(exact {wave_exact}, multi-steps {wave_multi})")
+    require(mismatched == 0, f"serve_rung: {mismatched} greedy tokens "
+            f"disagree with the no-cache forward beyond {MARGIN}")
+    return {"b2_decode": pair["b2_launches"],
+            "b3_append": pair["b3_launches"]}
+
+
+# ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
 
@@ -3260,6 +3760,8 @@ def main():
     torch.cuda.empty_cache()
     dense_launches = run_dense_serving(model, dev, fused_tokens)
     torch.cuda.empty_cache()
+    rung_launches = run_serve_rung(model, dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -3318,14 +3820,14 @@ def main():
          "source": PAGED_SRC, "replaces": PAGED_REPLACES,
          "launches": paged_launches + fused_decode_launches
          + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
-         + dense_launches["b2_decode"],
+         + dense_launches["b2_decode"] + rung_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
         {"name": "paged_attention_append", "route": "cuda",
          "source": APPEND_SRC, "replaces": APPEND_REPLACES,
          "launches": append_launches + prefix_launches.get("b3_append", 0)
-         + dense_launches["b3_append"],
+         + dense_launches["b3_append"] + rung_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],

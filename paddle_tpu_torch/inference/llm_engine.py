@@ -14,7 +14,18 @@ What this port serves — ``LLMEngine(cache_impl="dense" | "paged")`` with
   with a ramping slot is ONE mixed dispatch: per slot either one bounded
   prefill chunk (``_Slot.prefill_pos`` tracks progress) or one decode
   token, under the per-step token budget ``max_step_tokens``. All-decode
-  steps fall through to the legacy decode path (with ``horizon``).
+  steps fall through to the legacy decode path (with ``horizon``), or,
+  with ``readout_stride=k > 1``, run up to ``k`` decode iterations as ONE
+  dispatch read back by ONE sync (multi-step decode, reference
+  ``llm_engine.py:1106-1148``): the reference's ``while_loop`` stops on
+  the device once no slot is active; eager PyTorch cannot stop without
+  reading the device, so the port runs ``min(k, max(budgets))``
+  iterations (the host's own upper bound on live rows) with the carried
+  activity mask, and rows past the last active one come out all-inactive,
+  as the reference's zero rows past its exit do. A request's
+  ``readout_stride`` pin caps the stride of every all-decode step it is
+  resident in. ``step_finish`` backdates each row's emit stamp to its
+  amortized device step boundary (``emit_backdate_s``).
 
 ``cache_impl="dense"`` (the reference's default) keeps one zeroed ``[B,
 capacity, Hkv, D]`` K and V buffer per layer, a slot's rows at its own
@@ -72,7 +83,11 @@ reference's serving surface: ``reset`` (crash recovery), ``cancel``,
 the ``fault_injector`` hooks at ``step_begin``/``step_finish``,
 ``emit_backdate_s`` and the pool-capacity accounting (``kv_pool_nbytes``,
 ``kv_bytes_per_block``, ``kv_pool_effective_blocks``; 0 on a dense
-engine).
+engine). An attached :class:`~paddle_tpu_torch.profiler.FlightRecorder`
+(``flight_recorder``) gets one ``StepRecord`` per dispatch (decode,
+mixed, or a "drain" of preemptions and retirements alone) and every
+emitted token stamped with its step id, as the reference's engine emits
+them.
 
 ``enable_prefix_cache=True`` (paged only) makes the allocator a
 ref-counted, content-addressed store (reference ``llm_engine.py:2119-2356``):
@@ -84,15 +99,19 @@ a copy-on-write tail, a private clone of a cached block whose leading
 tokens continue the prompt). Shared blocks are never written. Allocation
 evicts the oldest LRU block before any slot is preempted.
 
-``add_request`` takes the reference's keyword arguments. Values the
-reference leaves inert on such an engine (a ``readout_stride`` pin,
-``spec_ewma``, ``trace_ctx``) are stored on the request; embedding
+``add_request`` takes the reference's keyword arguments: a
+``readout_stride`` pin (live on a stride engine, inert on a stride-1
+one), ``spec_ewma`` (inert without speculation) and ``trace_ctx``
+(stamped on an attached recorder) are stored on the request; embedding
 requests (ROADMAP A10) and KV export (A8(h)) raise
 ``NotImplementedError``.
 
 Not in this port yet (each raises ``NotImplementedError``): speculation,
-multi-step readout, LoRA adapters, the host KV tier and meshes; sampling
-with ``temperature > 0`` waits for the threefry port (ROADMAP A7).
+LoRA adapters, the host KV tier and meshes; sampling with ``temperature >
+0`` waits for the threefry port (ROADMAP A7). The reference's
+``PADDLE_TPU_TRANSFER_CHECKS=1`` stride guard (a thread-local
+``jax.transfer_guard``) has no thread-local torch form and is not ported
+(ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -123,6 +142,7 @@ def default_engine_stats():
     engine's paths touch (the server reads them by name)."""
     return {"steps": 0, "prefill_chunks": 0, "tokens_generated": 0,
             "preemptions": 0, "prefill_tokens": 0, "fused_steps": 0,
+            "multi_steps": 0,
             "prefix_hit_tokens": 0, "prefix_cow_blocks": 0,
             "prefix_evicted_blocks": 0,
             "decode_time_s": 0.0, "admit_time_s": 0.0,
@@ -207,10 +227,13 @@ class PendingStep:
     decode growth the dispatch scheduled (the fused engine pays it back off
     ``_Slot.inflight``); ``fenced`` lists the blocks it may write;
     ``event`` is the CUDA event recorded after its work (None on the
-    CPU, where the work has run by the time ``step_begin`` returns)."""
+    CPU, where the work has run by the time ``step_begin`` returns).
+    ``step_id`` is the flight recorder's StepRecord id (None without a
+    recorder); ``t_dispatch`` the ``perf_counter`` at dispatch, over which
+    the readout amortizes a multi-row stride's emit stamps."""
 
     __slots__ = ("toks", "was_active", "slots", "pool_done", "sched",
-                 "fenced", "event")
+                 "fenced", "event", "step_id", "t_dispatch")
 
     def __init__(self, toks, was_active, slots, pool_done, sched=None,
                  fenced=None, event=None):
@@ -221,6 +244,8 @@ class PendingStep:
         self.sched = sched or {}
         self.fenced = fenced or []
         self.event = event
+        self.step_id = None
+        self.t_dispatch = None
 
 
 def _unported(what, item):
@@ -237,7 +262,9 @@ class LLMEngine:
     ``scheduler="fused"``: per-step token budget ``max_step_tokens``
     (default ``chunk_size + max_batch - 1``: one full chunk plus a decode
     token for every other slot; decode tokens are always granted, the
-    budget bounds prefill interference)."""
+    budget bounds prefill interference). ``readout_stride=k > 1`` (fused
+    only, not with ``horizon > 1``) runs all-decode steps as up to ``k``
+    decode iterations per dispatch and readout."""
 
     def __init__(self, model, max_batch=4, max_seq_len=None, chunk_size=64,
                  top_k=0, stream_callback=None, horizon=1, speculative_k=1,
@@ -268,8 +295,21 @@ class LLMEngine:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if int(speculative_k) > 1:
             _unported("speculative_k > 1", "A8(e)")
-        if int(readout_stride) > 1:
-            _unported("readout_stride > 1", "A8(d)")
+        #: multi-step all-decode (fused scheduler): up to this many decode
+        #: iterations per dispatch, capped per step by the resident
+        #: slots' pins (reference ``llm_engine.py:498-517``)
+        self.readout_stride = max(1, int(readout_stride))
+        if self.readout_stride > 1:
+            if scheduler != "fused":
+                raise ValueError(
+                    "readout_stride > 1 needs scheduler='fused' (the "
+                    "legacy scheduler already amortizes host syncs with "
+                    "`horizon`; the stride is the fused scheduler's "
+                    "all-decode fast path)")
+            if int(horizon) > 1:
+                raise ValueError(
+                    "readout_stride generalizes `horizon` for the fused "
+                    "scheduler's all-decode steps — set one, not both")
         if adapter_store is not None:
             _unported("adapter_store (batched multi-LoRA)", "A10")
         if kv_host_swap or kv_host_spill_bytes:
@@ -328,6 +368,8 @@ class LLMEngine:
         self._admit_order = [0] * self.B
         self._admit_seq = 0
         self._init_device_state()
+        #: pool bytes, payload and scales (what a StepRecord carries)
+        self._kv_nbytes = self.kv_pool_nbytes()
         self.slots: list[_Slot | None] = [None] * self.B
         self.waiting: collections.deque[GenerationRequest] = \
             collections.deque()
@@ -341,6 +383,12 @@ class LLMEngine:
         #: optional FaultInjector (serving.faults): scripted chaos fires at
         #: the step_begin/step_finish hooks; None costs one attribute check
         self.fault_injector = None
+        #: optional FlightRecorder (profiler.flight_recorder): when attached
+        #: and enabled, each dispatch emits one StepRecord and each emitted
+        #: token its step id; None costs one attribute check a step
+        self.flight_recorder = None
+        self._rec_ctx = None       # per-step_begin wall-split anchors
+        self._rec_preempted = []   # rids parked by _preempt_slot this step
         #: seconds the current token's emit stamp is backdated by (the
         #: reference amortizes multi-row readouts; one-row steps: 0.0)
         self.emit_backdate_s = 0.0
@@ -417,6 +465,8 @@ class LLMEngine:
         self._preempted_prefix.clear()
         self._inflight = 0
         self._admit_order = [0] * self.B
+        self._rec_ctx = None
+        self._rec_preempted = []
         self._init_device_state()
         self._check_pool_invariants()
         return self
@@ -498,13 +548,14 @@ class LLMEngine:
         ``max_new_tokens`` counts new tokens only.
 
         The reference's other keyword arguments, validated as it does
-        (``llm_engine.py:1902-1950``): ``readout_stride`` (a latency-tier
-        pin, >= 1; inert on this engine, whose readout stride is 1),
-        ``adapter_id`` (nonzero needs an adapter store, which this port
-        does not have yet), ``kind`` ("generate"; "embed" is ROADMAP A10),
-        ``spec_ewma`` (inert without speculation), ``export_kv`` (ROADMAP
-        A8(h)) and ``trace_ctx`` (inert without a flight recorder). The
-        inert ones are stored on the request."""
+        (``llm_engine.py:1902-1975``): ``readout_stride`` (a latency-tier
+        pin, >= 1: every all-decode step the request is resident in runs
+        at most this stride; inert on a stride-1 engine), ``adapter_id``
+        (nonzero needs an adapter store, which this port does not have
+        yet), ``kind`` ("generate"; "embed" is ROADMAP A10), ``spec_ewma``
+        (inert without speculation), ``export_kv`` (ROADMAP A8(h)) and
+        ``trace_ctx`` (stamped on an attached flight recorder's
+        timeline). All are stored on the request."""
         ids = np.asarray(
             prompt_ids.cpu().numpy() if isinstance(prompt_ids, torch.Tensor)
             else prompt_ids, dtype=np.int32).reshape(-1)
@@ -556,6 +607,14 @@ class LLMEngine:
             adapter_id=adapter_id, kind=kind,
             spec_ewma=float(spec_ewma) if spec_ewma is not None else None,
             export_kv=bool(export_kv), trace_ctx=trace_ctx))
+        if trace_ctx is not None:
+            rec = self._rec()
+            if rec is not None:
+                # direct-engine admissions stamp the timeline here; a
+                # server's submit already stamped its own recorder
+                # (set_trace_ctx is idempotent for the same context)
+                rec.set_trace_ctx(rid, trace_ctx if isinstance(
+                    trace_ctx, dict) else trace_ctx.to_dict())
         return rid
 
     def has_unfinished(self):
@@ -993,6 +1052,8 @@ class LLMEngine:
             spec_ewma=req.spec_ewma, export_kv=req.export_kv))
         self._free_slot(b)
         self.stats["preemptions"] += 1
+        if self._rec() is not None:
+            self._rec_preempted.append(req.request_id)
 
     def _finish_tokens(self, req, generated):
         """Full output stream including tokens committed before a
@@ -1120,6 +1181,13 @@ class LLMEngine:
                 self._release_slot_blocks(slot_idx)
                 return False
         self.stats["prefix_hit_tokens"] += hit
+        # legacy admission prefills BEFORE the step dispatches: its spans
+        # stamp the id the upcoming dispatch will take, so request time
+        # still joins back to a StepRecord
+        rec = self._rec()
+        if hit and rec is not None:
+            rec.req_event(req.request_id, "cached_prefix",
+                          step_id=rec.next_step_id(), value=hit)
         padded = np.zeros((max(-(-P // self.chunk) * self.chunk,
                                self.chunk),), np.int32)
         padded[:P] = req.prompt_ids
@@ -1146,6 +1214,9 @@ class LLMEngine:
             off += take
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += take
+            if rec is not None:
+                rec.req_event(req.request_id, "prefill",
+                              step_id=rec.next_step_id(), value=take)
         if self._paged:
             keep = P // self.block_size + 1
             blocks = self._slot_blocks[slot_idx]
@@ -1182,7 +1253,12 @@ class LLMEngine:
         slot = self.slots[slot_idx] = _Slot(req, len(req.prompt_ids),
                                             prefill_pos=hit)
         slot.chain, slot.reg_blocks = chain, len(chain)
-        self.stats["prefix_hit_tokens"] += hit
+        if hit:
+            self.stats["prefix_hit_tokens"] += hit
+            rec = self._rec()
+            if rec is not None:
+                rec.req_event(req.request_id, "cached_prefix",
+                              step_id=rec.next_step_id(), value=hit)
         self._admit_order[slot_idx] = self._admit_seq
         self._admit_seq += 1
         self.stats["admit_time_s"] += time.perf_counter() - t0
@@ -1271,13 +1347,15 @@ class LLMEngine:
                 for k, v, ks, vs in zip(self._k, self._v, self._k_scale,
                                         self._v_scale)]
 
-    def _decode(self, active, eos_ids, budgets):
-        """``horizon`` greedy decode iterations for every slot, all on the
-        device: sample from the carried logits, one-token model step through
-        the slot buffers or the paged pools, carry logits and lens. Inactive
-        slots decode token 0 and keep their carried logits (a slot
-        deactivated by the pool budget clamp samples from them next
-        step)."""
+    def _decode(self, active, eos_ids, budgets, n_iter):
+        """``n_iter`` greedy decode iterations for every slot, all on the
+        device (``horizon`` on the scan path, the trimmed stride on a
+        multi-step dispatch): sample from the carried logits, one-token
+        model step through the slot buffers or the paged pools, carry
+        logits and lens. Inactive slots decode token 0 and keep their
+        carried logits (a slot deactivated by the pool budget clamp
+        samples from them next step); a row after every slot stopped comes
+        out all-inactive."""
         tables = self._upload(self._tables) if self._paged else None
         act = self._upload(active)
         eos = self._upload(eos_ids)
@@ -1286,7 +1364,7 @@ class LLMEngine:
         emitted = torch.zeros_like(lens)
         toks, was_active = [], []
         model = self.model
-        for _ in range(self.horizon):
+        for _ in range(n_iter):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
             caches = self._caches(tables, lens)
@@ -1337,6 +1415,67 @@ class LLMEngine:
         self._lens = lens + q_eff
         return nxt[None], dec[None]
 
+    def _rec(self):
+        """The attached FlightRecorder when it is recording, else None:
+        the one-attribute-check gate every hook goes through."""
+        r = self.flight_recorder
+        return r if (r is not None and r.enabled) else None
+
+    def _record_dispatch(self, pending, kind, grants, scheduled, budget,
+                         dispatch_s, readout_stride=1):
+        """Emit this dispatch's StepRecord (recorder attached and armed by
+        step_begin) and stamp ``pending`` with its step id (reference
+        ``llm_engine.py:3443-3502``). The admit/schedule splits come from
+        the engine's own stats deltas anchored at step_begin entry. The
+        host KV tier (A8(g)) and adapters (A10) are not ported: their
+        fields carry what a reference engine without them records."""
+        rec, ctx = self._rec(), self._rec_ctx
+        if rec is None or ctx is None:
+            return
+        t0, admit0, hits0 = ctx
+        wall = time.perf_counter() - t0
+        admit_s = self.stats["admit_time_s"] - admit0
+        paged = self._paged
+        preempted = tuple(self._rec_preempted) + tuple(
+            o.request_id for o in pending.pool_done)
+        pending.step_id = rec.begin_step(
+            scheduler=self.scheduler, kind=kind, grants=grants,
+            tokens_scheduled=scheduled, token_budget=budget,
+            queue_depth=len(self.waiting),
+            free_blocks=len(self._free_blocks) if paged else None,
+            total_blocks=self.n_blocks if paged else None,
+            pipeline_inflight=self._inflight,
+            preemptions=preempted, admit_s=admit_s,
+            schedule_s=max(wall - admit_s - dispatch_s, 0.0),
+            dispatch_s=dispatch_s, t_begin=t0,
+            prefix_hit_tokens=(self.stats["prefix_hit_tokens"] - hits0
+                               if self.prefix_cache else None),
+            cached_blocks=len(self._lru) if self.prefix_cache else None,
+            readout_stride=readout_stride,
+            kv_pool_bytes=self._kv_nbytes if paged else None,
+            kv_cache_dtype=(self.kv_quant
+                            or str(self._dtype).replace("torch.", ""))
+            if paged else None,
+            kv_swap_in_bytes=0 if paged else None,
+            kv_swap_out_bytes=0 if paged else None,
+            kv_host_spill_blocks=0 if paged else None,
+            kv_ship_in_bytes=0 if paged else None,
+            kv_ship_out_bytes=0 if paged else None,
+            adapter_slots=(), adapter_swaps=0)
+        self._rec_ctx = None
+
+    def _effective_stride(self):
+        """The readout stride of the NEXT all-decode dispatch (reference
+        ``llm_engine.py:1778-1789``): the engine's ``readout_stride``
+        capped by every active slot's pin (a latency-tier request pinning
+        1 drags the whole batch to per-step readout while it is resident),
+        and ``horizon`` off the fused stride path."""
+        if self.scheduler != "fused" or self.readout_stride <= 1:
+            return self.horizon
+        pins = [s.req.readout_stride for s in self.slots
+                if s is not None and s.req.readout_stride is not None]
+        return max(1, min([self.readout_stride] + pins))
+
     def step_begin(self):
         """Admit waiting requests into free slots and DISPATCH one step for
         the active slots without waiting on the device. Returns a
@@ -1356,6 +1495,14 @@ class LLMEngine:
             return self._step_begin()
 
     def _step_begin(self):
+        if self._rec() is not None:
+            # wall-split anchors for this step's record: entry time, the
+            # admit-stat baseline (scheduling = wall - admit - dispatch)
+            # and the prefix-hit baseline (the record carries the delta)
+            self._rec_ctx = (time.perf_counter(),
+                             self.stats["admit_time_s"],
+                             self.stats["prefix_hit_tokens"])
+            self._rec_preempted = []
         self._admit_waiting()
         if not any(s is not None for s in self.slots):
             if self.waiting and self._paged:
@@ -1375,7 +1522,11 @@ class LLMEngine:
             # a slot is ramping in: ONE mixed dispatch covers its prefill
             # chunk AND every decode slot's token
             return self._begin_mixed_step(pool_done)
-        stride = self.horizon
+        # ALL-DECODE: with readout_stride > 1 the fused scheduler runs up
+        # to `stride` decode iterations as one dispatch, its block
+        # coverage and write fence pre-granted for the whole stride;
+        # legacy engines keep stride == horizon
+        stride = self._effective_stride()
         pool_budget = {}
         # block coverage for the stride's growth; pool pressure first grabs
         # whatever blocks remain (partial coverage + a budget clamp), then
@@ -1415,7 +1566,13 @@ class LLMEngine:
         active = np.array([s is not None for s in self.slots])
         if not active.any():
             if pool_done:
-                return PendingStep(None, None, list(self.slots), pool_done)
+                pending = PendingStep(None, None, list(self.slots),
+                                      pool_done)
+                # no dispatch, but preemptions or retirements happened:
+                # record the drain so the causal chain has no hole
+                self._record_dispatch(pending, "drain", (), 0,
+                                      self.B * self.horizon, 0.0)
+                return pending
             return None
         eos_ids = np.array([(s.req.eos_token_id if s and
                              s.req.eos_token_id is not None else -1)
@@ -1435,12 +1592,26 @@ class LLMEngine:
                     hi = min(slot.sched_len() + stride - 1,
                              self.capacity - 1)
                     self._fence_blocks(b, lo, hi, fenced)
+        # multi-step all-decode: one dispatch of up to `stride` iterations
+        # read back by one sync. The reference's loop exits on the device
+        # once no slot is active; here the host trims it to what it
+        # already knows, the largest remaining budget (a row past it is
+        # inactive for every slot), and never reads the device to decide.
+        # Pinned latency-tier steps (stride 1), horizon and legacy engines
+        # keep the scan path
+        use_multi = self.readout_stride > 1 and stride > 1
+        n_iter = stride
+        if use_multi:
+            n_iter = max(1, min(stride, int(budgets[active].max())))
         t0 = time.perf_counter()
-        toks, was_active = self._decode(active, eos_ids, budgets)
+        toks, was_active = self._decode(active, eos_ids, budgets, n_iter)
+        if use_multi:
+            self.stats["multi_steps"] += 1
         sched = {}
         if fused:
             # host lens mirror: a surviving slot grows exactly `stride`
-            # tokens per dispatch
+            # tokens per dispatch (every early deactivation, eos, budget
+            # or capacity, also retires the slot at readout)
             for b, slot in enumerate(self.slots):
                 if slot is not None:
                     slot.inflight += stride
@@ -1448,8 +1619,18 @@ class LLMEngine:
         pending = self._dispatched(toks, was_active, pool_done, sched,
                                    fenced)
         dt = time.perf_counter() - t0
+        pending.t_dispatch = t0
         self.stats["dispatch_time_s"] += dt
         self.stats["decode_time_s"] += dt
+        if self._rec() is not None:
+            # ONE decode grant per slot covering the whole stride
+            grants = tuple((b, s.req.request_id, "decode", stride)
+                           for b, s in enumerate(self.slots)
+                           if s is not None and active[b])
+            self._record_dispatch(pending, "decode", grants,
+                                  sum(g[3] for g in grants),
+                                  self.B * stride, dt,
+                                  readout_stride=stride)
         return pending
 
     # ------------------------------------------------------------------
@@ -1552,7 +1733,11 @@ class LLMEngine:
                 break
         if not active.any():
             if pool_done:
-                return PendingStep(None, None, list(self.slots), pool_done)
+                pending = PendingStep(None, None, list(self.slots),
+                                      pool_done)
+                self._record_dispatch(pending, "drain", (), 0,
+                                      self.max_step_tokens, 0.0)
+                return pending
             return None
         # write fence over this dispatch's spans: the decode token per
         # decode slot, the granted chunk span per ramping slot
@@ -1585,8 +1770,22 @@ class LLMEngine:
         pending = self._dispatched(toks, was_active, pool_done, sched,
                                    fenced)
         dt = time.perf_counter() - t0
+        pending.t_dispatch = t0
         self.stats["dispatch_time_s"] += dt
         self.stats["decode_time_s"] += dt
+        rec = self._rec()
+        if rec is not None:
+            grants = tuple(
+                (int(b), self.slots[b].req.request_id,
+                 "decode" if is_dec[b] else "prefill", int(q_lens[b]))
+                for b in np.nonzero(active)[0] if self.slots[b] is not None)
+            self._record_dispatch(pending, "mixed", grants,
+                                  sum(g[3] for g in grants),
+                                  self.max_step_tokens, dt)
+            for _, rid, gkind, n in grants:
+                if gkind == "prefill":
+                    rec.req_event(rid, "prefill",
+                                  step_id=pending.step_id, value=n)
         return pending
 
     def step_finish(self, pending):
@@ -1598,7 +1797,12 @@ class LLMEngine:
         fi = self.fault_injector
         if fi is not None:
             fi.on_step_finish(self)
+        rec = self._rec()
+        sid = pending.step_id
         if pending.toks is None:
+            if rec is not None and sid is not None:
+                rec.finish_step(sid, 0.0, 0.0, tuple(
+                    o.request_id for o in pending.pool_done))
             return list(pending.pool_done)
         self._inflight -= 1
         # pay the dispatch's scheduled decode growth back off the host lens
@@ -1620,6 +1824,18 @@ class LLMEngine:
         # so its write fences drop BEFORE the readout can free blocks
         if pending.fenced:
             self._unfence(pending.fenced)
+        # batched-readout stamp amortization (reference :4365-4395): a
+        # k-row readout drains k device iterations in this one sync, so
+        # each row's emit stamp is backdated by the iterations still ahead
+        # of it, the dispatch-to-sync window divided over the rows the
+        # device ran with any slot active
+        n_exec = int(act_np.any(axis=1).sum())
+        per_row = 0.0
+        if toks_np.shape[0] > 1 and pending.t_dispatch is not None \
+                and n_exec > 1:
+            per_row = max(time.perf_counter() - pending.t_dispatch,
+                          0.0) / n_exec
+        now_pc = time.perf_counter()
         t0 = time.perf_counter()
         done = list(pending.pool_done)
         for b, slot in enumerate(pending.slots):
@@ -1634,6 +1850,12 @@ class LLMEngine:
                 slot.generated.append(tok)
                 n_read += 1
                 self.stats["tokens_generated"] += 1
+                self.emit_backdate_s = max(n_exec - 1 - k, 0) * per_row
+                if rec is not None and sid is not None:
+                    # the token-to-step join, stamped at the token's
+                    # amortized device step boundary
+                    rec.on_token(slot.req.request_id, sid,
+                                 t=now_pc - self.emit_backdate_s)
                 if self.stream_callback is not None:
                     self.stream_callback(slot.req.request_id, tok)
                     if self.slots[b] is not slot:
@@ -1665,7 +1887,12 @@ class LLMEngine:
                 self.finished_outputs[slot.req.request_id] = out
                 done.append(out)
                 self._free_slot(b)
-        self.stats["emit_time_s"] += time.perf_counter() - t0
+        self.emit_backdate_s = 0.0
+        d_emit = time.perf_counter() - t0
+        self.stats["emit_time_s"] += d_emit
+        if rec is not None and sid is not None:
+            rec.finish_step(sid, dt, d_emit,
+                            tuple(out.request_id for out in done))
         return done
 
     def generate(self, prompts, **sampling):

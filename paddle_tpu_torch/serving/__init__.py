@@ -4,13 +4,14 @@
 :class:`AsyncLLMServer` runs one engine's pipelined continuous-batching
 loop on a background thread, behind a bounded admission queue with
 backpressure, per-request streaming, cancellation and deadlines, and
-per-stage telemetry (:mod:`paddle_tpu_torch.profiler.serving_telemetry`).
-:class:`RestartPolicy` arms supervised crash recovery and
-:class:`FaultInjector` scripts chaos for the tests.
+per-stage telemetry (:mod:`paddle_tpu_torch.profiler.serving_telemetry`),
+and optionally a flight recorder and a metrics store
+(:mod:`paddle_tpu_torch.profiler`). :class:`RestartPolicy` arms supervised
+crash recovery and :class:`FaultInjector` scripts chaos for the tests.
 
 Not in this port yet: ``ReplicaRouter`` and the tensor-parallel engine
 (``cluster.py``, A14), adapters and embeddings (A10), KV transport (A8(h))
-and the SLO/recorder layer (A11).
+and the SLO, pathology-detector and black-box layer (A11).
 """
 from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
                     ServerClosed, ServerQueueFull, TraceContext)

@@ -34,10 +34,21 @@ the engine, re-admit every in-flight request as prompt⊕streamed tokens,
 token-exact for greedy streams), the heartbeat watchdog
 (``step_timeout_s``) and a scripted ``FaultInjector``.
 
-Not in this port yet (ROADMAP A11): the flight recorder, the metrics
-store, SLOs, pathology detectors and the black box. Each constructor
-argument defaults to None and raises ``NotImplementedError`` when given,
-as do :meth:`dump_debug_bundle` and :meth:`slo_report`.
+Observability beyond the telemetry, as in the reference: a
+:class:`~paddle_tpu_torch.profiler.FlightRecorder` (``flight_recorder=``)
+attached to the engine for the server's life, with the server's
+request-timeline events (queued, routed, admitted, crashed, resumed,
+finish), and a :class:`~paddle_tpu_torch.profiler.MetricsStore`
+(``metrics_store=``) fed every gauge and counter each
+``metrics_interval_s`` plus every TTFT, inter-token, queue-wait and e2e
+sample.
+
+Not in this port yet (ROADMAP A11): SLOs, pathology detectors and the
+black box. Each constructor argument defaults to None and raises
+``NotImplementedError`` when given, as do :meth:`dump_debug_bundle` and
+:meth:`slo_report`; so does the recorder-plus-store combination with
+``pathology_detectors=None``, where the reference arms its default
+detectors.
 """
 from __future__ import annotations
 
@@ -49,6 +60,8 @@ import numpy as np
 
 from ..analysis import lock_watchdog as _lockwatch
 from ..inference.llm_engine import PoolCapacityError
+from ..profiler.flight_recorder import FlightRecorder
+from ..profiler.metrics_store import MetricsStore
 from ..profiler.serving_telemetry import ServingTelemetry
 from .scheduler import AdmissionQueue
 from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
@@ -120,14 +133,23 @@ class AsyncLLMServer:
 
         ``trace_context``: mint a TraceContext per submitted request.
 
-        ``flight_recorder``, ``metrics_store``, ``slos``,
-        ``pathology_detectors`` and ``black_box`` (with
-        ``metrics_interval_s``/``slo_interval_s``) belong to ROADMAP A11:
-        None (the default) works, anything else raises."""
-        if flight_recorder is not None:
-            _a11("flight_recorder")
-        if metrics_store is not None:
-            _a11("metrics_store")
+        ``flight_recorder``: a :class:`~paddle_tpu_torch.profiler
+        .FlightRecorder` (``True`` builds one for ``replica``), attached
+        to the engine from :meth:`start` to :meth:`stop`: one StepRecord
+        per engine step, each token stamped with its step id, and the
+        server's request events; finished results carry their timeline
+        (``ServeResult.trace``).
+
+        ``metrics_store``: a :class:`~paddle_tpu_torch.profiler
+        .MetricsStore` (``True`` builds one): every gauge and counter
+        each ``metrics_interval_s`` seconds, and every TTFT, inter-token,
+        queue-wait and e2e sample per tenant.
+
+        ``slos``, ``pathology_detectors``, ``black_box`` (with
+        ``slo_interval_s``) belong to ROADMAP A11: None (the default)
+        works, anything else raises, and so does a recorder with a store
+        while ``pathology_detectors`` is None (the reference then arms
+        its default detectors); ``False`` declines them."""
         if slos:
             _a11("slos")
         if pathology_detectors:
@@ -138,6 +160,22 @@ class AsyncLLMServer:
             raise ValueError(f"pipeline_depth must be >= 1, "
                              f"got {pipeline_depth}")
         self.replica = replica
+        if flight_recorder is True:
+            flight_recorder = FlightRecorder(replica=replica)
+        if flight_recorder is not None and replica is not None \
+                and flight_recorder.replica is None:
+            flight_recorder.replica = replica
+        self.flight_recorder = flight_recorder or None
+        if metrics_store is True:
+            metrics_store = MetricsStore()
+        self.metrics_store = metrics_store or None
+        if pathology_detectors is None and self.metrics_store is not None \
+                and self.flight_recorder is not None:
+            _a11("the default pathology detectors (a flight recorder with "
+                 "a metrics store arms them; pass pathology_detectors="
+                 "False to serve without)")
+        self.metrics_interval_s = float(metrics_interval_s)
+        self._ms_last_t = 0.0       # metrics-store feed throttle
         self.engine = engine
         # the engine knows its safe depth (LLMEngine.max_pipeline_depth);
         # the DEFAULT stays 2 and deeper pipelining is an explicit opt-in
@@ -160,6 +198,7 @@ class AsyncLLMServer:
         self._stopping = False
         self._crashed = None
         self._saved_callback = None
+        self._saved_recorder = None
         # ---- fault tolerance (supervise / watchdog / chaos) ----------
         self.supervise = supervise
         self.step_timeout_s = (float(step_timeout_s)
@@ -184,6 +223,9 @@ class AsyncLLMServer:
             raise RuntimeError("server already started")
         self._saved_callback = self.engine.stream_callback
         self.engine.stream_callback = self._on_token
+        if self.flight_recorder is not None:
+            self._saved_recorder = self.engine.flight_recorder
+            self.engine.flight_recorder = self.flight_recorder
         if self.fault_injector is not None:
             self._saved_injector = self.engine.fault_injector
             self.engine.fault_injector = self.fault_injector
@@ -238,6 +280,8 @@ class AsyncLLMServer:
             self._wd_thread.join()
             self._wd_thread = None
         self.engine.stream_callback = self._saved_callback
+        if self.flight_recorder is not None:
+            self.engine.flight_recorder = self._saved_recorder
         if self.fault_injector is not None:
             self.engine.fault_injector = self._saved_injector
         if self._crashed is not None:
@@ -303,8 +347,10 @@ class AsyncLLMServer:
         admission prefills prompt⊕resume_tokens, only new tokens stream,
         and they count against ``max_new_tokens``. ``request_id``: an
         explicit id (rejected if tracked). ``trace_ctx``: the request's
-        TraceContext, minted here when absent. ``readout_stride > 1``
-        (A8(d)), ``spec_ewma`` (speculation, A8(e)), ``kind="embed"``
+        TraceContext, minted here when absent. ``readout_stride``: a
+        latency-tier pin for multi-step decode (1 forces per-step readout
+        while the request is resident; None inherits the engine's
+        stride). ``spec_ewma`` (speculation, A8(e)), ``kind="embed"``
         (A10), ``export_kv`` (A8(h)) and a nonzero ``adapter_id`` (A10)
         are not in this port and raise."""
         if self._crashed is not None:
@@ -336,9 +382,6 @@ class AsyncLLMServer:
         if readout_stride is not None and int(readout_stride) < 1:
             raise ValueError(f"readout_stride must be >= 1, got "
                              f"{readout_stride}")
-        if readout_stride is not None and int(readout_stride) > 1:
-            raise NotImplementedError(
-                "readout_stride > 1 is not ported yet: ROADMAP A8(d)")
         if spec_ewma is not None:
             raise NotImplementedError(
                 "spec_ewma (speculation) is not ported yet: ROADMAP A8(e)")
@@ -373,8 +416,12 @@ class AsyncLLMServer:
                       if deadline_s is not None else None),
             submitted_at=now,
             routing=dict(routing) if routing is not None else None,
-            resume_tokens=resume, trace_ctx=tc)
+            resume_tokens=resume,
+            readout_stride=(int(readout_stride)
+                            if readout_stride is not None else None),
+            trace_ctx=tc)
         handle = RequestHandle(self, req)
+        rec = self.flight_recorder
         if self.shed_deadlines and deadline_s is not None:
             est = self._admission_estimate_s()
             if float(deadline_s) < est:
@@ -383,14 +430,28 @@ class AsyncLLMServer:
                 self.telemetry.inc("requests_submitted")
                 self.telemetry.inc("requests_shed_deadline")
                 self.telemetry.inc("requests_finished")
-                self.telemetry.observe("e2e_s", time.monotonic() - now,
-                                       tenant=adapter_id)
+                shed_e2e = time.monotonic() - now
+                self.telemetry.observe("e2e_s", shed_e2e, tenant=adapter_id)
+                if self.metrics_store is not None:
+                    self.metrics_store.observe("e2e_s", shed_e2e,
+                                               tenant=adapter_id)
+                if rec is not None:
+                    rec.req_event(rid, "queued")
+                    rec.set_trace_ctx(rid, tc)
+                    rec.req_event(rid, "finish", value="deadline")
                 handle._finish(ServeResult(
                     rid, list(resume or []), "deadline", True,
                     e2e_s=0.0, routing=req.routing, trace_ctx=tc))
                 return handle
         with self._hlock:
             self._handles[rid] = handle
+        if rec is not None:
+            # BEFORE the put: once queued, the engine thread may admit it
+            # and emit its events, so "queued" must head the timeline
+            rec.req_event(rid, "queued")
+            rec.set_trace_ctx(rid, tc)
+            if req.routing is not None:
+                rec.req_event(rid, "routed", value=dict(req.routing))
         try:
             fi = self.fault_injector
             if fi is not None:
@@ -405,6 +466,8 @@ class AsyncLLMServer:
             with self._hlock:
                 self._handles.pop(rid, None)
             self.telemetry.inc("requests_rejected_queue_full")
+            if rec is not None:   # terminal: the timeline must not leak
+                rec.req_event(rid, "finish", value="rejected_queue_full")
             raise
         if self._stopping or self._crashed is not None:
             # TOCTOU with stop(): the loop may have taken its final look
@@ -412,6 +475,8 @@ class AsyncLLMServer:
             if self._queue.remove(handle):
                 with self._hlock:
                     self._handles.pop(rid, None)
+                if rec is not None:
+                    rec.req_event(rid, "finish", value="server_stopped")
                 raise ServerClosed("server stopped while submitting")
         self.telemetry.inc("requests_submitted")
         self._wake()
@@ -491,6 +556,7 @@ class AsyncLLMServer:
         attributably)."""
         tel = self.telemetry
         tel.set_gauge("server_healthy", 0.0)
+        rec = self.flight_recorder
         pol = self.supervise
         if pol is None or self.restarts >= pol.max_restarts:
             # terminal. _crashed/_accepting flip BEFORE the snapshot, so a
@@ -504,6 +570,8 @@ class AsyncLLMServer:
             for h in handles:
                 if h.done:
                     continue
+                if rec is not None:
+                    rec.req_event(h.request_id, "crashed", value=str(exc))
                 h._finish(ServeResult(
                     h.request_id, h.full_stream(),
                     f"server_error: {exc}", True,
@@ -519,6 +587,9 @@ class AsyncLLMServer:
         resident = [h for h in handles
                     if h.state in (RequestState.PENDING,
                                    RequestState.RUNNING)]
+        if rec is not None:
+            for h in resident:
+                rec.req_event(h.request_id, "crashed", value=str(exc))
         # a crash LOOP must not spin the engine thread
         time.sleep(self.supervise.delay(self.restarts))
         try:
@@ -530,8 +601,12 @@ class AsyncLLMServer:
         # re-admit every engine-resident request as prompt⊕streamed,
         # oldest first (the original admission order)
         for h in sorted(resident, key=lambda h: h.request.request_id):
-            if self._readmit(h, h.full_stream()):
+            committed = h.full_stream()
+            if self._readmit(h, committed):
                 tel.inc("requests_resumed")
+                if rec is not None:
+                    rec.req_event(h.request_id, "resumed",
+                                  value=len(committed))
         self._recovering = False
         self._wake()
         return True
@@ -563,7 +638,9 @@ class AsyncLLMServer:
                 req.prompt_ids, max_new_tokens=remaining,
                 temperature=req.temperature, top_p=req.top_p,
                 eos_token_id=eos, request_id=req.request_id,
-                committed_tokens=committed or None)
+                committed_tokens=committed or None,
+                readout_stride=req.readout_stride,
+                trace_ctx=req.trace_ctx)
         except ValueError as e:
             self.telemetry.inc("requests_rejected_validation")
             self._finish_handle(handle, committed, f"rejected: {e}")
@@ -612,6 +689,7 @@ class AsyncLLMServer:
         s_disp = eng.stats["dispatch_time_s"]
         s_pre = eng.stats["preemptions"]
         s_ptok = eng.stats["prefill_tokens"]
+        s_multi = eng.stats["multi_steps"]
         s_pfx = {k: eng.stats.get(k, 0) for k in _PREFIX_COUNTERS}
         t0 = time.perf_counter()
         pending = eng.step_begin()
@@ -632,6 +710,8 @@ class AsyncLLMServer:
         if eng.stats["preemptions"] > s_pre:
             # pool-pressure preemptions happen inside step_begin
             tel.inc("preemptions", eng.stats["preemptions"] - s_pre)
+        if eng.stats["multi_steps"] > s_multi:
+            tel.inc("multi_steps", eng.stats["multi_steps"] - s_multi)
         if d_admit > 0.0:
             self._note_admissions()
         return pending
@@ -706,7 +786,35 @@ class AsyncLLMServer:
                 pre = eng.stats["prefill_tokens"]
                 tel.set_gauge("prefix_cache_hit_rate",
                               hit / (hit + pre) if hit + pre else 0.0)
+        rec = self.flight_recorder
+        if rec is not None and rec.enabled:
+            last = rec.last_record()
+            if last is not None:
+                tel.set_gauge("token_budget_utilization",
+                              last.budget_utilization)
         tel.mark_gauge_sample()
+        # the metrics store's off path is this one attribute check
+        if self.metrics_store is not None:
+            self._feed_sensors()
+
+    def _feed_sensors(self):
+        """Feed every gauge and cumulative counter into the metrics store
+        as time series (counters stay cumulative: a windowed ``rate()``
+        turns them into tokens/s, preemptions/s, ...), at most once per
+        ``metrics_interval_s`` (reference ``server.py:1086-1106``, its
+        SLO and black-box halves being ROADMAP A11)."""
+        now = time.monotonic()
+        if now - self._ms_last_t < self.metrics_interval_s:
+            return
+        self._ms_last_t = now
+        store = self.metrics_store
+        for name, v in self.telemetry.get_gauges().items():
+            if name != "gauge_last_sample_age_s":
+                # the staleness gauge is computed at read time: storing
+                # the feed-time value would record the feed's own cadence
+                store.observe(name, v, t=now)
+        for name, v in self.telemetry.get_counters().items():
+            store.observe(name, v, t=now)
 
     def dump_debug_bundle(self, path, reason="manual", detail=None):
         _a11("the black box (dump_debug_bundle)")
@@ -728,10 +836,17 @@ class AsyncLLMServer:
             if h is not None and h.state is RequestState.PENDING:
                 h.state = RequestState.RUNNING
                 h.admitted_at = now
+                wait = now - h.request.submitted_at
+                if self.flight_recorder is not None:
+                    self.flight_recorder.req_event(
+                        slot.req.request_id, "admitted")
                 self.telemetry.inc("requests_admitted")
-                self.telemetry.observe("queue_wait_s",
-                                       now - h.request.submitted_at,
+                self.telemetry.observe("queue_wait_s", wait,
                                        tenant=h.request.adapter_id)
+                if self.metrics_store is not None:
+                    self.metrics_store.observe(
+                        "queue_wait_s", wait, t=now,
+                        tenant=h.request.adapter_id)
                 self.telemetry.observe(
                     "admission_stall_s",
                     max(now - h.stall_mark, 0.0)
@@ -816,13 +931,17 @@ class AsyncLLMServer:
         if h.last_token_at is not None and now < h.last_token_at:
             now = h.last_token_at
         tenant = h.request.adapter_id
+        store = self.metrics_store
         if h.first_token_at is None:
-            self.telemetry.observe(
-                "ttft_s", max(now - h.request.submitted_at, 0.0),
-                tenant=tenant)
+            ttft = max(now - h.request.submitted_at, 0.0)
+            self.telemetry.observe("ttft_s", ttft, tenant=tenant)
+            if store is not None:
+                store.observe("ttft_s", ttft, t=now, tenant=tenant)
         elif h.last_token_at is not None:
-            self.telemetry.observe("inter_token_s", now - h.last_token_at,
-                                   tenant=tenant)
+            gap = now - h.last_token_at
+            self.telemetry.observe("inter_token_s", gap, tenant=tenant)
+            if store is not None:
+                store.observe("inter_token_s", gap, t=now, tenant=tenant)
         self.telemetry.inc("tokens_emitted")
         self.telemetry.inc_tenant(tenant)
         h._emit(tok, t=now)
@@ -839,6 +958,11 @@ class AsyncLLMServer:
     def _finish_handle(self, handle, token_ids, reason):
         now = time.monotonic()
         req = handle.request
+        trace = None
+        rec = self.flight_recorder
+        if rec is not None and rec.enabled:
+            rec.req_event(handle.request_id, "finish", value=reason)
+            trace = rec.request_trace(handle.request_id)
         result = ServeResult(
             handle.request_id, list(token_ids), reason, True,
             ttft_s=(handle.first_token_at - req.submitted_at
@@ -846,9 +970,12 @@ class AsyncLLMServer:
             e2e_s=now - req.submitted_at,
             queue_wait_s=(handle.admitted_at - req.submitted_at
                           if handle.admitted_at is not None else None),
-            routing=req.routing, trace_ctx=req.trace_ctx)
+            trace=trace, routing=req.routing, trace_ctx=req.trace_ctx)
         self.telemetry.inc("requests_finished")
         self.telemetry.observe("e2e_s", result.e2e_s, tenant=req.adapter_id)
+        if self.metrics_store is not None:
+            self.metrics_store.observe("e2e_s", result.e2e_s, t=now,
+                                       tenant=req.adapter_id)
         with self._hlock:
             self._handles.pop(handle.request_id, None)
         handle._finish(result)

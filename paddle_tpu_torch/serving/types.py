@@ -131,6 +131,12 @@ class ServeRequest:
     #: stream out. They count against ``max_new_tokens`` (the ORIGINAL
     #: total budget — the engine generates the remainder).
     resume_tokens: list | None = None
+    #: latency-tier pin for multi-step decode: cap the engine's
+    #: ``readout_stride`` while this request is resident (1 = the host
+    #: syncs every step, minimizing THIS request's inter-token latency
+    #: at the batch's throughput cost). None = the engine default; inert
+    #: on engines without multi-step decode.
+    readout_stride: int | None = None
     #: the TENANT dimension (batched multi-LoRA): 0 = the base model,
     #: > 0 = a registered adapter id. Preserved across supervised
     #: restart re-admission and router failover resubmission, so a

@@ -1280,3 +1280,63 @@ def test_prefix_cache_cow_on_card(cuda, monkeypatch, quant):
     assert len(eng._free_blocks) + len(eng._lru) == eng.n_blocks
     if quant is None:
         assert _greedy_misses(model, prompts, streams) == 0
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_multi_step_paged_engine_on_card(cuda, monkeypatch, quant):
+    """A paged fused engine at ``readout_stride=4`` over bf16 and int8
+    pools at the kernels' shapes, a flight recorder attached: its tokens
+    equal the stride-1 engine's on the card; every decode iteration of a
+    stride launches the decode kernel of its pool once a layer (B2, or
+    B4-decode) and every mixed step the append kernel; no plain version
+    runs; the stride dispatches' records carry ``readout_stride == 4``."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    from paddle_tpu_torch.profiler import FlightRecorder
+    model = _bf16_d128(cuda, kvh=2)
+    L = model.config.num_hidden_layers
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (37, 5, 60)]
+    kw = dict(device=cuda, cache_impl="paged", scheduler="fused",
+              max_batch=2, max_seq_len=128, chunk_size=32, block_size=16,
+              kv_cache_dtype=quant)
+    want = [list(o.token_ids) for o in LLMEngine(model, **kw).generate(
+        prompts, max_new_tokens=14)]
+    plain = []
+    for mod in (pa_mod, IF):
+        for name in ("paged_attention_decode_plain",
+                     "paged_attention_append_plain"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    eng = LLMEngine(model, readout_stride=4, **kw)
+    rec = FlightRecorder()
+    eng.flight_recorder = rec
+    iters = []
+    decode = eng._decode
+
+    def counted(active, eos_ids, budgets, n_iter):
+        iters.append(n_iter)
+        return decode(active, eos_ids, budgets, n_iter)
+
+    eng._decode = counted
+    n0 = _paged_launches()
+    got = [list(o.token_ids) for o in eng.generate(prompts,
+                                                   max_new_tokens=14)]
+    torch.cuda.synchronize()
+    n1 = _paged_launches()
+    assert not plain, plain
+    assert got == want and all(len(s) == 14 for s in got)
+    assert eng.stats["multi_steps"] > 0 and max(iters) == 4
+    mixed = eng.stats["fused_steps"]
+    if quant is None:
+        launched = (n1[0] - n0[0], n1[1] - n0[1])
+    else:
+        launched = (n1[2][quant] - n0[2][quant],
+                    n1[3][quant] - n0[3][quant])
+        assert (n1[0], n1[1]) == (n0[0], n0[1])
+    assert launched == (sum(iters) * L, mixed * L)
+    strides = [r.readout_stride for r in rec.records() if r.kind == "decode"]
+    assert strides and set(strides) == {4}
+    assert all(r.readout_stride == 1 for r in rec.records()
+               if r.kind == "mixed")

@@ -152,7 +152,7 @@ def test_pool_capacity_error_and_pool_edge(gqa):
 def test_unported_options_raise(gqa):
     _, tm = gqa
     for scheduler in ("legacy", "fused"):
-        for kw in (dict(speculative_k=2), dict(readout_stride=2),
+        for kw in (dict(speculative_k=2),
                    dict(adapter_store=object()),
                    dict(kv_host_swap=True), dict(mesh=object()),
                    # the prefix cache is ported; its host spill is not
@@ -161,6 +161,13 @@ def test_unported_options_raise(gqa):
             with pytest.raises(NotImplementedError):
                 LLMEngine(tm, device="cpu",
                           **{**_kw(scheduler=scheduler), **kw})
+    # multi-step decode is ported: the fused scheduler takes a stride,
+    # the legacy one refuses it as the reference does (its `horizon`)
+    assert LLMEngine(tm, device="cpu", readout_stride=2,
+                     **_kw(scheduler="fused")).readout_stride == 2
+    with pytest.raises(ValueError, match="fused"):
+        LLMEngine(tm, device="cpu", readout_stride=2,
+                  **_kw(scheduler="legacy"))
     with pytest.raises(ValueError, match="scheduler"):
         LLMEngine(tm, device="cpu", **_kw(scheduler="warp"))
     with pytest.raises(ValueError, match="unknown kv_cache_dtype"):

@@ -233,13 +233,14 @@ def test_submit_validation_is_synchronous(models):
         server.submit(np.ones((5,), np.int32), export_kv=True)
     with pytest.raises(ValueError, match="readout_stride"):
         server.submit(np.ones((5,), np.int32), readout_stride=0)
-    with pytest.raises(NotImplementedError, match="A8\\(d\\)"):
-        server.submit(np.ones((5,), np.int32), readout_stride=2)
     with pytest.raises(NotImplementedError, match="A8\\(e\\)"):
         server.submit(np.ones((5,), np.int32), spec_ewma=0.5)
-    # the engine's default stride is accepted
-    server.submit(np.ones((5,), np.int32), max_new_tokens=2,
-                  readout_stride=1)
+    # a stride pin is accepted (inert on this stride-1 engine, as in the
+    # reference) and rides the server's request record
+    for pin in (1, 2):
+        h = server.submit(np.ones((5,), np.int32), max_new_tokens=2,
+                          readout_stride=pin)
+        assert h.request.readout_stride == pin
 
 
 def test_admission_queue_fifo_and_remove():
@@ -253,14 +254,26 @@ def test_admission_queue_fifo_and_remove():
 
 
 def test_a11_arguments_raise(engines):
-    """The recorder/store/SLO/black-box layer is ROADMAP A11: asked for,
-    each raises; the defaults serve."""
+    """The SLO/detector/black-box rest of ROADMAP A11: asked for, each
+    raises; the flight recorder and the metrics store are ported and
+    construct, alone or together with the detectors declined; together
+    with the default detectors (None) they raise, naming A11."""
     eng = engines["fused"]
-    for kw in (dict(flight_recorder=True), dict(metrics_store=True),
-               dict(slos=[object()]), dict(pathology_detectors=[object()]),
-               dict(black_box=True)):
+    for kw in (dict(slos=[object()]), dict(pathology_detectors=[object()]),
+               dict(black_box=True),
+               dict(flight_recorder=True, metrics_store=True)):
         with pytest.raises(NotImplementedError, match="A11"):
             AsyncLLMServer(eng, **kw)
+    from paddle_tpu_torch.profiler import FlightRecorder, MetricsStore
+    for kw in (dict(flight_recorder=True), dict(metrics_store=True),
+               dict(flight_recorder=True, metrics_store=True,
+                    pathology_detectors=False)):
+        srv = AsyncLLMServer(eng, replica=3, **kw)
+        if "flight_recorder" in kw:
+            assert isinstance(srv.flight_recorder, FlightRecorder)
+            assert srv.flight_recorder.replica == 3
+        if "metrics_store" in kw:
+            assert isinstance(srv.metrics_store, MetricsStore)
     server = AsyncLLMServer(eng, pathology_detectors=False)
     with pytest.raises(NotImplementedError, match="A11"):
         server.slo_report()
