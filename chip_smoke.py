@@ -21,7 +21,11 @@ Phases:
                 at D 128 and 64, causal and full, GQA, one kv head under 32
                 q heads, dropout, S 2048, 1000 and 512; B2 and B3 at the
                 serving shapes with MHA and G 4, and over long contexts
-                (MB 128, lens up to 8,191) where their walks split; both
+                (MB 128, lens up to 8,191) where their walks split, B3
+                also at a step of speculative verify windows (S 6, q_lens
+                2-6 after 63, 64, 65 and ~4,000 positions, a window
+                across a block edge, rows parked in the scratch block);
+                both
                 AdamW kernels with bf16 and float32 grads, bit for bit;
                 B8, the int4 GEMM: its launch geometry held against the
                 kernel's constants at rows 1-128 on five shapes, then rows
@@ -165,10 +169,32 @@ Phases:
                 tokens/s, the four overheads, TTFT and
                 e2e p50, the p99 tail causes, the A/B's host-tax split, the
                 traced steps' idle share (information);
+  (d-viii) spec_rung — the llama_serve_spec rung (the same model; 16
+                repetition-heavy prompts, a 24-token random base tiled to
+                256-383 tokens, 64 new) through AsyncLLMServer over dense
+                fused engines at speculative_k=6, readout_stride=4 against
+                speculative_k=1, at B 8 and at B 1 (3 requests), then the
+                B 8 pair over paged bf16 engines (block 64). Every serve
+                under CUDA's sync debug mode. Gates: every request finishes
+                with its 64 tokens, the greedy check on every arm, one wave
+                of 8 requests spec-on against spec-off token-exact (dense
+                and paged; a parting only at a near-tie, reported with its
+                step and margin), proposals in the spec arms, multi-step
+                dispatches, spec StepRecords at readout_stride 6 x 4 with
+                at most 4 windows, no kernel and no counted plain version
+                in a dense arm, B3 once a layer for each verify window and
+                mixed step of the paged spec arm and never B2 there, B2
+                once a layer a decode iteration in the paged control arm.
+                Per arm tokens/s, acceptance, accepted per step, windows
+                per dispatch, rtt_share, TTFT and e2e p50, and
+                speculation_speedup at B 8 and B 1; two traced all-decode
+                dispatches of each dense engine: device busy, idle share,
+                events a window against a decode iteration (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
                 call beside their device time, B2, B3 and B4 also at Hkv 8,
+                B3 also at the verify-window step,
                 B4-append's two launches apart; B8 at 8 and at 128 rows on
                 the four 7B-scale shapes, its weight out of L2, beside
                 torch._weight_int4pack_mm and a bf16 torch.matmul of the
@@ -473,18 +499,29 @@ def append_args(c, k, v):
 # histories, an idle slot
 APPEND_LONG_SPECS = [(8000, 1), (6000, 256), (4095, 1), (3000, 37),
                      (7000, 1), (0, 256), (100, 0), (5000, 9)]
+# a step of speculative verify windows (S 6: the rung's speculative_k):
+# q_lens 2-6 after histories of 63, 64, 65 and ~4,000 positions, a window
+# crossing a block edge (62 + 5), one whose last rows land on a -1 table
+# entry (125 + 6: positions 128-130, block 2 wiped, go to the scratch
+# block), an idle slot; MB 64 holds the long histories
+VERIFY_SPECS = [(63, 2), (64, 6), (65, 3), (4000, 6), (62, 5), (125, 6),
+                (3999, 4), (700, 0)]
+VERIFY_MINUS_ONE = (5, 2)
+VERIFY_S, VERIFY_MB = 6, 64
 
 
 def check_append(dev):
     rng = np.random.default_rng(7)
     worst = 0.0
-    for name, Hkv, specs, minus_one, MB in (
-            ("Hkv32", 32, APPEND_SPECS, None, 32),
-            ("Hkv8", 8, APPEND_SPECS, None, 32),
-            ("minus_one_target", 32, APPEND_SPECS, APPEND_MINUS_ONE, 32),
-            ("long_Hkv8", 8, APPEND_LONG_SPECS, None, 128)):
+    for name, Hkv, specs, minus_one, MB, S in (
+            ("Hkv32", 32, APPEND_SPECS, None, 32, 256),
+            ("Hkv8", 8, APPEND_SPECS, None, 32, 256),
+            ("minus_one_target", 32, APPEND_SPECS, APPEND_MINUS_ONE, 32, 256),
+            ("long_Hkv8", 8, APPEND_LONG_SPECS, None, 128, 256),
+            ("verify_windows", 32, VERIFY_SPECS, VERIFY_MINUS_ONE,
+             VERIFY_MB, VERIFY_S)):
         c = append_case(rng, dev, Hkv, specs=specs, minus_one=minus_one,
-                        MB=MB)
+                        MB=MB, S=S)
         kk, vk = c["k"].clone(), c["v"].clone()
         kp, vp = c["k"].clone(), c["v"].clone()
         out = paged_attention_append(*append_args(c, kk, vk))
@@ -500,19 +537,24 @@ def check_append(dev):
                            torch.equal(vk[:nb - 1], vp[:nb - 1]))
         written = not torch.equal(kk[:nb - 1], c["k"][:nb - 1])
         line = {"phase": "parity", "kernel": "paged_attention_append",
-                "case": name, "B": len(specs), "S": 256, "Hq": 32,
+                "case": name, "B": len(specs), "S": S, "Hq": 32,
                 "Hkv": Hkv, "D": 128, "block_size": 64, "MB": MB,
                 "lens_qlens": specs, "max_abs_err": err,
                 "splits": [pa_mod.append_tile_splits(
-                    L, n, 256, 32 // Hkv, 64, MB)[2] for L, n in specs],
+                    L, n, S, 32 // Hkv, 64, MB)[2] for L, n in specs],
                 "tol": APPEND_TOL, "pools_exact_except_scratch": pools_exact,
                 "new_rows_written": written, "padding_rows_zero": padding_zero}
         ok = err <= APPEND_TOL and pools_exact and written and padding_zero
         if minus_one is not None:
-            # rows 156-219 of slot 1 (positions 256-319) sit in scratch
-            b = minus_one[0]
-            landed = bool(torch.equal(kk[nb - 1, :, :64],
-                                      c["nk"][b, 156:220].transpose(0, 1)))
+            # the rows of slot b at positions in the wiped block j sit in
+            # scratch, each at its position's offset in a block (the chunk
+            # case: rows 156-219 of slot 1, positions 256-319)
+            b, j = minus_one
+            L, n = specs[b]
+            lo, hi = max(L, j * 64), min(L + n, (j + 1) * 64)
+            landed = bool(torch.equal(
+                kk[nb - 1, :, lo % 64:lo % 64 + hi - lo],
+                c["nk"][b, lo - L:hi - L].transpose(0, 1)))
             line["minus_one_rows_in_scratch"] = landed
             ok = ok and landed
         emit(line)
@@ -1530,6 +1572,19 @@ def time_append(dev):
     out.update(plain_ms=cuda_ms(lambda: paged_attention_append_plain(*args),
                                 5),
                library_ms=None, hkv8=one(8)[0])
+    # a step of verify windows (VERIFY_SPECS, S 6, Hkv 32 as in the spec
+    # rung's model), full tables
+    c = append_case(np.random.default_rng(9), dev, 32, specs=VERIFY_SPECS,
+                    S=VERIFY_S, MB=VERIFY_MB)
+    args = append_args(c, c["k"], c["v"])
+    out["verify_windows"] = dict(
+        ms=cuda_ms(lambda: paged_attention_append(*args), 50),
+        host_us_per_call=host_us(lambda: paged_attention_append(*args)),
+        plain_ms=cuda_ms(lambda: paged_attention_append_plain(*args), 5),
+        library_ms=None,
+        **paged_sweep.append_bound(VERIFY_SPECS, 32, 32, 128),
+        shape=dict(B=len(VERIFY_SPECS), S=VERIFY_S, Hq=32, Hkv=32, D=128,
+                   block_size=64, MB=VERIFY_MB, lens_qlens=VERIFY_SPECS))
     return out
 
 
@@ -2805,7 +2860,7 @@ def window_watch(eng, log):
     the finish-to-finish ms by kind, the recorder the server attached, and
     the kernels' launch counts over the serve (reset on entry)."""
     log.update(begin=0, finish=0, elsewhere=0, finishes=0, dispatches=[],
-               resident=[], step_ms={"mixed": [], "decode": []},
+               resident=[], step_ms={"mixed": [], "decode": [], "spec": []},
                messages=[], recorder=None)
     begin, finish = eng.step_begin, eng.step_finish
     kinds, clock = {}, {"prev": None}
@@ -2818,13 +2873,14 @@ def window_watch(eng, log):
                 return sum("synchroniz" in str(w.message) for w in caught)
 
             def watched_begin():
-                n0, f0 = n_syncs(), eng.stats["fused_steps"]
+                n0 = n_syncs()
                 pending = begin()
                 log["begin"] += n_syncs() - n0
                 log["recorder"] = eng.flight_recorder
                 if pending is not None and pending.toks is not None:
-                    kind = "mixed" if eng.stats["fused_steps"] > f0 \
-                        else "decode"
+                    # "decode", "mixed" or "spec" (verify windows); the
+                    # rows are a spec dispatch's windows
+                    kind = pending.kind
                     kinds[id(pending)] = kind
                     log["dispatches"].append((kind,
                                               int(pending.toks.shape[0])))
@@ -2863,13 +2919,15 @@ def window_watch(eng, log):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def window_gates(name, log, stride=None):
+def window_gates(name, log, stride=None, spec_k=1):
     """The sync gates of one watched serve: no synchronizing call in a
     ``step_begin`` or between the loop's steps, and none in a
     ``step_finish`` beyond its readout; and, with the recorder the server
     attached, each StepRecord's ``readout_stride`` against its dispatch:
-    a mixed step 1, an all-decode step ``stride`` with at most that many
-    rows read back (``stride`` None: the engine's ``horizon``, exactly)."""
+    a mixed step ``spec_k`` (1 without speculation), an all-decode step
+    ``stride`` with at most that many rows read back (``stride`` None: the
+    engine's ``horizon``, exactly), a speculative all-decode step ``spec_k
+    * stride`` with at most ``stride`` windows."""
     require(log["begin"] == 0 and log["elsewhere"] == 0
             and log["finish"] <= log["finishes"],
             f"{name}: synchronizing calls in step_begin {log['begin']}, "
@@ -2883,9 +2941,13 @@ def window_gates(name, log, stride=None):
             f"{name}: {len(recs)} step records for "
             f"{len(log['dispatches'])} dispatches")
     for r, (kind, rows) in zip(recs, log["dispatches"]):
-        want = 1 if kind == "mixed" else (stride or rows)
+        if kind == "spec":
+            want, most = spec_k * stride, stride
+        else:
+            want = spec_k if kind == "mixed" else (stride or rows)
+            most = want
         require(r.kind == kind and r.readout_stride == want
-                and 1 <= rows <= r.readout_stride,
+                and 1 <= rows <= most,
                 f"{name}: step {r.step_id} recorded {r.kind} at stride "
                 f"{r.readout_stride}, dispatched {kind} with {rows} rows")
 
@@ -3244,6 +3306,320 @@ def run_serve_rung(model, dev):
             f"disagree with the no-cache forward beyond {MARGIN}")
     return {"b2_decode": pair["b2_launches"],
             "b3_append": pair["b3_launches"]}
+
+
+# ---------------------------------------------------------------------------
+# (d-viii) spec_rung: the llama_serve_spec rung's path (bench.py:587-708)
+# ---------------------------------------------------------------------------
+
+#: the rung's speculation: speculative_k and readout_stride (its
+#: BENCH_SPEC_K and BENCH_READOUT_STRIDE defaults)
+SPEC_K, SPEC_STRIDE = 6, 4
+#: the latency arm's batch and requests (min(3, requests) at B 1)
+SPEC_B1_REQUESTS = 3
+#: the paged pair's block; its capacity is DENSE_PAGED_CAP (a multiple of
+#: the chunk), the dense arms' the rung's DENSE_CAP
+SPEC_BLOCK = 64
+
+
+def spec_prompts(vocab):
+    """The rung's repetition-heavy prompts, from its seed: per request a
+    24-token random base tiled to 256 + U[0, 128) tokens (greedy
+    continuations loop, so prompt-lookup drafts accept)."""
+    rng = np.random.default_rng(0)
+    prompts = []
+    for _ in range(DENSE_REQUESTS):
+        base = rng.integers(0, vocab, (24,)).astype(np.int32)
+        want = 256 + int(rng.integers(0, 128))
+        prompts.append(np.tile(base, -(-want // len(base)))[:want])
+    return prompts
+
+
+def spec_engine(model, dev, spec_k, batch, **over):
+    """The rung's engine: ``LLMEngine(model, max_batch=batch,
+    max_seq_len=576, chunk_size=256, scheduler="fused",
+    speculative_k=spec_k, readout_stride=4)``, dense unless ``over`` says
+    otherwise."""
+    return LLMEngine(model, **{**dict(
+        max_batch=batch, max_seq_len=DENSE_CAP, chunk_size=DENSE_CHUNK,
+        scheduler="fused", speculative_k=spec_k,
+        readout_stride=SPEC_STRIDE, device=dev), **over})
+
+
+def spec_arm(model, dev, prompts, name, spec_k, batch, rtt, **over):
+    """One serve pass of the rung: a fresh engine (:func:`spec_engine`)
+    warmed by one 2-token request, its stats reset, then ``prompts``
+    through AsyncLLMServer with a flight recorder, the whole serve under
+    :func:`window_watch`. Gates: every request finishes with its 64
+    tokens, the server healthy, the sync and record gates
+    (:func:`window_gates`), multi-step dispatches, proposals in a
+    speculative arm, the greedy check. Returns the arm's line, its log and
+    its tokens."""
+    eng = spec_engine(model, dev, spec_k, batch, **over)
+    eng.generate([prompts[0]], max_new_tokens=2)
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    rec, log = FlightRecorder(), {}
+    srv = AsyncLLMServer(eng, max_queue_size=len(prompts) + 1,
+                         flight_recorder=rec)
+    with window_watch(eng, log):
+        srv.start()
+        t0 = time.perf_counter()
+        hs = [srv.submit(p, max_new_tokens=DENSE_NEW) for p in prompts]
+        outs = [h.result(timeout=600) for h in hs]
+        wall = time.perf_counter() - t0
+        health = srv.health()
+        srv.stop()
+    st = dict(eng.stats)
+    snap = srv.telemetry.snapshot(wall_s=wall)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(o.finished and o.finish_reason == "length"
+                and len(o.token_ids) == DENSE_NEW for o in outs),
+            f"{name}: a request did not finish with its {DENSE_NEW} tokens")
+    require(health["healthy"], f"{name}: server {health['state']} at the end")
+    window_gates(name, log, SPEC_STRIDE, spec_k)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    prop, acc = st["spec_proposed_tokens"], st["spec_accepted_tokens"]
+    spec_rows = [r for k, r in log["dispatches"] if k == "spec"]
+    checked, excused, mismatched = greedy_check(model, dev, prompts, outs)
+    lat = snap["latency"]
+    decode_ms = log["step_ms"]["spec"] + log["step_ms"]["decode"]
+    arm = {"arm": name, "speculative_k": spec_k, "batch": batch,
+           "requests": len(prompts), "cache_impl": over.get(
+               "cache_impl", "dense"),
+           "tokens_per_s": n_tok / wall, "wall_s": wall,
+           "steps": st["steps"], "mixed_steps": sum(
+               k == "mixed" for k, _ in log["dispatches"]),
+           "multi_steps": st["multi_steps"],
+           "spec_proposed_tokens": prop, "spec_accepted_tokens": acc,
+           "acceptance_rate": acc / prop if prop else None,
+           "accepted_per_step": st["draft_tokens_accepted"]
+           / max(st["steps"], 1),
+           "windows_per_dispatch": float(np.mean(spec_rows))
+           if spec_rows else None,
+           "rtt_share": rtt * st["steps"] / wall,
+           "ttft_p50_ms": lat["ttft"]["p50_s"] * 1e3,
+           "e2e_p50_ms": lat["e2e"]["p50_s"] * 1e3,
+           "decode_step_ms_median": median(decode_ms) if decode_ms
+           else None,
+           "mixed_step_ms_median": median(log["step_ms"]["mixed"])
+           if log["step_ms"]["mixed"] else None,
+           "launches": log["launches"], "b1_launches": log["b1_launches"],
+           "b8_launches": log["b8_launches"],
+           "step_begin_syncs": log["begin"],
+           "greedy_checked": checked, "greedy_excused_near_ties": excused,
+           "greedy_mismatched": mismatched}
+    require(st["multi_steps"] > 0, f"{name}: no multi-step dispatch")
+    require(spec_k == 1 or (prop > 0 and spec_rows),
+            f"{name}: no verify window proposed ({prop}, {spec_rows})")
+    require(spec_k > 1 or not spec_rows, f"{name}: spec dispatches")
+    require(mismatched == 0, f"{name}: {mismatched} greedy tokens disagree "
+            f"with the no-cache forward beyond {MARGIN}")
+    return arm, log, [list(o.token_ids) for o in outs]
+
+
+def first_parting(model, dev, prompts, want, got):
+    """Where two arms' streams part: per request that differs, the first
+    step and the no-cache forward's top-1/top-2 margin there (over the
+    prompt and the common prefix). A margin at most MARGIN is a near-tie:
+    bf16 products over a verify window's rows and over one row round
+    apart, and the argmax may then go either way."""
+    parts = []
+    with torch.no_grad():
+        for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+            if a == b:
+                continue
+            n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            seq = np.concatenate([p, np.asarray(a[:n], np.int32)])
+            row = model(torch.from_numpy(seq[None]).to(dev))[0, -1].float()
+            top2 = torch.topk(row, 2).values
+            parts.append({"request": i, "step": n, "margin":
+                          float(top2[0] - top2[1])})
+    return parts
+
+
+def spec_one_wave(model, dev, prompts, **over):
+    """One wave (8 requests, 8 slots, no re-admission) straight from
+    ``generate`` through engines with speculation on and off: their
+    streams must be equal, or part only at a near-tie, which is
+    reported."""
+    toks = {}
+    for k in (SPEC_K, 1):
+        eng = spec_engine(model, dev, k, DENSE_SLOTS, **over)
+        toks[k] = [list(o.token_ids) for o in eng.generate(
+            prompts, max_new_tokens=DENSE_NEW)]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    parts = first_parting(model, dev, prompts, toks[1], toks[SPEC_K])
+    return {"token_exact": not parts, "partings": parts,
+            "near_ties_only": all(p["margin"] <= MARGIN for p in parts)}
+
+
+def profile_spec(rung, dev, prompts, n_steps=2):
+    """Where a speculative all-decode dispatch's time goes, against the
+    control's: the rung's first eight requests in fresh dense engines at
+    speculative_k 6 and 1 (readout_stride 4), ramped in and one dispatch
+    warmed, then ``n_steps`` all-decode dispatches traced at depth 1:
+    device busy and idle share, device events a dispatch and a row (a
+    verify window, or a decode iteration)."""
+    out = {}
+    for arm, k in (("on", SPEC_K), ("off", 1)):
+        eng = spec_engine(rung, dev, k, DENSE_SLOTS)
+        for p in prompts[:DENSE_SLOTS]:
+            eng.add_request(p, max_new_tokens=DENSE_NEW)
+        eng.step()                  # admission assigns the slots
+        while any(s is not None and s.ramping for s in eng.slots):
+            eng.step()
+        eng.step()                  # one all-decode dispatch, warm
+        torch.cuda.synchronize()
+        rows, kinds = [], []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                pending = eng.step_begin()
+                require(pending is not None and pending.toks is not None,
+                        "spec profile: a step dispatched nothing")
+                rows.append(int(pending.toks.shape[0]))
+                kinds.append(pending.kind)
+                eng.step_finish(pending)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        require(set(kinds) == {"spec" if k > 1 else "decode"},
+                f"spec profile {arm}: dispatched {kinds}")
+        win = device_breakdown(prof, wall, n_steps)
+        if win is not None:
+            win.update(rows_per_dispatch=rows, events_per_row=win[
+                "events_per_step"] * n_steps / sum(rows))
+        out[arm] = win
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_spec_rung(dev):
+    """(d-viii): the llama_serve_spec rung. Its model (7B widths, ff
+    11264, 3 layers, MHA, bf16, seed 0) and its 16 repetition-heavy
+    requests (256-383 tokens, 64 new) through AsyncLLMServer over dense
+    fused engines at ``speculative_k=6, readout_stride=4`` against
+    ``speculative_k=1``, at B 8 and at B 1 (3 requests), then the B 8 pair
+    over paged bf16 engines (block 64, capacity 768). Gates: every request
+    finishes with its 64 tokens; the greedy check on every arm; one wave
+    of 8 requests spec-on against spec-off token-exact, dense and paged
+    (a parting only at a near-tie, reported); proposals in the spec arms;
+    multi-step dispatches in every arm; StepRecords of kind "spec" at
+    ``readout_stride`` 6 x 4 with at most 4 windows, mixed steps at 6 (1
+    off) and the sync gates of :func:`window_gates`; no kernel and no
+    counted plain version in a dense arm; in the paged spec arm B3 once a
+    layer for every verify window the host dispatches (each all-decode
+    dispatch's windows: ``min(4, largest remaining budget)``) and every
+    mixed step, and never B2; in the paged control arm B2 once a layer a
+    decode iteration and B3 a mixed step. Then two all-decode dispatches
+    of each dense engine traced (:func:`profile_spec`; information).
+    Returns the paged pair's B2 and B3 launches."""
+    t_phase = time.perf_counter()
+    rung = build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                       intermediate_size=DENSE_FF,
+                       max_position_embeddings=DENSE_PAGED_CAP)
+    L = rung.config.num_hidden_layers
+    prompts = spec_prompts(rung.config.vocab_size)
+    warm = spec_engine(rung, dev, SPEC_K, DENSE_SLOTS)
+    warm.generate([prompts[0]], max_new_tokens=2)
+    torch.cuda.synchronize()
+    rtts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        float(warm._logits[0, 0])
+        rtts.append(time.perf_counter() - t0)
+    rtt = median(rtts)
+    del warm
+    paged = dict(cache_impl="paged", block_size=SPEC_BLOCK,
+                 max_seq_len=DENSE_PAGED_CAP)
+    arms, logs, toks = {}, {}, {}
+    with counting_plain() as plain_calls:
+        for name, k, batch, reqs, over in (
+                ("b8_on", SPEC_K, DENSE_SLOTS, prompts, {}),
+                ("b8_off", 1, DENSE_SLOTS, prompts, {}),
+                ("b1_on", SPEC_K, 1, prompts[:SPEC_B1_REQUESTS], {}),
+                ("b1_off", 1, 1, prompts[:SPEC_B1_REQUESTS], {}),
+                ("paged_b8_on", SPEC_K, DENSE_SLOTS, prompts, paged),
+                ("paged_b8_off", 1, DENSE_SLOTS, prompts, paged)):
+            arms[name], logs[name], toks[name] = spec_arm(
+                rung, dev, reqs, name, k, batch, rtt, **over)
+        wave = {"dense": spec_one_wave(rung, dev, prompts[:DENSE_SLOTS]),
+                "paged": spec_one_wave(rung, dev, prompts[:DENSE_SLOTS],
+                                       **paged)}
+    spec_profile = profile_spec(rung, dev, prompts)
+    del rung
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, arm in arms.items():
+        got = arm["launches"]
+        if arm["cache_impl"] == "dense":
+            require(all(n == 0 for n in got.values())
+                    and arm["b1_launches"] == 0 and arm["b8_launches"] == 0,
+                    f"spec_rung {name}: kernels launched in a dense arm: "
+                    f"{got}, B1 {arm['b1_launches']}, B8 "
+                    f"{arm['b8_launches']}")
+            continue
+        disp = logs[name]["dispatches"]
+        windows = sum(r for k, r in disp if k == "spec")
+        iters = sum(r for k, r in disp if k == "decode")
+        n_mixed = sum(k == "mixed" for k, _ in disp)
+        # B3: one launch a layer per model call over a paged window, i.e.
+        # each mixed step and each verify window the host dispatched; B2:
+        # one a layer per plain decode iteration (the control arm only)
+        want = {"b3_append": (windows + n_mixed) * L, "b2_decode": iters * L}
+        arm.update(verify_windows=windows, decode_iterations=iters,
+                   expected_launches=want)
+        require(got["b3_append"] == want["b3_append"]
+                and got["b2_decode"] == want["b2_decode"]
+                and got["b3_append"] > 0
+                and all(n == 0 for q, n in got.items() if q.startswith("b4"))
+                and arm["b8_launches"] == 0,
+                f"spec_rung {name}: launches {got}, expected {want} for "
+                f"{windows} verify windows, {iters} decode iterations and "
+                f"{n_mixed} mixed steps a layer")
+    require(not plain_calls, f"spec_rung: plain versions ran on the card: "
+            f"{dict(plain_calls)}")
+    for form, w in wave.items():
+        require(w["near_ties_only"],
+                f"spec_rung one wave ({form}): spec on and off part beyond "
+                f"a near-tie: {w['partings']}")
+
+    def speedup(on, off):
+        return arms[on]["tokens_per_s"] / arms[off]["tokens_per_s"]
+
+    emit({"phase": "spec_rung", "layers": DENSE_LAYERS, "ff": DENSE_FF,
+          "slots": DENSE_SLOTS, "capacity": DENSE_CAP,
+          "paged_capacity": DENSE_PAGED_CAP, "chunk": DENSE_CHUNK,
+          "speculative_k": SPEC_K, "readout_stride": SPEC_STRIDE,
+          "requests": len(prompts), "b1_requests": SPEC_B1_REQUESTS,
+          "new_tokens": DENSE_NEW,
+          "prompt_lens": [len(p) for p in prompts],
+          "rtt_est_ms": rtt * 1e3,
+          "speculation_speedup": speedup("b8_on", "b8_off"),
+          "speculation_speedup_b1": speedup("b1_on", "b1_off"),
+          "speculation_speedup_paged": speedup("paged_b8_on",
+                                               "paged_b8_off"),
+          "token_parity": {"b8": toks["b8_on"] == toks["b8_off"],
+                           "b1": toks["b1_on"] == toks["b1_off"],
+                           "paged_b8": toks["paged_b8_on"]
+                           == toks["paged_b8_off"]},
+          "drift_b8": drift(toks["b8_off"], toks["b8_on"]),
+          "drift_paged_b8": drift(toks["paged_b8_off"], toks["paged_b8_on"]),
+          "one_wave": wave, "arms": arms, "profile": spec_profile,
+          "margin": MARGIN,
+          "plain_calls": dict(plain_calls),
+          "seconds": time.perf_counter() - t_phase})
+    return {"b2_decode": arms["paged_b8_off"]["launches"]["b2_decode"],
+            "b3_append": arms["paged_b8_on"]["launches"]["b3_append"]
+            + arms["paged_b8_off"]["launches"]["b3_append"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3762,6 +4138,8 @@ def main():
     torch.cuda.empty_cache()
     rung_launches = run_serve_rung(model, dev)
     torch.cuda.empty_cache()
+    spec_launches = run_spec_rung(dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -3820,14 +4198,16 @@ def main():
          "source": PAGED_SRC, "replaces": PAGED_REPLACES,
          "launches": paged_launches + fused_decode_launches
          + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
-         + dense_launches["b2_decode"] + rung_launches["b2_decode"],
+         + dense_launches["b2_decode"] + rung_launches["b2_decode"]
+         + spec_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
         {"name": "paged_attention_append", "route": "cuda",
          "source": APPEND_SRC, "replaces": APPEND_REPLACES,
          "launches": append_launches + prefix_launches.get("b3_append", 0)
-         + dense_launches["b3_append"] + rung_launches["b3_append"],
+         + dense_launches["b3_append"] + rung_launches["b3_append"]
+         + spec_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],

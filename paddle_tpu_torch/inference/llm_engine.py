@@ -51,6 +51,25 @@ Both are greedy (``temperature <= 0``) from the carried logits; eos,
 budget and capacity deactivate a slot on the device, and the host retires
 it at readout.
 
+``speculative_k=k > 1`` (fused scheduler, dense or bf16 paged) serves
+speculative VERIFY windows (reference ``llm_engine.py:1156-1371``,
+``:3905-4149``): each window commits the token sampled from the carried
+logits plus up to ``k - 1`` prompt-lookup drafts read on the device from
+a ``[B, capacity]`` token history (``_lookup_draft``), all verified by
+ONE model call over the window through the append form (paged: the
+paged-append kernel; dense: :class:`ChunkKVCache`). Acceptance is the
+coupled greedy rule (``_verify_window``): draft j survives iff it equals
+the argmax at its position and every earlier draft did, so the stream is
+the plain fused engine's token for token. In a mixed step a decode slot
+takes a verify grant inside the chunk; an all-decode step runs up to
+``readout_stride`` windows per dispatch (the host's bound: every window
+commits a token a slot, so ``min(stride, max(budgets))`` windows). Draft
+counts adapt to each request's acceptance EWMA, kept in an rid-keyed
+mirror that survives :meth:`LLMEngine.reset`; rejected tails roll back
+through the lens and, on a paged pool, by releasing the blocks past the
+slot's scheduled length at readout. Fused speculation pipelines to depth
+2.
+
 Pipelining: ``step_begin`` enqueues its work and returns without waiting
 on the device. Host arrays go up through pinned staging buffers owned by
 the dispatch, the step's token and activity rows come back into pinned
@@ -101,14 +120,17 @@ evicts the oldest LRU block before any slot is preempted.
 
 ``add_request`` takes the reference's keyword arguments: a
 ``readout_stride`` pin (live on a stride engine, inert on a stride-1
-one), ``spec_ewma`` (inert without speculation) and ``trace_ctx``
+one), ``spec_ewma`` (the acceptance EWMA seed of a speculative engine,
+inert without speculation) and ``trace_ctx``
 (stamped on an attached recorder) are stored on the request; embedding
 requests (ROADMAP A10) and KV export (A8(h)) raise
 ``NotImplementedError``.
 
-Not in this port yet (each raises ``NotImplementedError``): speculation,
-LoRA adapters, the host KV tier and meshes; sampling with ``temperature >
-0`` waits for the threefry port (ROADMAP A7). The reference's
+Not in this port yet (each raises ``NotImplementedError``): the legacy
+scheduler's speculative scan and verify windows over int8/int4 pools
+(ROADMAP A8(e), second half), LoRA adapters, the host KV tier and meshes;
+sampling with ``temperature > 0`` waits for the threefry port (ROADMAP
+A7). The reference's
 ``PADDLE_TPU_TRANSFER_CHECKS=1`` stride guard (a thread-local
 ``jax.transfer_guard``) has no thread-local torch form and is not ported
 (ROADMAP A11).
@@ -141,6 +163,8 @@ def default_engine_stats():
     """Fresh engine ``stats`` dict: the reference's keys that this
     engine's paths touch (the server reads them by name)."""
     return {"steps": 0, "prefill_chunks": 0, "tokens_generated": 0,
+            "draft_tokens_accepted": 0,
+            "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
             "preemptions": 0, "prefill_tokens": 0, "fused_steps": 0,
             "multi_steps": 0,
             "prefix_hit_tokens": 0, "prefix_cow_blocks": 0,
@@ -153,6 +177,90 @@ def default_engine_stats():
 #: chain-hash seed of block 0 of every sequence (reference
 #: ``llm_engine.py:99``): equal first blocks collide, across packages too
 _ROOT_HASH = b"paddle-tpu-prefix-root"
+
+#: smoothing of the per-request draft-acceptance EWMA behind the
+#: acceptance-adaptive verify grants (reference ``llm_engine.py:101-106``):
+#: a request whose drafts stop accepting sheds its window within a few
+#: readouts, one unlucky window does not collapse it
+_SPEC_EWMA_ALPHA = 0.4
+
+
+def _lookup_draft(tokens_buf, lens, k_draft, ngram):
+    """Prompt-lookup drafting on the device, batched (reference
+    ``llm_engine.py:4576-4601``): match each row's last ``ngram`` committed
+    tokens against its history ``tokens_buf [B, cap]`` (the most recent
+    match wins) and propose the ``k_draft`` tokens that followed it, else
+    repeat the last token. Returns ``[B, k_draft]`` int32.
+
+    The reference's slices clamp as ``jax.lax.dynamic_slice`` does: the
+    tail starts at ``max(L - ngram, 0)`` clamped into ``[0, cap - ngram]``
+    (so when ``L < ngram`` it reads the zeros past ``L``), the
+    continuation is read at its start clamped into ``[0, cap - k_draft]``
+    while the ``pos < L`` mask uses the unclamped start, and the match
+    compares through ``roll``'s wrap-around. Index tensors and ``gather``
+    keep all of it on the device: nothing here reads back to the host."""
+    B, cap = tokens_buf.shape
+    dev = tokens_buf.device
+    L = lens.to(torch.long)
+    idx = torch.arange(cap, device=dev)
+    tail_start = (L - ngram).clamp(min=0).clamp(max=cap - ngram)
+    tail = tokens_buf.gather(
+        1, tail_start[:, None] + torch.arange(ngram, device=dev)[None])
+    eq = torch.ones((B, cap), dtype=torch.bool, device=dev)
+    for j in range(ngram):
+        # buf[(i + j) % cap] == tail[j] at every window position i
+        eq = eq & (torch.roll(tokens_buf, -j, dims=1) == tail[:, j:j + 1])
+    m = eq & (idx[None] < (L - ngram)[:, None])   # not the tail itself
+    # the most recent match: the largest matching index (-1: none)
+    i_star = torch.where(m, idx[None], torch.full_like(idx[None], -1)) \
+        .amax(dim=1)
+    has = i_star >= 0
+    start = torch.where(has, i_star + ngram, torch.zeros_like(i_star))
+    kidx = torch.arange(k_draft, device=dev)[None]
+    cont = tokens_buf.gather(
+        1, start.clamp(0, cap - k_draft)[:, None] + kidx)
+    last = tokens_buf.gather(1, (L - 1).clamp(min=0)[:, None])
+    pos = start[:, None] + kidx
+    return torch.where(has[:, None] & (pos < L[:, None]), cont, last) \
+        .to(torch.int32)
+
+
+def _write_window(tokens_buf, window, lens, mask):
+    """Append each row's verify ``window [B, Kw]`` to its history at its
+    own length, the start clamped into ``[0, cap - Kw]`` as the
+    reference's dynamic update clamps it (``llm_engine.py:4604-4612``),
+    for the rows where ``mask [B]`` holds; in place. Rejected-tail
+    positions are overwritten by later windows."""
+    cap, Kw = tokens_buf.shape[1], window.shape[1]
+    cols = lens.to(torch.long).clamp(0, cap - Kw)[:, None] + \
+        torch.arange(Kw, device=tokens_buf.device)[None]
+    old = tokens_buf.gather(1, cols)
+    tokens_buf.scatter_(1, cols, torch.where(mask[:, None],
+                                             window.to(torch.int32), old))
+
+
+def _verify_window(logits_win, draft, q_eff, active):
+    """The coupled greedy acceptance rule over ONE verify window (reference
+    ``verify_window``, ``llm_engine.py:1183-1210``): ``logits_win [B, Kw,
+    V]`` are the window rows' logits, ``draft [B, Kw - 1]`` the proposals,
+    ``q_eff [B]`` the granted widths (rows past one never accept). Draft j
+    survives iff it equals the argmax at its position, every earlier draft
+    did, and ``j < q_eff - 1``. Returns ``(counts, next_logits)``:
+    committed tokens per slot (1 + accepted drafts, 0 when inactive) and
+    the logits at the row after the last accepted draft, the plain
+    engine's carried state after those tokens."""
+    Kd = draft.shape[1]
+    targets = torch.argmax(logits_win[:, :Kd], dim=-1).to(torch.int32)
+    acc = (targets == draft) & (
+        torch.arange(Kd, device=draft.device)[None] <
+        (q_eff.to(torch.long) - 1)[:, None])
+    n_acc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1) \
+        .to(torch.int32)
+    counts = torch.where(active, 1 + n_acc, torch.zeros_like(n_acc))
+    next_logits = logits_win.gather(
+        1, n_acc.to(torch.long)[:, None, None].expand(
+            -1, 1, logits_win.shape[-1]))[:, 0]
+    return counts, next_logits
 
 
 class PoolCapacityError(RuntimeError):
@@ -230,13 +338,22 @@ class PendingStep:
     CPU, where the work has run by the time ``step_begin`` returns).
     ``step_id`` is the flight recorder's StepRecord id (None without a
     recorder); ``t_dispatch`` the ``perf_counter`` at dispatch, over which
-    the readout amortizes a multi-row stride's emit stamps."""
+    the readout amortizes a multi-row stride's emit stamps; ``kind`` the
+    dispatch's kind ("decode", "mixed" or "spec"; None for a drain).
+
+    A speculative dispatch (``spec``) reads back ``[windows, B, Kw]``
+    window tokens, ``[windows, B]`` committed ``counts``, activity and
+    ``offered`` widths (1 + drafts after the in-graph clamps, what the
+    acceptance accounting books); ``verify`` maps each verify slot to the
+    drafts it was granted, the key of the paged block-table rollback."""
 
     __slots__ = ("toks", "was_active", "slots", "pool_done", "sched",
-                 "fenced", "event", "step_id", "t_dispatch")
+                 "fenced", "event", "step_id", "t_dispatch", "kind",
+                 "spec", "counts", "offered", "verify")
 
     def __init__(self, toks, was_active, slots, pool_done, sched=None,
-                 fenced=None, event=None):
+                 fenced=None, event=None, kind=None, counts=None,
+                 offered=None, verify=None):
         self.toks = toks
         self.was_active = was_active
         self.slots = slots
@@ -246,6 +363,11 @@ class PendingStep:
         self.event = event
         self.step_id = None
         self.t_dispatch = None
+        self.kind = kind
+        self.spec = counts is not None
+        self.counts = counts
+        self.offered = offered
+        self.verify = verify or {}
 
 
 def _unported(what, item):
@@ -264,7 +386,9 @@ class LLMEngine:
     token for every other slot; decode tokens are always granted, the
     budget bounds prefill interference). ``readout_stride=k > 1`` (fused
     only, not with ``horizon > 1``) runs all-decode steps as up to ``k``
-    decode iterations per dispatch and readout."""
+    decode iterations per dispatch and readout. ``speculative_k=k > 1``
+    (fused, dense or bf16 paged) grants verify windows of 1 + up to
+    ``k - 1`` prompt-lookup drafts (``lookup_ngram`` tokens matched)."""
 
     def __init__(self, model, max_batch=4, max_seq_len=None, chunk_size=64,
                  top_k=0, stream_callback=None, horizon=1, speculative_k=1,
@@ -293,8 +417,39 @@ class LLMEngine:
             raise ValueError(f"unknown cache_impl {cache_impl!r}")
         if scheduler not in ("legacy", "fused"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        if int(speculative_k) > 1:
-            _unported("speculative_k > 1", "A8(e)")
+        #: speculative verify windows: 1 committed token + up to k - 1
+        #: prompt-lookup drafts a window (fused scheduler only here)
+        self.speculative_k = max(1, int(speculative_k))
+        self.lookup_ngram = max(1, int(lookup_ngram))
+        if self.speculative_k > 1:
+            # the reference's ValueErrors first (llm_engine.py:572-575,
+            # :641-645, :678-682), so a configuration it rejects is
+            # rejected alike; then the forms not ported yet
+            if scheduler == "fused" and int(chunk_size) < self.speculative_k:
+                raise ValueError(
+                    f"chunk_size {int(chunk_size)} cannot carry a "
+                    f"speculative_k={self.speculative_k} verify window "
+                    f"(the fused mixed step's ids buffer is chunk tokens "
+                    f"wide)")
+            if cache_impl == "paged" and scheduler != "fused":
+                raise ValueError(
+                    "the legacy scheduler's speculative path is dense-only "
+                    "— paged speculation rides the fused scheduler's "
+                    "verify grants through the append-form attention path "
+                    "(scheduler='fused')")
+            if adapter_store is not None and scheduler != "fused":
+                raise ValueError(
+                    "the legacy speculative scan is not adapter-aware — "
+                    "batched multi-LoRA speculation rides the fused "
+                    "scheduler's verify grants (scheduler='fused')")
+            if scheduler != "fused":
+                _unported("the legacy scheduler's speculative scan "
+                          "(speculative_k > 1, scheduler='legacy')",
+                          "A8(e), second half")
+            if kv_cache_dtype is not None:
+                _unported(f"verify windows over {kv_cache_dtype} KV pools "
+                          f"(speculative_k > 1 with kv_cache_dtype)",
+                          "A8(e), second half")
         #: multi-step all-decode (fused scheduler): up to this many decode
         #: iterations per dispatch, capped per step by the resident
         #: slots' pins (reference ``llm_engine.py:498-517``)
@@ -329,7 +484,6 @@ class LLMEngine:
         c = model.config
         self.B = int(max_batch)
         self.horizon = max(1, int(horizon))
-        self.speculative_k = 1
         self.capacity = int(max_seq_len or c.max_position_embeddings)
         if self.capacity > c.max_position_embeddings:
             raise ValueError(
@@ -367,6 +521,10 @@ class LLMEngine:
         self._dtype = model.llama.embed_tokens.weight.dtype
         self._admit_order = [0] * self.B
         self._admit_seq = 0
+        #: rid -> draft-acceptance EWMA, the acceptance-adaptive verify-k
+        #: state; survives reset() so a restarted request resumes at its
+        #: learned window, and drops at the request's finish
+        self._spec_ewma = {}
         self._init_device_state()
         #: pool bytes, payload and scales (what a StepRecord carries)
         self._kv_nbytes = self.kv_pool_nbytes()
@@ -409,6 +567,11 @@ class LLMEngine:
         self._logits = torch.zeros((self.B, self.model.config.vocab_size),
                                    dtype=torch.float32, device=dev)
         self._lens = torch.zeros((self.B,), dtype=torch.int32, device=dev)
+        #: the committed-token history the prompt-lookup drafts read
+        #: (speculative engines only): each slot's stream, zero past it
+        self._tokens = torch.zeros((self.B, self.capacity), dtype=torch.int32,
+                                   device=dev) \
+            if self.speculative_k > 1 else None
         self._k_scale = self._v_scale = [None] * L
         if not self._paged:
             shape = (self.B, self.capacity, self._kvh, self._head_dim)
@@ -457,8 +620,9 @@ class LLMEngine:
         server's crash-recovery hook. Every slot, waiting request, finished
         output and preemption stitch drops, and the pools (scale arrays
         included), carried logits, lens and allocator are rebuilt from
-        zeros, and the prefix store empties. The request-id counter and the
-        cumulative ``stats`` survive."""
+        zeros (the token history too), and the prefix store empties. The
+        request-id counter, the cumulative ``stats`` and the rid-keyed
+        acceptance EWMA mirror survive."""
         self.slots = [None] * self.B
         self.waiting.clear()
         self.finished_outputs.clear()
@@ -522,11 +686,17 @@ class LLMEngine:
         full pool 3 — allocation cannot fail in steady state; fused paged
         on an oversubscribed pool 2 — the write fence makes mid-flight
         eviction memory-safe, but each stale step a preemption decision
-        lags costs re-prefill churn; legacy dense 2 — host request state
+        lags costs re-prefill churn; fused speculative 2 — the verify
+        grants' lens mirror overestimates in-flight growth by every
+        rejected tail (the device rolls back, the host learns at readout),
+        so each extra stale dispatch over-fences and over-allocates a
+        window a slot; legacy dense 2 — host request state
         one step stale at the chained dispatch; legacy paged 1 — its slots
         have no lens mirror, so the allocator and the admission prefill
         need each step's post-readout lens."""
         if self.scheduler == "fused":
+            if self.speculative_k > 1:
+                return 2
             if not self._paged or self.n_blocks >= self.B * self._max_blocks:
                 return 3
             return 2
@@ -553,7 +723,10 @@ class LLMEngine:
         at most this stride; inert on a stride-1 engine), ``adapter_id``
         (nonzero needs an adapter store, which this port does not have
         yet), ``kind`` ("generate"; "embed" is ROADMAP A10), ``spec_ewma``
-        (inert without speculation), ``export_kv`` (ROADMAP A8(h)) and
+        (a carried draft-acceptance EWMA seeding the request's verify
+        windows; None takes the engine's rid-keyed mirror, so a restart or
+        a preemption resumes at the learned window; inert without
+        speculation), ``export_kv`` (ROADMAP A8(h)) and
         ``trace_ctx`` (stamped on an attached flight recorder's
         timeline). All are stored on the request."""
         ids = np.asarray(
@@ -605,7 +778,8 @@ class LLMEngine:
             readout_stride=(int(readout_stride)
                             if readout_stride is not None else None),
             adapter_id=adapter_id, kind=kind,
-            spec_ewma=float(spec_ewma) if spec_ewma is not None else None,
+            spec_ewma=(float(spec_ewma) if spec_ewma is not None
+                       else self._spec_ewma.get(rid)),
             export_kv=bool(export_kv), trace_ctx=trace_ctx))
         if trace_ctx is not None:
             rec = self._rec()
@@ -1057,8 +1231,10 @@ class LLMEngine:
 
     def _finish_tokens(self, req, generated):
         """Full output stream including tokens committed before a
-        preemption."""
+        preemption. Called once per terminal output, so it also drops the
+        request's acceptance EWMA entry."""
         prefix = self._preempted_prefix.pop(req.request_id, [])
+        self._spec_ewma.pop(req.request_id, None)
         return list(prefix) + list(generated)
 
     # ------------------------------------------------------------------
@@ -1250,6 +1426,12 @@ class LLMEngine:
         if self.prefix_cache:
             hit, chain = self._probe_prefix(slot_idx, req.prompt_ids)
         self._lens[slot_idx].fill_(hit)
+        if self._tokens is not None:
+            # the draft history: the WHOLE prompt (host-known even over a
+            # prefix hit), zeros after it, what a draft reads past L
+            row = np.zeros((self.capacity,), np.int32)
+            row[:len(req.prompt_ids)] = req.prompt_ids
+            self._tokens[slot_idx] = self._upload(row)
         slot = self.slots[slot_idx] = _Slot(req, len(req.prompt_ids),
                                             prefill_pos=hit)
         slot.chain, slot.reg_blocks = chain, len(chain)
@@ -1319,17 +1501,23 @@ class LLMEngine:
             return []
         return self.step_finish(pending)
 
-    def _dispatched(self, toks, was_active, pool_done, sched, fenced):
-        """Close a dispatch: enqueue its token/activity readback into
-        pinned host memory and record its event. Nothing waits here."""
+    def _dispatched(self, toks, was_active, pool_done, sched, fenced, kind,
+                    counts=None, offered=None, verify=None):
+        """Close a dispatch: enqueue its token/activity readback (and a
+        speculative dispatch's counts and offered widths) into pinned host
+        memory and record its event. Nothing waits here."""
         toks, was_active = self._download(toks), self._download(was_active)
+        if counts is not None:
+            counts, offered = self._download(counts), self._download(offered)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         self._inflight += 1
         return PendingStep(toks, was_active, list(self.slots), pool_done,
-                           sched=sched, fenced=fenced, event=event)
+                           sched=sched, fenced=fenced, event=event,
+                           kind=kind, counts=counts, offered=offered,
+                           verify=verify)
 
     def _caches(self, tables, lens, q_lens=None):
         """One cache per layer over the engine's buffers for a decode step
@@ -1389,7 +1577,18 @@ class LLMEngine:
         the carried logits). Every slot's rows sit at its own absolute
         positions (``lens``); padding rows write nothing. The LM head runs
         over each slot's last valid row only; inactive slots keep their
-        carried logits. Returns ``[1, B]`` token and activity rows."""
+        carried logits. Returns ``[1, B]`` token and activity rows.
+
+        A speculative engine's decode slot (reference ``fused_step``'s
+        verify branch, ``llm_engine.py:1405-1500``) has a VERIFY grant: its
+        ``q_lens[b] = 1 + drafts`` rows are its committed token and then
+        the prompt-lookup drafts, padded into the chunk; the token history
+        takes the window of decode slots only, the head also runs over
+        ``hidden[:, :Kw]`` for the coupled rule, and a verify slot's lens
+        grow by its committed count. Returns the ``[1, B, Kw]`` windows and
+        the ``[1, B]`` activity, counts and offered widths."""
+        Kw = self.speculative_k
+        spec = Kw > 1
         tables = self._upload(self._tables) if self._paged else None
         ids_t = self._upload(ids)
         ql = self._upload(q_lens)
@@ -1401,9 +1600,21 @@ class LLMEngine:
         # cross the buffer end deactivates on the device
         act = act & (lens + ql <= self.capacity)
         dec = act & is_dec
+        if spec:
+            # a verify window must fit the token-history write: a slot
+            # clamped out goes fully inactive (its rows must not write)
+            dec = dec & (lens + Kw <= self.capacity)
+            act = act & (~is_dec | dec)
         nxt = torch.where(dec, nxt, torch.zeros_like(nxt))
         q_eff = torch.where(act, ql, torch.zeros_like(ql))
-        ids_t[:, 0] = torch.where(dec, nxt, ids_t[:, 0])
+        if not spec:
+            ids_t[:, 0] = torch.where(dec, nxt, ids_t[:, 0])
+        else:
+            draft = _lookup_draft(self._tokens, lens, Kw - 1,
+                                  self.lookup_ngram)
+            window = torch.cat([nxt[:, None], draft], dim=1)   # [B, Kw]
+            ids_t[:, :Kw] = torch.where(dec[:, None], window, ids_t[:, :Kw])
+            _write_window(self._tokens, window, lens, dec)
         caches = self._caches(tables, lens, q_eff)
         hidden, _ = self.model.llama(ids_t, kv_caches=caches,
                                      position_offset=lens)
@@ -1411,9 +1622,83 @@ class LLMEngine:
         rows = hidden.gather(1, last[:, None, None].expand(
             -1, 1, hidden.shape[-1]))                  # [B, 1, H]
         new_logits = self.model._logits(rows)[:, 0].float()
+        if not spec:
+            self._logits = torch.where(act[:, None], new_logits, logits)
+            self._lens = lens + q_eff
+            return nxt[None], dec[None]
+        # verify slots need every window row's logits: the head over [B,
+        # Kw, H], bounded by the window, never the whole chunk
+        logits_win = self.model._logits(hidden[:, :Kw]).float()
+        counts, spec_logits = _verify_window(logits_win, draft, q_eff, dec)
+        new_logits = torch.where(dec[:, None], spec_logits, new_logits)
         self._logits = torch.where(act[:, None], new_logits, logits)
-        self._lens = lens + q_eff
-        return nxt[None], dec[None]
+        # rejected drafts roll back here: a verify slot grows by its
+        # committed count; the KV rows written past it are unreferenced
+        # and the next window overwrites them
+        self._lens = lens + torch.where(dec, counts, q_eff)
+        return window[None], dec[None], counts[None], q_eff[None]
+
+    def _multi_spec(self, n_win, active, eos_ids, budgets, spec_qs, row_caps):
+        """The all-decode speculative dispatch (reference
+        ``make_multi_spec``, ``llm_engine.py:1270-1371``): ``n_win`` verify
+        windows for every slot, each through the append form over ``[B,
+        Kw]`` ids (paged: the paged-append kernel; dense:
+        :class:`ChunkKVCache`) with the coupled rule, lens and token
+        history carried. A window's width is the slot's granted
+        ``spec_qs`` shrunk to its covered rows ``row_caps`` and capacity;
+        eos, budget and the capacity margin deactivate a slot on the
+        device. The reference's loop stops once no slot is active; here the
+        host runs ``n_win`` windows, its own bound, and windows after every
+        slot stopped come out inactive, with zero counts. Returns ``[n_win, B, Kw]``
+        windows and ``[n_win, B]`` activity, counts and offered widths."""
+        Kw, cap = self.speculative_k, self.capacity
+        tables = self._upload(self._tables) if self._paged else None
+        act = self._upload(active)
+        eos = self._upload(eos_ids)
+        buds = self._upload(budgets)
+        qs = self._upload(spec_qs)
+        caps = self._upload(row_caps).clamp(max=cap)
+        logits, lens, tbuf = self._logits, self._lens, self._tokens
+        emitted = torch.zeros_like(lens)
+        kidx = torch.arange(Kw, device=self.device)[None]
+        model = self.model
+        toks, cnts, was_active, offered = [], [], [], []
+        for _ in range(n_win):
+            # pipelined over-dispatch guard: a slot an in-flight dispatch
+            # grew to the capacity margin stops before its window could
+            # cross the buffer (or the token history's end)
+            act = act & (lens + Kw <= cap)
+            draft = _lookup_draft(tbuf, lens, Kw - 1, self.lookup_ngram)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(act, nxt, torch.zeros_like(nxt))
+            window = torch.cat([nxt[:, None], draft], dim=1)
+            # the granted 1 + k drafts, shrunk to the covered-block and
+            # capacity row budget (pool pressure narrows windows first)
+            q_eff = torch.minimum((caps - lens).clamp(min=0), qs)
+            q_eff = torch.where(act, q_eff, torch.zeros_like(q_eff))
+            act = act & (q_eff >= 1)
+            q_eff = torch.where(act, q_eff, torch.zeros_like(q_eff))
+            caches = self._caches(tables, lens, q_eff)
+            hidden, _ = model.llama(window, kv_caches=caches,
+                                    position_offset=lens)
+            logits_win = model._logits(hidden).float()         # [B, Kw, V]
+            counts, new_logits = _verify_window(logits_win, draft, q_eff,
+                                                act)
+            logits = torch.where(act[:, None], new_logits, logits)
+            _write_window(tbuf, window, lens, act)
+            new_lens = lens + counts
+            toks.append(window)
+            cnts.append(counts)
+            was_active.append(act)
+            offered.append(q_eff)
+            emitted = emitted + counts
+            eos_hit = ((kidx < counts[:, None]) &
+                       (window == eos[:, None])).any(dim=1)
+            act = act & ~eos_hit & (new_lens < cap - Kw) & (emitted < buds)
+            lens = new_lens
+        self._logits, self._lens = logits, lens
+        return (torch.stack(toks), torch.stack(was_active),
+                torch.stack(cnts), torch.stack(offered))
 
     def _rec(self):
         """The attached FlightRecorder when it is recording, else None:
@@ -1464,6 +1749,16 @@ class LLMEngine:
             adapter_slots=(), adapter_swaps=0)
         self._rec_ctx = None
 
+    def _slot_sampling_arrays(self):
+        """Per-slot eos ids (-1: none) and remaining token budgets of an
+        all-decode dispatch, plain or speculative."""
+        eos_ids = np.array([(s.req.eos_token_id if s and
+                             s.req.eos_token_id is not None else -1)
+                            for s in self.slots], np.int32)
+        budgets = np.array([(s.req.max_new_tokens - len(s.generated))
+                            if s else 0 for s in self.slots], np.int32)
+        return eos_ids, budgets
+
     def _effective_stride(self):
         """The readout stride of the NEXT all-decode dispatch (reference
         ``llm_engine.py:1778-1789``): the engine's ``readout_stride``
@@ -1475,6 +1770,38 @@ class LLMEngine:
         pins = [s.req.readout_stride for s in self.slots
                 if s is not None and s.req.readout_stride is not None]
         return max(1, min([self.readout_stride] + pins))
+
+    # ------------------------------------------------------------------
+    # acceptance-adaptive verify-k (reference ``llm_engine.py:1742-1776``)
+    # ------------------------------------------------------------------
+    def _spec_k_for(self, slot):
+        """Draft count of ``slot``'s next verify grant: its acceptance EWMA
+        scaled into ``[1, speculative_k - 1]`` (the full window until the
+        first readout teaches otherwise). A low-acceptance request keeps
+        proposing ONE draft, never zero, so its EWMA can recover."""
+        ewma = slot.req.spec_ewma
+        if ewma is None:
+            ewma = self._spec_ewma.get(slot.req.request_id, 1.0)
+        kd = self.speculative_k - 1
+        return max(1, min(kd, int(round(ewma * kd + 0.25))))
+
+    def _update_spec_ewma(self, slot, proposed, accepted):
+        """Fold one readout's accepted/proposed drafts into the request's
+        EWMA (the request's field and the rid-keyed mirror)."""
+        if proposed <= 0:
+            return
+        rate = accepted / proposed
+        prev = slot.req.spec_ewma
+        if prev is None:
+            prev = self._spec_ewma.get(slot.req.request_id, rate)
+        ewma = (1.0 - _SPEC_EWMA_ALPHA) * prev + _SPEC_EWMA_ALPHA * rate
+        slot.req.spec_ewma = ewma
+        self._spec_ewma[slot.req.request_id] = ewma
+
+    def spec_ewma_for(self, request_id):
+        """The persisted draft-acceptance EWMA of ``request_id`` (None:
+        never speculated), what a failover forwards as ``spec_ewma``."""
+        return self._spec_ewma.get(request_id)
 
     def step_begin(self):
         """Admit waiting requests into free slots and DISPATCH one step for
@@ -1522,6 +1849,10 @@ class LLMEngine:
             # a slot is ramping in: ONE mixed dispatch covers its prefill
             # chunk AND every decode slot's token
             return self._begin_mixed_step(pool_done)
+        if fused and self.speculative_k > 1:
+            # speculative ALL-DECODE: verify windows for every slot, up to
+            # the stride of them in one dispatch
+            return self._begin_spec_decode(pool_done)
         # ALL-DECODE: with readout_stride > 1 the fused scheduler runs up
         # to `stride` decode iterations as one dispatch, its block
         # coverage and write fence pre-granted for the whole stride;
@@ -1574,11 +1905,7 @@ class LLMEngine:
                                       self.B * self.horizon, 0.0)
                 return pending
             return None
-        eos_ids = np.array([(s.req.eos_token_id if s and
-                             s.req.eos_token_id is not None else -1)
-                            for s in self.slots], np.int32)
-        budgets = np.array([(s.req.max_new_tokens - len(s.generated))
-                            if s else 0 for s in self.slots], np.int32)
+        eos_ids, budgets = self._slot_sampling_arrays()
         for b, cap_left in pool_budget.items():
             budgets[b] = min(budgets[b], cap_left)
         # the in-flight write fence (fused): every block this dispatch may
@@ -1617,7 +1944,7 @@ class LLMEngine:
                     slot.inflight += stride
                     sched[b] = stride
         pending = self._dispatched(toks, was_active, pool_done, sched,
-                                   fenced)
+                                   fenced, "decode")
         dt = time.perf_counter() - t0
         pending.t_dispatch = t0
         self.stats["dispatch_time_s"] += dt
@@ -1631,6 +1958,104 @@ class LLMEngine:
                                   sum(g[3] for g in grants),
                                   self.B * stride, dt,
                                   readout_stride=stride)
+        return pending
+
+    # ------------------------------------------------------------------
+    # fused scheduler: the speculative all-decode dispatch
+    # ------------------------------------------------------------------
+    def _begin_spec_decode(self, pool_done):
+        """ALL-DECODE dispatch of a speculative engine (reference
+        ``llm_engine.py:3905-4036``): every slot gets a VERIFY grant of 1
+        committed token plus its adaptive draft count a window, run as up
+        to ``stride`` windows in one dispatch. Pool pressure first shrinks
+        a paged slot's windows to the rows its blocks cover
+        (``row_caps``); only a slot that cannot write its committed token
+        walks the preemption ladder. The host mirrors the worst case
+        (every window fully accepted) until the readout pays it back."""
+        stride = self._effective_stride()
+        Kw = self.speculative_k
+        spec_qs = np.zeros((self.B,), np.int32)
+        row_caps = np.full((self.B,), self.capacity, np.int32)
+        order = sorted((b for b, s in enumerate(self.slots) if s is not None),
+                       key=lambda i: self._admit_order[i])
+        for b in order:
+            slot = self.slots[b]
+            if slot is None:
+                continue  # evicted while covering an older slot
+            cur = slot.sched_len()
+            if cur >= self.capacity:
+                continue  # pipelined overshoot; readout retires it
+            kd = self._spec_k_for(slot)
+            if self._paged:
+                want_hi = min(cur + stride * (1 + kd) - 1, self.capacity - 1)
+                if not self._ensure_blocks(b, want_hi):
+                    avail = self._n_allocatable()
+                    if avail:
+                        self._alloc_blocks(b, avail)
+                    covered = len(self._slot_blocks[b]) * self.block_size
+                    if covered <= cur:
+                        # not even the committed token: the ordinary
+                        # coverage ladder (preempt newer, park, retire)
+                        if not self._ensure_pos_covered(b, cur, pool_done):
+                            continue
+                        covered = len(self._slot_blocks[b]) * \
+                            self.block_size
+                    row_caps[b] = min(int(row_caps[b]), covered)
+            spec_qs[b] = 1 + kd
+        active = np.array([spec_qs[b] > 0 and self.slots[b] is not None
+                           for b in range(self.B)])
+        if not active.any():
+            if pool_done:
+                pending = PendingStep(None, None, list(self.slots),
+                                      pool_done)
+                self._record_dispatch(pending, "drain", (), 0,
+                                      self.B * Kw * stride, 0.0)
+                return pending
+            return None
+        eos_ids, budgets = self._slot_sampling_arrays()
+        # the write fence over every position the windows may write: the
+        # committed length through the stride of full windows
+        fenced = []
+        if self._paged:
+            for b in np.nonzero(active)[0]:
+                slot = self.slots[b]
+                lo = slot.prefill_pos + len(slot.generated)
+                hi = min(slot.sched_len() + stride * int(spec_qs[b]) - 1,
+                         self.capacity - 1)
+                self._fence_blocks(int(b), lo, hi, fenced)
+        # every window commits at least one token a live slot, so after
+        # the largest remaining budget of windows every slot has stopped:
+        # the host's own bound on the reference's in-graph exit
+        n_win = max(1, min(stride, int(budgets[active].max())))
+        t0 = time.perf_counter()
+        toks, was_active, counts, offered = self._multi_spec(
+            n_win, active, eos_ids, budgets, spec_qs, row_caps)
+        self.stats["fused_steps"] += 1
+        if stride > 1:
+            self.stats["multi_steps"] += 1
+        sched, verify = {}, {}
+        for b in np.nonzero(active)[0]:
+            slot = self.slots[b]
+            if slot is not None:
+                n = stride * int(spec_qs[b])
+                slot.inflight += n
+                sched[int(b)] = n
+                verify[int(b)] = int(spec_qs[b]) - 1
+        pending = self._dispatched(toks, was_active, pool_done, sched,
+                                   fenced, "spec", counts, offered, verify)
+        dt = time.perf_counter() - t0
+        pending.t_dispatch = t0
+        self.stats["dispatch_time_s"] += dt
+        self.stats["decode_time_s"] += dt
+        if self._rec() is not None:
+            grants = tuple(
+                (int(b), self.slots[b].req.request_id, "verify",
+                 stride * int(spec_qs[b]))
+                for b in np.nonzero(active)[0] if self.slots[b] is not None)
+            self._record_dispatch(pending, "spec", grants,
+                                  sum(g[3] for g in grants),
+                                  self.B * Kw * stride, dt,
+                                  readout_stride=Kw * stride)
         return pending
 
     # ------------------------------------------------------------------
@@ -1663,10 +2088,19 @@ class LLMEngine:
         so older requests ramp first. Paged blocks allocate here; a ramping
         slot that cannot cover its grant shrinks it to the blocks it could
         grab and otherwise waits for a retirement. A dense engine grants
-        without that ladder: its slot buffers hold every position."""
+        without that ladder: its slot buffers hold every position.
+
+        A speculative engine gives a decode slot a VERIFY grant instead
+        (reference ``llm_engine.py:4075-4149``): the committed token
+        always, plus its acceptance-adaptive draft count, which the
+        remaining budget and the blocks the pool could cover shrink
+        first. Returns the grants and ``spec_ks`` (drafts a slot; None
+        without speculation)."""
         B, S = self.B, self.chunk
+        spec = self.speculative_k > 1
         ids = np.zeros((B, S), np.int32)
         q_lens = np.zeros((B,), np.int32)
+        spec_ks = np.zeros((B,), np.int32) if spec else None
         is_dec = np.zeros((B,), bool)
         active = np.zeros((B,), bool)
         sched = {}
@@ -1684,11 +2118,23 @@ class LLMEngine:
             if self._paged and \
                     not self._ensure_pos_covered(b, cur, pool_done):
                 continue
-            q_lens[b] = 1
+            q = 1
+            if spec:
+                kd = min(self._spec_k_for(slot), max(budget - 1, 0))
+                if self._paged and kd > 0 and \
+                        not self._ensure_blocks(b, cur + kd):
+                    avail = self._n_allocatable()
+                    if avail:
+                        self._alloc_blocks(b, avail)
+                    covered = len(self._slot_blocks[b]) * self.block_size
+                    kd = max(0, min(kd, covered - cur - 1))
+                spec_ks[b] = kd
+                q = 1 + kd
+            q_lens[b] = q
             is_dec[b] = True
             active[b] = True
-            sched[b] = 1
-            budget -= 1
+            sched[b] = q
+            budget -= q
         first_ramp = True
         for b in order:                      # then prefill grants
             slot = self.slots[b]
@@ -1716,13 +2162,13 @@ class LLMEngine:
             q_lens[b] = take
             active[b] = True
             budget -= take
-        return ids, q_lens, is_dec, active, sched
+        return ids, q_lens, is_dec, active, sched, spec_ks
 
     def _begin_mixed_step(self, pool_done):
         """Schedule and DISPATCH one fused mixed step (>= 1 slot is
         ramping)."""
         for _ in range(self.B + 1):
-            ids, q_lens, is_dec, active, sched = \
+            ids, q_lens, is_dec, active, sched, spec_ks = \
                 self._schedule_mixed(pool_done)
             if active.any():
                 break
@@ -1749,16 +2195,25 @@ class LLMEngine:
                 else slot.prefill_pos + int(q_lens[b]) - 1
             self._fence_blocks(int(b), lo, min(hi, self.capacity - 1),
                                fenced)
+        spec = spec_ks is not None
         t0 = time.perf_counter()
-        toks, was_active = self._fused_step(ids, q_lens, is_dec, active)
+        counts = offered = None
+        if spec:
+            toks, was_active, counts, offered = self._fused_step(
+                ids, q_lens, is_dec, active)
+        else:
+            toks, was_active = self._fused_step(ids, q_lens, is_dec, active)
         self.stats["fused_steps"] += 1
         # host mirrors of the scheduled growth (dispatch-time, so the next
         # step — possibly dispatched before this one's readout — schedules
         # from the post-step state)
+        verify = {}
         for b in np.nonzero(active)[0]:
             slot = self.slots[b]
             if is_dec[b]:
                 slot.inflight += int(q_lens[b])
+                if spec:
+                    verify[int(b)] = int(spec_ks[b])
             else:
                 slot.prefill_pos += int(q_lens[b])
                 self.stats["prefill_chunks"] += 1
@@ -1768,7 +2223,7 @@ class LLMEngine:
                 # reads are dispatched after this grant's writes)
                 self._register_upto(int(b), slot, slot.prefill_pos)
         pending = self._dispatched(toks, was_active, pool_done, sched,
-                                   fenced)
+                                   fenced, "mixed", counts, offered, verify)
         dt = time.perf_counter() - t0
         pending.t_dispatch = t0
         self.stats["dispatch_time_s"] += dt
@@ -1777,11 +2232,13 @@ class LLMEngine:
         if rec is not None:
             grants = tuple(
                 (int(b), self.slots[b].req.request_id,
-                 "decode" if is_dec[b] else "prefill", int(q_lens[b]))
+                 ("verify" if spec else "decode") if is_dec[b]
+                 else "prefill", int(q_lens[b]))
                 for b in np.nonzero(active)[0] if self.slots[b] is not None)
             self._record_dispatch(pending, "mixed", grants,
                                   sum(g[3] for g in grants),
-                                  self.max_step_tokens, dt)
+                                  self.max_step_tokens, dt,
+                                  readout_stride=self.speculative_k)
             for _, rid, gkind, n in grants:
                 if gkind == "prefill":
                     rec.req_event(rid, "prefill",
@@ -1811,11 +2268,26 @@ class LLMEngine:
             slot = pending.slots[b]
             if slot is not None and self.slots[b] is slot:
                 slot.inflight = max(0, slot.inflight - n)
+        spec = pending.spec
+        Ks = self.speculative_k
         t0 = time.perf_counter()
         if pending.event is not None:
             pending.event.synchronize()
-        toks_np = pending.toks.numpy()                 # [K, B]
-        act_np = pending.was_active.numpy()            # [K, B]
+        if spec:
+            toks3 = pending.toks.numpy()               # [windows, B, Ks]
+            counts_np = pending.counts.numpy()         # [windows, B]
+            wa_np = pending.was_active.numpy()         # [windows, B]
+            offered_np = pending.offered.numpy()       # [windows, B]
+            Kh, B_, _ = toks3.shape
+            # windows flattened into the [rows, B] stream the readout
+            # walks: row i of a window is live iff i < its count, so the
+            # stream has gaps the walk SKIPS instead of stopping at
+            toks_np = toks3.transpose(0, 2, 1).reshape(Kh * Ks, B_)
+            act_np = ((np.arange(Ks)[None, :, None] < counts_np[:, None, :])
+                      & wa_np[:, None, :]).reshape(Kh * Ks, B_)
+        else:
+            toks_np = pending.toks.numpy()             # [K, B]
+            act_np = pending.was_active.numpy()        # [K, B]
         dt = time.perf_counter() - t0
         self.stats["host_sync_time_s"] += dt
         self.stats["decode_time_s"] += dt
@@ -1828,8 +2300,14 @@ class LLMEngine:
         # k-row readout drains k device iterations in this one sync, so
         # each row's emit stamp is backdated by the iterations still ahead
         # of it, the dispatch-to-sync window divided over the rows the
-        # device ran with any slot active
-        n_exec = int(act_np.any(axis=1).sum())
+        # device ran with any slot active; a verify window is ONE such
+        # boundary (its rows commit together)
+        if spec:
+            row_boundary = np.arange(toks_np.shape[0]) // Ks
+            n_exec = int(wa_np.any(axis=1).sum())
+        else:
+            row_boundary = np.arange(toks_np.shape[0])
+            n_exec = int(act_np.any(axis=1).sum())
         per_row = 0.0
         if toks_np.shape[0] > 1 and pending.t_dispatch is not None \
                 and n_exec > 1:
@@ -1838,6 +2316,7 @@ class LLMEngine:
         now_pc = time.perf_counter()
         t0 = time.perf_counter()
         done = list(pending.pool_done)
+        spec_acc_total = spec_rej_total = 0
         for b, slot in enumerate(pending.slots):
             if slot is None or self.slots[b] is not slot:
                 continue
@@ -1845,12 +2324,17 @@ class LLMEngine:
             n_read = 0
             for k in range(toks_np.shape[0]):
                 if not act_np[k, b]:
+                    if spec:
+                        # a verify window's rejected tail: later windows
+                        # may still hold live tokens
+                        continue
                     break  # deactivated on the device at an earlier row
                 tok = int(toks_np[k, b])
                 slot.generated.append(tok)
                 n_read += 1
                 self.stats["tokens_generated"] += 1
-                self.emit_backdate_s = max(n_exec - 1 - k, 0) * per_row
+                self.emit_backdate_s = \
+                    max(n_exec - 1 - int(row_boundary[k]), 0) * per_row
                 if rec is not None and sid is not None:
                     # the token-to-step join, stamped at the token's
                     # amortized device step boundary
@@ -1872,6 +2356,26 @@ class LLMEngine:
                     finish_reason = "capacity"
                 if finish_reason:
                     break
+            if spec and n_read > 0:
+                # drafts that landed in the output (row 0 of a window is
+                # the committed token, not a draft), against the drafts
+                # the device OFFERED (the in-graph clamps can shrink a
+                # window below its grant)
+                n_committed = sum(1 for k in range(toks_np.shape[0])
+                                  if act_np[k, b] and k % Ks == 0)
+                accepted = max(n_read - n_committed, 0)
+                self.stats["draft_tokens_accepted"] += accepted
+                proposed = int(np.maximum(offered_np[:, b] - 1, 0)
+                               [wa_np[:, b]].sum())
+                self.stats["spec_proposed_tokens"] += proposed
+                self.stats["spec_accepted_tokens"] += accepted
+                spec_acc_total += accepted
+                spec_rej_total += max(proposed - accepted, 0)
+                if self.slots[b] is slot:
+                    # a stream callback may have cancelled the request
+                    # mid-readout, dropping its EWMA entry: updating it
+                    # now would resurrect a finished rid's state
+                    self._update_spec_ewma(slot, proposed, accepted)
             if self.slots[b] is not slot:
                 continue
             if n_read:
@@ -1887,12 +2391,32 @@ class LLMEngine:
                 self.finished_outputs[slot.req.request_id] = out
                 done.append(out)
                 self._free_slot(b)
+        if self._paged and pending.verify:
+            # BLOCK-TABLE ROLLBACK (reference :4504-4521): blocks granted
+            # to drafts the device rejected are orphaned; release them,
+            # no copy. The keep line is the slot's scheduled length, which
+            # still counts younger dispatches' growth, and a block a
+            # younger dispatch fences goes to quarantine, not the heap
+            bs = self.block_size
+            for b in pending.verify:
+                slot = pending.slots[b]
+                if slot is None or self.slots[b] is not slot:
+                    continue  # retired or preempted: blocks already freed
+                keep = slot.sched_len() // bs + 1
+                blocks = self._slot_blocks[b]
+                while len(blocks) > keep:
+                    phys = blocks.pop()
+                    self._tables[b, len(blocks)] = -1
+                    self._release_block(phys)
+            self._check_pool_invariants()
         self.emit_backdate_s = 0.0
         d_emit = time.perf_counter() - t0
         self.stats["emit_time_s"] += d_emit
         if rec is not None and sid is not None:
             rec.finish_step(sid, dt, d_emit,
-                            tuple(out.request_id for out in done))
+                            tuple(out.request_id for out in done),
+                            spec_accepted=spec_acc_total,
+                            spec_rejected=spec_rej_total)
         return done
 
     def generate(self, prompts, **sampling):

@@ -72,6 +72,8 @@ __all__ = ["AsyncLLMServer"]
 #: engine stats of the prefix cache, booked as telemetry counters
 _PREFIX_COUNTERS = ("prefix_hit_tokens", "prefix_cow_blocks",
                     "prefix_evicted_blocks")
+#: engine stats of speculation, booked as telemetry counters at readout
+_SPEC_COUNTERS = ("spec_proposed_tokens", "spec_accepted_tokens")
 
 
 def _a11(what):
@@ -350,9 +352,12 @@ class AsyncLLMServer:
         TraceContext, minted here when absent. ``readout_stride``: a
         latency-tier pin for multi-step decode (1 forces per-step readout
         while the request is resident; None inherits the engine's
-        stride). ``spec_ewma`` (speculation, A8(e)), ``kind="embed"``
-        (A10), ``export_kv`` (A8(h)) and a nonzero ``adapter_id`` (A10)
-        are not in this port and raise."""
+        stride). ``spec_ewma``: a carried draft-acceptance EWMA seeding a
+        speculative engine's verify windows for this request (a failover
+        forwards ``LLMEngine.spec_ewma_for``); None lets the engine learn,
+        inert without speculation. ``kind="embed"`` (A10), ``export_kv``
+        (A8(h)) and a nonzero ``adapter_id`` (A10) are not in this port
+        and raise."""
         if self._crashed is not None:
             raise ServerClosed(
                 f"serving loop crashed: {self._crashed}") from self._crashed
@@ -382,9 +387,6 @@ class AsyncLLMServer:
         if readout_stride is not None and int(readout_stride) < 1:
             raise ValueError(f"readout_stride must be >= 1, got "
                              f"{readout_stride}")
-        if spec_ewma is not None:
-            raise NotImplementedError(
-                "spec_ewma (speculation) is not ported yet: ROADMAP A8(e)")
         if total >= eng.capacity - eng.speculative_k:
             raise ValueError(
                 f"prompt of {total} tokens leaves no room to "
@@ -419,6 +421,8 @@ class AsyncLLMServer:
             resume_tokens=resume,
             readout_stride=(int(readout_stride)
                             if readout_stride is not None else None),
+            spec_ewma=(float(spec_ewma) if spec_ewma is not None
+                       else None),
             trace_ctx=tc)
         handle = RequestHandle(self, req)
         rec = self.flight_recorder
@@ -640,6 +644,7 @@ class AsyncLLMServer:
                 eos_token_id=eos, request_id=req.request_id,
                 committed_tokens=committed or None,
                 readout_stride=req.readout_stride,
+                spec_ewma=req.spec_ewma,
                 trace_ctx=req.trace_ctx)
         except ValueError as e:
             self.telemetry.inc("requests_rejected_validation")
@@ -722,6 +727,9 @@ class AsyncLLMServer:
         eng, tel = self.engine, self.telemetry
         s_sync = eng.stats["host_sync_time_s"]
         s_emit = eng.stats["emit_time_s"]
+        # speculative acceptance lands at readout, where the engine learns
+        # which drafts committed
+        s_spec = {k: eng.stats[k] for k in _SPEC_COUNTERS}
         t0 = time.perf_counter()
         done = eng.step_finish(pending)
         wall = time.perf_counter() - t0
@@ -731,6 +739,9 @@ class AsyncLLMServer:
         tel.add_stage("emit", d_emit)
         tel.add_stage("other", max(wall - d_sync - d_emit, 0.0))
         tel.inc("engine_steps")
+        for key, before in s_spec.items():
+            if eng.stats[key] > before:
+                tel.inc(key, eng.stats[key] - before)
         return done
 
     def _admission_estimate_s(self):
@@ -786,6 +797,10 @@ class AsyncLLMServer:
                 pre = eng.stats["prefill_tokens"]
                 tel.set_gauge("prefix_cache_hit_rate",
                               hit / (hit + pre) if hit + pre else 0.0)
+        prop = eng.stats.get("spec_proposed_tokens", 0)
+        if prop:
+            tel.set_gauge("spec_acceptance_rate",
+                          eng.stats["spec_accepted_tokens"] / prop)
         rec = self.flight_recorder
         if rec is not None and rec.enabled:
             last = rec.last_record()

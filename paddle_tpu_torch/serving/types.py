@@ -142,6 +142,11 @@ class ServeRequest:
     #: restart re-admission and router failover resubmission, so a
     #: tenant's stream can never silently continue on the wrong weights.
     adapter_id: int = 0
+    #: carried speculative acceptance EWMA (a failover's): seeds the
+    #: engine's acceptance-adaptive verify windows for this request, so a
+    #: low-acceptance stream does not restart at the full window. None =
+    #: let the engine learn
+    spec_ewma: float | None = None
     #: the request's distributed trace identity (minted at submit when
     #: absent) — preserved verbatim across restart re-admission and
     #: carried (hop-incremented) across ship/failover/retry

@@ -1340,3 +1340,63 @@ def test_multi_step_paged_engine_on_card(cuda, monkeypatch, quant):
     assert strides and set(strides) == {4}
     assert all(r.readout_stride == 1 for r in rec.records()
                if r.kind == "mixed")
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_fused_spec_paged_engine_on_card(cuda, monkeypatch, stride):
+    """A speculative paged fused engine (``speculative_k=4``) at the
+    kernels' shapes, bf16 pool, a flight recorder attached: every verify
+    window the host dispatches and every mixed step launches B3 once a
+    layer, B2 never, no plain version runs; the streams pass the margin
+    check against a no-cache forward (a window's products round apart from
+    a one-row step's in bf16, so exactness is held up to near-ties); the
+    pool drains; spec records carry ``readout_stride == 4 * stride``."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    from paddle_tpu_torch.profiler import FlightRecorder
+    monkeypatch.setenv("PADDLE_TPU_POOL_CHECKS", "1")
+    model = _bf16_d128(cuda, kvh=2)
+    L = model.config.num_hidden_layers
+    rng = np.random.default_rng(10)
+    base = rng.integers(0, 512, 7).tolist()
+    prompts = [(base * 8)[:37], rng.integers(0, 512, 5).tolist(),
+               (base * 9)[:60]]
+    plain = []
+    for mod in (pa_mod, IF):
+        for name in ("paged_attention_decode_plain",
+                     "paged_attention_append_plain"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    eng = LLMEngine(model, device=cuda, cache_impl="paged",
+                    scheduler="fused", max_batch=2, max_seq_len=128,
+                    chunk_size=32, block_size=16, speculative_k=4,
+                    readout_stride=stride)
+    rec = FlightRecorder()
+    eng.flight_recorder = rec
+    windows = []
+    multi = eng._multi_spec
+
+    def counted(n_win, *a):
+        windows.append(n_win)
+        return multi(n_win, *a)
+
+    eng._multi_spec = counted
+    n0 = _paged_launches()
+    got = [list(o.token_ids) for o in eng.generate(prompts,
+                                                   max_new_tokens=14)]
+    torch.cuda.synchronize()
+    n1 = _paged_launches()
+    assert not plain, plain
+    assert all(len(s) == 14 for s in got)
+    assert eng.stats["spec_proposed_tokens"] > 0 and windows
+    assert max(windows) <= stride
+    mixed = sum(r.kind == "mixed" for r in rec.records())
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (0, (sum(windows) + mixed) * L)
+    assert {r.readout_stride for r in rec.records()
+            if r.kind == "spec"} == {4 * stride}
+    assert all(r.readout_stride == 4 for r in rec.records()
+               if r.kind == "mixed")
+    eng._check_pool_invariants()
+    assert len(eng._free_blocks) == eng.n_blocks
+    assert _greedy_misses(model, prompts, got) == 0

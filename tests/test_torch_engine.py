@@ -152,8 +152,7 @@ def test_pool_capacity_error_and_pool_edge(gqa):
 def test_unported_options_raise(gqa):
     _, tm = gqa
     for scheduler in ("legacy", "fused"):
-        for kw in (dict(speculative_k=2),
-                   dict(adapter_store=object()),
+        for kw in (dict(adapter_store=object()),
                    dict(kv_host_swap=True), dict(mesh=object()),
                    # the prefix cache is ported; its host spill is not
                    dict(enable_prefix_cache=True,
@@ -161,6 +160,18 @@ def test_unported_options_raise(gqa):
             with pytest.raises(NotImplementedError):
                 LLMEngine(tm, device="cpu",
                           **{**_kw(scheduler=scheduler), **kw})
+    # speculation's fused verify grants are ported (dense and bf16
+    # paged); the legacy scan and quantized pools are its second half,
+    # and a legacy paged engine refuses it with the reference's ValueError
+    assert LLMEngine(tm, device="cpu", speculative_k=2,
+                     **_kw(scheduler="fused")).speculative_k == 2
+    with pytest.raises(ValueError, match="dense-only"):
+        LLMEngine(tm, device="cpu", speculative_k=2, **_kw())
+    for kw in (dict(cache_impl="dense"),
+               dict(scheduler="fused", kv_cache_dtype="int8")):
+        with pytest.raises(NotImplementedError,
+                           match="A8\\(e\\), second half"):
+            LLMEngine(tm, device="cpu", speculative_k=2, **_kw(**kw))
     # multi-step decode is ported: the fused scheduler takes a stride,
     # the legacy one refuses it as the reference does (its `horizon`)
     assert LLMEngine(tm, device="cpu", readout_stride=2,

@@ -233,14 +233,16 @@ def test_submit_validation_is_synchronous(models):
         server.submit(np.ones((5,), np.int32), export_kv=True)
     with pytest.raises(ValueError, match="readout_stride"):
         server.submit(np.ones((5,), np.int32), readout_stride=0)
-    with pytest.raises(NotImplementedError, match="A8\\(e\\)"):
-        server.submit(np.ones((5,), np.int32), spec_ewma=0.5)
-    # a stride pin is accepted (inert on this stride-1 engine, as in the
-    # reference) and rides the server's request record
+    # a stride pin and a speculation EWMA seed are accepted (inert on
+    # this stride-1, non-speculative engine, as in the reference) and
+    # ride the server's request record
     for pin in (1, 2):
         h = server.submit(np.ones((5,), np.int32), max_new_tokens=2,
                           readout_stride=pin)
         assert h.request.readout_stride == pin
+    h = server.submit(np.ones((5,), np.int32), max_new_tokens=2,
+                      spec_ewma=0.5)
+    assert h.request.spec_ewma == 0.5
 
 
 def test_admission_queue_fifo_and_remove():
