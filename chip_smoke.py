@@ -29,7 +29,7 @@ Phases:
                 AdamW kernels with bf16 and float32 grads, bit for bit;
                 B8, the int4 GEMM: its launch geometry held against the
                 kernel's constants at rows 1-128 on five shapes, then rows
-                1, 5, 8, 16, 32, 64, 127 and 128 on each with bf16 and
+                1, 5, 8, 16, 32, 48, 64, 127 and 128 on each with bf16 and
                 float32 x against the plain version, run twice for the
                 same bits;
                 B4's decode and append forms on int8 and int4 pools with
@@ -190,12 +190,33 @@ Phases:
                 speculation_speedup at B 8 and B 1; two traced all-decode
                 dispatches of each dense engine: device busy, idle share,
                 events a window against a decode iteration (information);
+  (d-ix) legacy_spec — the reference's default speculation, the legacy
+                scheduler's scan: (d-viii)'s model and prompts through
+                AsyncLLMServer over LLMEngine(model, max_batch=8,
+                max_seq_len=576, chunk_size=256, horizon=4,
+                speculative_k=6) against speculative_k=1, at B 8 and at
+                B 1 (3 requests), then one spec arm at B 8 over the model
+                quantized in place to weight-only int4. Gates: every
+                request finishes with its 64 tokens, the greedy check on
+                every arm (the int4 arm's margin widened by the logit gap
+                between B8 and the split-nibble route), one wave of 8
+                requests spec-on against spec-off token-exact up to a
+                reported near-tie, proposals and accepted drafts in the
+                spec arms, spec StepRecords at readout_stride 6 x 4 with at
+                most 4 windows, the sync gates on every dispatch, no kernel
+                and no counted plain version in a bf16 arm, and in the int4
+                arm B8 once for each quantized projection of every verify
+                window, every call at 8 x 6 = 48 rows, never its plain
+                version. Per arm tokens/s, acceptance, accepted per step,
+                windows per dispatch, TTFT and e2e p50, speculation_speedup
+                at B 8 and B 1, and the legacy spec arm against (d-viii)'s
+                fused one at B 8 (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
                 call beside their device time, B2, B3 and B4 also at Hkv 8,
                 B3 also at the verify-window step,
-                B4-append's two launches apart; B8 at 8 and at 128 rows on
+                B4-append's two launches apart; B8 at 8, 48 and 128 rows on
                 the four 7B-scale shapes, its weight out of L2, beside
                 torch._weight_int4pack_mm and a bf16 torch.matmul of the
                 same x, and a line over the shapes: fixed cost a call and
@@ -283,6 +304,7 @@ from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_update_plain, sr_seed, tile_plan)
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.models.llama import GEN_WINDOW
+from paddle_tpu_torch.nn import quant as quant_mod
 from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
                                        int4_routes_to_kernel,
                                        quantize_linears_for_inference,
@@ -1678,7 +1700,8 @@ def time_append_quant(dev, quant):
 # B8: the weight-only int4 GEMM
 # ---------------------------------------------------------------------------
 
-INT4_ROWS = (1, 5, 8, 16, 32, 64, 127, 128)
+#: 48: a verify window's rows at B 8, speculative_k 6 ((d-ix)'s int4 arm)
+INT4_ROWS = (1, 5, 8, 16, 32, 48, 64, 127, 128)
 # [n_in, n_out]: a small tile, q/k/v/o, fused q/k/v, gate/up and down at
 # hidden 4096, ff 11264
 INT4_SHAPES = ((2048, 512), (4096, 4096), (4096, 12288), (4096, 11264),
@@ -3346,15 +3369,17 @@ def spec_engine(model, dev, spec_k, batch, **over):
         readout_stride=SPEC_STRIDE, device=dev), **over})
 
 
-def spec_arm(model, dev, prompts, name, spec_k, batch, rtt, **over):
+def spec_arm(model, dev, prompts, name, spec_k, batch, rtt, margin=MARGIN,
+             **over):
     """One serve pass of the rung: a fresh engine (:func:`spec_engine`)
     warmed by one 2-token request, its stats reset, then ``prompts``
     through AsyncLLMServer with a flight recorder, the whole serve under
     :func:`window_watch`. Gates: every request finishes with its 64
     tokens, the server healthy, the sync and record gates
-    (:func:`window_gates`), multi-step dispatches, proposals in a
-    speculative arm, the greedy check. Returns the arm's line, its log and
-    its tokens."""
+    (:func:`window_gates`), multi-step dispatches under the fused
+    scheduler, proposals and accepted drafts in a speculative arm, the
+    greedy check under ``margin``. Returns the arm's line, its log and its
+    tokens."""
     eng = spec_engine(model, dev, spec_k, batch, **over)
     eng.generate([prompts[0]], max_new_tokens=2)
     torch.cuda.synchronize()
@@ -3383,12 +3408,15 @@ def spec_arm(model, dev, prompts, name, spec_k, batch, rtt, **over):
     n_tok = sum(len(o.token_ids) for o in outs)
     prop, acc = st["spec_proposed_tokens"], st["spec_accepted_tokens"]
     spec_rows = [r for k, r in log["dispatches"] if k == "spec"]
-    checked, excused, mismatched = greedy_check(model, dev, prompts, outs)
+    checked, excused, mismatched = greedy_check(model, dev, prompts, outs,
+                                                margin)
     lat = snap["latency"]
     decode_ms = log["step_ms"]["spec"] + log["step_ms"]["decode"]
+    fused = over.get("scheduler", "fused") == "fused"
     arm = {"arm": name, "speculative_k": spec_k, "batch": batch,
            "requests": len(prompts), "cache_impl": over.get(
                "cache_impl", "dense"),
+           "scheduler": "fused" if fused else "legacy",
            "tokens_per_s": n_tok / wall, "wall_s": wall,
            "steps": st["steps"], "mixed_steps": sum(
                k == "mixed" for k, _ in log["dispatches"]),
@@ -3409,14 +3437,18 @@ def spec_arm(model, dev, prompts, name, spec_k, batch, rtt, **over):
            "launches": log["launches"], "b1_launches": log["b1_launches"],
            "b8_launches": log["b8_launches"],
            "step_begin_syncs": log["begin"],
+           "greedy_margin": margin,
            "greedy_checked": checked, "greedy_excused_near_ties": excused,
            "greedy_mismatched": mismatched}
-    require(st["multi_steps"] > 0, f"{name}: no multi-step dispatch")
-    require(spec_k == 1 or (prop > 0 and spec_rows),
-            f"{name}: no verify window proposed ({prop}, {spec_rows})")
+    require(not fused or st["multi_steps"] > 0,
+            f"{name}: no multi-step dispatch")
+    require(spec_k == 1 or (prop > 0 and spec_rows
+                            and st["draft_tokens_accepted"] > 0),
+            f"{name}: no verify window proposed or no draft accepted "
+            f"({prop}, {st['draft_tokens_accepted']}, {spec_rows})")
     require(spec_k > 1 or not spec_rows, f"{name}: spec dispatches")
     require(mismatched == 0, f"{name}: {mismatched} greedy tokens disagree "
-            f"with the no-cache forward beyond {MARGIN}")
+            f"with the no-cache forward beyond {margin}")
     return arm, log, [list(o.token_ids) for o in outs]
 
 
@@ -3502,9 +3534,34 @@ def profile_spec(rung, dev, prompts, n_steps=2):
     return out
 
 
-def run_spec_rung(dev):
-    """(d-viii): the llama_serve_spec rung. Its model (7B widths, ff
-    11264, 3 layers, MHA, bf16, seed 0) and its 16 repetition-heavy
+def spec_rung_model(dev):
+    """The llama_serve_spec rung's model (and llama_serve's): 7B widths,
+    ff 11264, 3 layers, MHA, bf16, seed 0, a rope table for the paged
+    arms' capacity."""
+    return build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                       intermediate_size=DENSE_FF,
+                       max_position_embeddings=DENSE_PAGED_CAP)
+
+
+def spec_rtt(rung, dev, prompts, **over):
+    """One host round trip (a one-float read of the carried logits) of a
+    warmed speculative engine at B 8 (:func:`spec_engine` with ``over``),
+    the median of five: what ``rtt_share`` multiplies by the steps."""
+    warm = spec_engine(rung, dev, SPEC_K, DENSE_SLOTS, **over)
+    warm.generate([prompts[0]], max_new_tokens=2)
+    torch.cuda.synchronize()
+    rtts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        float(warm._logits[0, 0])
+        rtts.append(time.perf_counter() - t0)
+    del warm
+    return median(rtts)
+
+
+def run_spec_rung(rung, dev):
+    """(d-viii): the llama_serve_spec rung. Its model ``rung``
+    (:func:`spec_rung_model`) and its 16 repetition-heavy
     requests (256-383 tokens, 64 new) through AsyncLLMServer over dense
     fused engines at ``speculative_k=6, readout_stride=4`` against
     ``speculative_k=1``, at B 8 and at B 1 (3 requests), then the B 8 pair
@@ -3521,23 +3578,12 @@ def run_spec_rung(dev):
     mixed step, and never B2; in the paged control arm B2 once a layer a
     decode iteration and B3 a mixed step. Then two all-decode dispatches
     of each dense engine traced (:func:`profile_spec`; information).
-    Returns the paged pair's B2 and B3 launches."""
+    Returns the paged pair's B2 and B3 launches and the dense B 8 spec
+    arm's tokens/s."""
     t_phase = time.perf_counter()
-    rung = build_model(dev, num_hidden_layers=DENSE_LAYERS,
-                       intermediate_size=DENSE_FF,
-                       max_position_embeddings=DENSE_PAGED_CAP)
     L = rung.config.num_hidden_layers
     prompts = spec_prompts(rung.config.vocab_size)
-    warm = spec_engine(rung, dev, SPEC_K, DENSE_SLOTS)
-    warm.generate([prompts[0]], max_new_tokens=2)
-    torch.cuda.synchronize()
-    rtts = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        float(warm._logits[0, 0])
-        rtts.append(time.perf_counter() - t0)
-    rtt = median(rtts)
-    del warm
+    rtt = spec_rtt(rung, dev, prompts)
     paged = dict(cache_impl="paged", block_size=SPEC_BLOCK,
                  max_seq_len=DENSE_PAGED_CAP)
     arms, logs, toks = {}, {}, {}
@@ -3555,7 +3601,6 @@ def run_spec_rung(dev):
                 "paged": spec_one_wave(rung, dev, prompts[:DENSE_SLOTS],
                                        **paged)}
     spec_profile = profile_spec(rung, dev, prompts)
-    del rung
     gc.collect()
     torch.cuda.empty_cache()
     for name, arm in arms.items():
@@ -3619,7 +3664,141 @@ def run_spec_rung(dev):
           "seconds": time.perf_counter() - t_phase})
     return {"b2_decode": arms["paged_b8_off"]["launches"]["b2_decode"],
             "b3_append": arms["paged_b8_on"]["launches"]["b3_append"]
-            + arms["paged_b8_off"]["launches"]["b3_append"]}
+            + arms["paged_b8_off"]["launches"]["b3_append"],
+            "b8_on_tokens_per_s": arms["b8_on"]["tokens_per_s"]}
+
+
+# ---------------------------------------------------------------------------
+# (d-ix) legacy_spec: the legacy scheduler's speculative scan
+# ---------------------------------------------------------------------------
+
+#: the reference's default speculation, LLMEngine(model, max_batch=8,
+#: max_seq_len=576, chunk_size=256, horizon=4, speculative_k=6): the
+#: legacy dense scan, as spec_engine's arguments
+LEGACY_SPEC = dict(scheduler="legacy", readout_stride=1, horizon=SPEC_STRIDE)
+
+
+@contextlib.contextmanager
+def b8_rows():
+    """The row count of every x the weight-only layers hand B8 (through
+    ``nn.quant``'s kernel route) for the duration, as a Counter."""
+    rows = collections.Counter()
+    route = quant_mod.int4_matmul
+
+    def logged(x2d, *a, **k):
+        rows[int(x2d.shape[0])] += 1
+        return route(x2d, *a, **k)
+
+    quant_mod.int4_matmul = logged
+    try:
+        yield rows
+    finally:
+        quant_mod.int4_matmul = route
+
+
+def run_legacy_spec(rung, dev, fused_b8_on_tps):
+    """(d-ix): the legacy scheduler's speculative scan, the reference's
+    default speculation, on (d-viii)'s model ``rung`` and prompts, through
+    AsyncLLMServer with a flight recorder: legacy dense engines at
+    ``speculative_k=6, horizon=4`` against ``speculative_k=1`` at B 8 and
+    at B 1 (3 requests), then one spec arm at B 8 over ``rung`` quantized
+    in place to weight-only int4 (``use_pallas_int4`` on), as (d-iii)
+    quantizes, with the greedy margin widened by the measured logit gap
+    between B8 and the split-nibble route. Gates (:func:`spec_arm`): every
+    request finishes with its 64 tokens, the greedy check, proposals and
+    accepted drafts, StepRecords of kind "spec" at ``readout_stride`` 6 x 4
+    with at most 4 windows (decode at 4 in the control arms), the sync
+    gates of :func:`window_gates`; one wave of 8 requests spec-on against
+    spec-off token-exact up to a near-tie (reported); no kernel and no
+    counted plain version in a bf16 arm; in the int4 arm B8 once for each
+    of the 7 projections a layer of every verify window the host
+    dispatches, every B8 call at 8 x 6 = 48 rows, and never
+    ``int4_matmul_plain``. Information: per arm tokens/s, acceptance,
+    accepted drafts per step, windows per dispatch, TTFT and e2e p50;
+    ``speculation_speedup`` at B 8 and B 1, and the B 8 spec arm against
+    (d-viii)'s fused one (``fused_b8_on_tps``). Returns the int4 arm's
+    B8 launches. Leaves ``rung`` quantized."""
+    t_phase = time.perf_counter()
+    L = rung.config.num_hidden_layers
+    prompts = spec_prompts(rung.config.vocab_size)
+    rtt = spec_rtt(rung, dev, prompts, **LEGACY_SPEC)
+    arms, logs, toks = {}, {}, {}
+    with counting_plain() as plain_calls:
+        for name, k, batch, reqs in (
+                ("b8_on", SPEC_K, DENSE_SLOTS, prompts),
+                ("b8_off", 1, DENSE_SLOTS, prompts),
+                ("b1_on", SPEC_K, 1, prompts[:SPEC_B1_REQUESTS]),
+                ("b1_off", 1, 1, prompts[:SPEC_B1_REQUESTS])):
+            arms[name], logs[name], toks[name] = spec_arm(
+                rung, dev, reqs, name, k, batch, rtt, **LEGACY_SPEC)
+        wave = spec_one_wave(rung, dev, prompts[:DENSE_SLOTS],
+                             **LEGACY_SPEC)
+        bf16_plain = dict(plain_calls)
+        t0 = time.perf_counter()
+        _, n_swaps = quantize_linears_for_inference(rung, weight_dtype="int4")
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        require(n_swaps == 7 * L + 1, f"legacy_spec int4: {n_swaps} swaps, "
+                f"expected {7 * L + 1}")
+        gap, n_on = route_gap(rung, dev, prompts)
+        require(n_on == 7 * L, f"legacy_spec route gap: {n_on} B8 launches "
+                f"in the kernel-route forward, expected {7 * L}")
+        with b8_rows() as rows:
+            arms["int4_b8_on"], logs["int4_b8_on"], toks["int4_b8_on"] = \
+                spec_arm(rung, dev, prompts, "int4_b8_on", SPEC_K,
+                         DENSE_SLOTS, rtt, margin=MARGIN + 4 * gap,
+                         **LEGACY_SPEC)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, arm in arms.items():
+        got = arm["launches"]
+        require(all(n == 0 for n in got.values())
+                and arm["b1_launches"] == 0,
+                f"legacy_spec {name}: attention kernels launched: {got}, "
+                f"B1 {arm['b1_launches']}")
+        if name != "int4_b8_on":
+            require(arm["b8_launches"] == 0, f"legacy_spec {name}: B8 "
+                    f"launched {arm['b8_launches']} times")
+            continue
+        windows = sum(r for kd, r in logs[name]["dispatches"] if kd == "spec")
+        want = 7 * L * windows
+        arm.update(verify_windows=windows, expected_b8_launches=want,
+                   b8_rows=dict(rows), quantize_s=quant_s,
+                   route_logit_gap=gap)
+        require(arm["b8_launches"] == want and want > 0,
+                f"legacy_spec {name}: {arm['b8_launches']} B8 launches, "
+                f"expected {want} (7 a layer of {L} for {windows} verify "
+                f"windows)")
+        require(set(rows) == {DENSE_SLOTS * SPEC_K},
+                f"legacy_spec {name}: B8 took rows {dict(rows)}, expected "
+                f"only {DENSE_SLOTS * SPEC_K}")
+    require(not plain_calls, f"legacy_spec: plain versions ran on the "
+            f"card: {dict(plain_calls)}")
+    require(wave["near_ties_only"],
+            f"legacy_spec one wave: spec on and off part beyond a "
+            f"near-tie: {wave['partings']}")
+
+    def speedup(on, off):
+        return arms[on]["tokens_per_s"] / arms[off]["tokens_per_s"]
+
+    emit({"phase": "legacy_spec", "layers": L, "ff": DENSE_FF,
+          "slots": DENSE_SLOTS, "capacity": DENSE_CAP, "chunk": DENSE_CHUNK,
+          "speculative_k": SPEC_K, "horizon": SPEC_STRIDE,
+          "requests": len(prompts), "b1_requests": SPEC_B1_REQUESTS,
+          "new_tokens": DENSE_NEW, "rtt_est_ms": rtt * 1e3,
+          "speculation_speedup": speedup("b8_on", "b8_off"),
+          "speculation_speedup_b1": speedup("b1_on", "b1_off"),
+          "legacy_over_fused_spec_b8": arms["b8_on"]["tokens_per_s"]
+          / fused_b8_on_tps,
+          "fused_b8_on_tokens_per_s": fused_b8_on_tps,
+          "token_parity": {"b8": toks["b8_on"] == toks["b8_off"],
+                           "b1": toks["b1_on"] == toks["b1_off"]},
+          "drift_b8": drift(toks["b8_off"], toks["b8_on"]),
+          "drift_int4_b8": drift(toks["b8_on"], toks["int4_b8_on"]),
+          "one_wave": wave, "arms": arms, "margin": MARGIN,
+          "plain_calls": bf16_plain,
+          "seconds": time.perf_counter() - t_phase})
+    return arms["int4_b8_on"]["b8_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -4138,7 +4317,13 @@ def main():
     torch.cuda.empty_cache()
     rung_launches = run_serve_rung(model, dev)
     torch.cuda.empty_cache()
-    spec_launches = run_spec_rung(dev)
+    rung = spec_rung_model(dev)
+    spec_launches = run_spec_rung(rung, dev)
+    torch.cuda.empty_cache()
+    legacy_spec_b8 = run_legacy_spec(rung, dev,
+                                     spec_launches["b8_on_tokens_per_s"])
+    del rung
+    gc.collect()
     torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
@@ -4162,6 +4347,7 @@ def main():
     torch.cuda.empty_cache()
     i4t = time_int4_matmul(dev)
     emit({"phase": "timing", "int4_matmul": i4t,
+          "int4_matmul_rows48": time_int4_matmul(dev, rows=48),
           "int4_matmul_rows128": time_int4_matmul(dev, rows=128)})
     torch.cuda.empty_cache()
 
@@ -4254,7 +4440,8 @@ def main():
     kernels.append(
         {"name": "int4_matmul", "route": "cuda", "source": INT4_SRC,
          "replaces": INT4_REPLACES,
-         "launches": int4_launches + gen_int4_launches["b8"],
+         "launches": int4_launches + gen_int4_launches["b8"]
+         + legacy_spec_b8,
          "max_abs_err": int4_err, "ms": lt["ms"], "plain_ms": lt["plain_ms"],
          "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
          "library_ms": lt["library_ms"]})

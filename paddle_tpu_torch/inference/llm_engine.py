@@ -51,24 +51,31 @@ Both are greedy (``temperature <= 0``) from the carried logits; eos,
 budget and capacity deactivate a slot on the device, and the host retires
 it at readout.
 
-``speculative_k=k > 1`` (fused scheduler, dense or bf16 paged) serves
-speculative VERIFY windows (reference ``llm_engine.py:1156-1371``,
-``:3905-4149``): each window commits the token sampled from the carried
-logits plus up to ``k - 1`` prompt-lookup drafts read on the device from
-a ``[B, capacity]`` token history (``_lookup_draft``), all verified by
-ONE model call over the window through the append form (paged: the
-paged-append kernel; dense: :class:`ChunkKVCache`). Acceptance is the
-coupled greedy rule (``_verify_window``): draft j survives iff it equals
-the argmax at its position and every earlier draft did, so the stream is
-the plain fused engine's token for token. In a mixed step a decode slot
-takes a verify grant inside the chunk; an all-decode step runs up to
-``readout_stride`` windows per dispatch (the host's bound: every window
-commits a token a slot, so ``min(stride, max(budgets))`` windows). Draft
-counts adapt to each request's acceptance EWMA, kept in an rid-keyed
-mirror that survives :meth:`LLMEngine.reset`; rejected tails roll back
-through the lens and, on a paged pool, by releasing the blocks past the
-slot's scheduled length at readout. Fused speculation pipelines to depth
-2.
+``speculative_k=k > 1`` serves speculative VERIFY windows (reference
+``llm_engine.py:1156-1371``, ``:3905-4149``): each window commits the
+token sampled from the carried logits plus up to ``k - 1`` prompt-lookup
+drafts read on the device from a ``[B, capacity]`` token history
+(``_lookup_draft``), all verified by ONE model call over the window.
+Acceptance is the coupled greedy rule (``_verify_window``): draft j
+survives iff it equals the argmax at its position and every earlier
+draft did, so the stream is the plain engine's token for token; rejected
+tails roll back through the lens. Two schedulers carry it:
+
+* legacy, dense only (the reference's default speculation, ``spec_step``,
+  ``llm_engine.py:1212-1268``): every all-decode step runs ``horizon``
+  full-width windows through :class:`SlotKVCache` (``_spec_scan``), the
+  host's bound ``min(horizon, max(budgets))`` of them, since every window
+  commits a token a live slot. Its readout books each window's full grant
+  as proposed; it pipelines to depth 2, like the legacy dense engine;
+* fused, dense or bf16 paged: in a mixed step a decode slot takes a
+  verify grant inside the chunk (paged: the paged-append kernel; dense:
+  :class:`ChunkKVCache`); an all-decode step runs up to
+  ``readout_stride`` windows per dispatch, again ``min(stride,
+  max(budgets))``. Draft counts adapt to each request's acceptance EWMA,
+  kept in an rid-keyed mirror that survives :meth:`LLMEngine.reset` (the
+  legacy readout updates it too); a paged pool releases the blocks past
+  the slot's scheduled length at readout. Fused speculation pipelines to
+  depth 2.
 
 Pipelining: ``step_begin`` enqueues its work and returns without waiting
 on the device. Host arrays go up through pinned staging buffers owned by
@@ -126,9 +133,9 @@ inert without speculation) and ``trace_ctx``
 requests (ROADMAP A10) and KV export (A8(h)) raise
 ``NotImplementedError``.
 
-Not in this port yet (each raises ``NotImplementedError``): the legacy
-scheduler's speculative scan and verify windows over int8/int4 pools
-(ROADMAP A8(e), second half), LoRA adapters, the host KV tier and meshes;
+Not in this port yet (each raises ``NotImplementedError``): verify
+windows over int8/int4 pools (ROADMAP A8(e), second half), LoRA
+adapters, the host KV tier and meshes;
 sampling with ``temperature > 0`` waits for the threefry port (ROADMAP
 A7). The reference's
 ``PADDLE_TPU_TRANSFER_CHECKS=1`` stride guard (a thread-local
@@ -196,8 +203,9 @@ def _lookup_draft(tokens_buf, lens, k_draft, ngram):
     tail starts at ``max(L - ngram, 0)`` clamped into ``[0, cap - ngram]``
     (so when ``L < ngram`` it reads the zeros past ``L``), the
     continuation is read at its start clamped into ``[0, cap - k_draft]``
-    while the ``pos < L`` mask uses the unclamped start, and the match
-    compares through ``roll``'s wrap-around. Index tensors and ``gather``
+    while the ``pos < L`` mask uses the unclamped start, the last token is
+    read at ``L - 1`` clamped into the buffer, and the match compares
+    through ``roll``'s wrap-around. Index tensors and ``gather``
     keep all of it on the device: nothing here reads back to the host."""
     B, cap = tokens_buf.shape
     dev = tokens_buf.device
@@ -219,24 +227,28 @@ def _lookup_draft(tokens_buf, lens, k_draft, ngram):
     kidx = torch.arange(k_draft, device=dev)[None]
     cont = tokens_buf.gather(
         1, start.clamp(0, cap - k_draft)[:, None] + kidx)
-    last = tokens_buf.gather(1, (L - 1).clamp(min=0)[:, None])
+    # JAX clamps an out-of-range index: a pipelined over-dispatch of the
+    # legacy scan drafts at a length past the buffer
+    last = tokens_buf.gather(1, (L - 1).clamp(0, cap - 1)[:, None])
     pos = start[:, None] + kidx
     return torch.where(has[:, None] & (pos < L[:, None]), cont, last) \
         .to(torch.int32)
 
 
-def _write_window(tokens_buf, window, lens, mask):
+def _write_window(tokens_buf, window, lens, mask=None):
     """Append each row's verify ``window [B, Kw]`` to its history at its
     own length, the start clamped into ``[0, cap - Kw]`` as the
     reference's dynamic update clamps it (``llm_engine.py:4604-4612``),
-    for the rows where ``mask [B]`` holds; in place. Rejected-tail
-    positions are overwritten by later windows."""
+    for the rows where ``mask [B]`` holds (None: every row, as the legacy
+    scan writes); in place. Rejected-tail positions are overwritten by
+    later windows."""
     cap, Kw = tokens_buf.shape[1], window.shape[1]
     cols = lens.to(torch.long).clamp(0, cap - Kw)[:, None] + \
         torch.arange(Kw, device=tokens_buf.device)[None]
-    old = tokens_buf.gather(1, cols)
-    tokens_buf.scatter_(1, cols, torch.where(mask[:, None],
-                                             window.to(torch.int32), old))
+    new = window.to(torch.int32)
+    if mask is not None:
+        new = torch.where(mask[:, None], new, tokens_buf.gather(1, cols))
+    tokens_buf.scatter_(1, cols, new)
 
 
 def _verify_window(logits_win, draft, q_eff, active):
@@ -342,10 +354,12 @@ class PendingStep:
     dispatch's kind ("decode", "mixed" or "spec"; None for a drain).
 
     A speculative dispatch (``spec``) reads back ``[windows, B, Kw]``
-    window tokens, ``[windows, B]`` committed ``counts``, activity and
-    ``offered`` widths (1 + drafts after the in-graph clamps, what the
-    acceptance accounting books); ``verify`` maps each verify slot to the
-    drafts it was granted, the key of the paged block-table rollback."""
+    window tokens, ``[windows, B]`` committed ``counts``, activity and, from
+    the fused programs, ``offered`` widths (1 + drafts after the in-graph
+    clamps, what the acceptance accounting books; None from the legacy
+    scan, which never clamps); ``verify`` maps each verify slot to the
+    drafts it was granted: what a legacy window proposes, and the key of
+    the paged block-table rollback."""
 
     __slots__ = ("toks", "was_active", "slots", "pool_done", "sched",
                  "fenced", "event", "step_id", "t_dispatch", "kind",
@@ -387,8 +401,10 @@ class LLMEngine:
     budget bounds prefill interference). ``readout_stride=k > 1`` (fused
     only, not with ``horizon > 1``) runs all-decode steps as up to ``k``
     decode iterations per dispatch and readout. ``speculative_k=k > 1``
-    (fused, dense or bf16 paged) grants verify windows of 1 + up to
-    ``k - 1`` prompt-lookup drafts (``lookup_ngram`` tokens matched)."""
+    verifies windows of 1 + up to ``k - 1`` prompt-lookup drafts
+    (``lookup_ngram`` tokens matched): ``horizon`` full windows a step
+    under the legacy scheduler (dense only), adaptive verify grants under
+    the fused one (dense or bf16 paged)."""
 
     def __init__(self, model, max_batch=4, max_seq_len=None, chunk_size=64,
                  top_k=0, stream_callback=None, horizon=1, speculative_k=1,
@@ -418,13 +434,13 @@ class LLMEngine:
         if scheduler not in ("legacy", "fused"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         #: speculative verify windows: 1 committed token + up to k - 1
-        #: prompt-lookup drafts a window (fused scheduler only here)
+        #: prompt-lookup drafts a window
         self.speculative_k = max(1, int(speculative_k))
         self.lookup_ngram = max(1, int(lookup_ngram))
         if self.speculative_k > 1:
             # the reference's ValueErrors first (llm_engine.py:572-575,
             # :641-645, :678-682), so a configuration it rejects is
-            # rejected alike; then the forms not ported yet
+            # rejected alike; then the form not ported yet
             if scheduler == "fused" and int(chunk_size) < self.speculative_k:
                 raise ValueError(
                     f"chunk_size {int(chunk_size)} cannot carry a "
@@ -442,10 +458,6 @@ class LLMEngine:
                     "the legacy speculative scan is not adapter-aware — "
                     "batched multi-LoRA speculation rides the fused "
                     "scheduler's verify grants (scheduler='fused')")
-            if scheduler != "fused":
-                _unported("the legacy scheduler's speculative scan "
-                          "(speculative_k > 1, scheduler='legacy')",
-                          "A8(e), second half")
             if kv_cache_dtype is not None:
                 _unported(f"verify windows over {kv_cache_dtype} KV pools "
                           f"(speculative_k > 1 with kv_cache_dtype)",
@@ -690,10 +702,10 @@ class LLMEngine:
         grants' lens mirror overestimates in-flight growth by every
         rejected tail (the device rolls back, the host learns at readout),
         so each extra stale dispatch over-fences and over-allocates a
-        window a slot; legacy dense 2 — host request state
-        one step stale at the chained dispatch; legacy paged 1 — its slots
-        have no lens mirror, so the allocator and the admission prefill
-        need each step's post-readout lens."""
+        window a slot; legacy dense 2, speculative or not — host request
+        state one step stale at the chained dispatch; legacy paged 1 — its
+        slots have no lens mirror, so the allocator and the admission
+        prefill need each step's post-readout lens."""
         if self.scheduler == "fused":
             if self.speculative_k > 1:
                 return 2
@@ -1406,6 +1418,7 @@ class LLMEngine:
         # fill_, not item assignment: assigning a Python number copies it
         # from pageable host memory, a blocking copy
         self._lens[slot_idx].fill_(P)
+        self._set_token_history(slot_idx, req.prompt_ids)
         slot = self.slots[slot_idx] = _Slot(req, P)
         slot.chain, slot.reg_blocks = chain, len(chain)
         # the whole prompt is prefilled: publish its full blocks
@@ -1426,12 +1439,8 @@ class LLMEngine:
         if self.prefix_cache:
             hit, chain = self._probe_prefix(slot_idx, req.prompt_ids)
         self._lens[slot_idx].fill_(hit)
-        if self._tokens is not None:
-            # the draft history: the WHOLE prompt (host-known even over a
-            # prefix hit), zeros after it, what a draft reads past L
-            row = np.zeros((self.capacity,), np.int32)
-            row[:len(req.prompt_ids)] = req.prompt_ids
-            self._tokens[slot_idx] = self._upload(row)
+        # the WHOLE prompt, host-known even over a prefix hit
+        self._set_token_history(slot_idx, req.prompt_ids)
         slot = self.slots[slot_idx] = _Slot(req, len(req.prompt_ids),
                                             prefill_pos=hit)
         slot.chain, slot.reg_blocks = chain, len(chain)
@@ -1444,6 +1453,18 @@ class LLMEngine:
         self._admit_order[slot_idx] = self._admit_seq
         self._admit_seq += 1
         self.stats["admit_time_s"] += time.perf_counter() - t0
+
+    def _set_token_history(self, slot_idx, prompt_ids):
+        """A speculative engine's draft history for an admitted slot
+        (reference ``llm_engine.py:3284-3289``, ``:3337-3343``): the
+        prompt, zero-padded to ``capacity`` (what a draft reads past the
+        length), in one copy through a pinned staging buffer. No-op
+        without speculation."""
+        if self._tokens is None:
+            return
+        row = np.zeros((self.capacity,), np.int32)
+        row[:len(prompt_ids)] = prompt_ids
+        self._tokens[slot_idx] = self._upload(row)
 
     def _admit_waiting(self):
         fused = self.scheduler == "fused"
@@ -1504,11 +1525,14 @@ class LLMEngine:
     def _dispatched(self, toks, was_active, pool_done, sched, fenced, kind,
                     counts=None, offered=None, verify=None):
         """Close a dispatch: enqueue its token/activity readback (and a
-        speculative dispatch's counts and offered widths) into pinned host
-        memory and record its event. Nothing waits here."""
+        speculative dispatch's counts and, from the fused programs, offered
+        widths) into pinned host memory and record its event. Nothing
+        waits here."""
         toks, was_active = self._download(toks), self._download(was_active)
         if counts is not None:
-            counts, offered = self._download(counts), self._download(offered)
+            counts = self._download(counts)
+        if offered is not None:
+            offered = self._download(offered)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -1569,6 +1593,59 @@ class LLMEngine:
                 (emitted < buds)
         self._logits, self._lens = logits, lens
         return torch.stack(toks), torch.stack(was_active)
+
+    def _spec_scan(self, active, eos_ids, budgets, n_win):
+        """The legacy scheduler's speculative scan (reference ``spec_step``,
+        ``llm_engine.py:1212-1268``): ``n_win`` full-width verify windows
+        for every slot over the dense slot buffers. Each window drafts
+        ``k - 1`` tokens from the history, commits the argmax of the
+        carried logits (0 where inactive), runs ONE model call over
+        ``[committed, drafts]`` through :class:`SlotKVCache` at the slots'
+        lengths, accepts by the coupled rule at width ``k`` where active,
+        carries the logits of the last accepted row, grows the lengths by
+        the counts and writes the whole window into every row's history
+        (inactive rows too, at their clamped lengths, as the reference
+        does); eos counts only inside the committed prefix. The next
+        window's activity also needs ``lens < capacity - k``. The window
+        writes of a slot past that margin (a pipelined over-dispatch)
+        clamp into its own buffer row's end, as JAX's dynamic updates
+        clamp. The host runs ``n_win`` windows, its bound on the
+        reference's ``horizon``; windows after every slot stopped come out
+        inactive. Returns ``[n_win, B, k]`` windows and ``[n_win, B]``
+        counts and activity."""
+        Kw, cap = self.speculative_k, self.capacity
+        act = self._upload(active)
+        eos = self._upload(eos_ids)
+        buds = self._upload(budgets)
+        logits, lens, tbuf = self._logits, self._lens, self._tokens
+        emitted = torch.zeros_like(lens)
+        kidx = torch.arange(Kw, device=self.device)[None]
+        full = torch.full_like(lens, Kw)
+        model = self.model
+        toks, cnts, was_active = [], [], []
+        for _ in range(n_win):
+            draft = _lookup_draft(tbuf, lens, Kw - 1, self.lookup_ngram)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(act, nxt, torch.zeros_like(nxt))
+            window = torch.cat([nxt[:, None], draft], dim=1)   # [B, Kw]
+            hidden, _ = model.llama(window, kv_caches=self._caches(None, lens),
+                                    position_offset=lens)
+            logits_win = model._logits(hidden).float()         # [B, Kw, V]
+            counts, new_logits = _verify_window(
+                logits_win, draft, torch.where(act, full, 0), act)
+            logits = torch.where(act[:, None], new_logits, logits)
+            new_lens = lens + counts
+            _write_window(tbuf, window, lens)
+            emitted = emitted + counts
+            eos_hit = ((kidx < counts[:, None]) &
+                       (window == eos[:, None])).any(dim=1)
+            toks.append(window)
+            cnts.append(counts)
+            was_active.append(act)
+            act = act & ~eos_hit & (new_lens < cap - Kw) & (emitted < buds)
+            lens = new_lens
+        self._logits, self._lens = logits, lens
+        return torch.stack(toks), torch.stack(cnts), torch.stack(was_active)
 
     def _fused_step(self, ids, q_lens, is_decode, active):
         """ONE mixed prefill+decode dispatch: slot b processes rows
@@ -1927,11 +2004,23 @@ class LLMEngine:
         # Pinned latency-tier steps (stride 1), horizon and legacy engines
         # keep the scan path
         use_multi = self.readout_stride > 1 and stride > 1
+        # the legacy speculative scan (a fused engine's returned above):
+        # `horizon` full verify windows, trimmed by the same host bound,
+        # since every live window commits a token a slot
+        spec = self.speculative_k > 1
         n_iter = stride
-        if use_multi:
+        if use_multi or spec:
             n_iter = max(1, min(stride, int(budgets[active].max())))
         t0 = time.perf_counter()
-        toks, was_active = self._decode(active, eos_ids, budgets, n_iter)
+        counts = verify = None
+        if spec:
+            toks, counts, was_active = self._spec_scan(active, eos_ids,
+                                                       budgets, n_iter)
+            # full-width windows: the grant IS what each window proposes
+            verify = {int(b): self.speculative_k - 1
+                      for b in np.nonzero(active)[0]}
+        else:
+            toks, was_active = self._decode(active, eos_ids, budgets, n_iter)
         if use_multi:
             self.stats["multi_steps"] += 1
         sched = {}
@@ -1943,21 +2032,24 @@ class LLMEngine:
                 if slot is not None:
                     slot.inflight += stride
                     sched[b] = stride
+        kind = "spec" if spec else "decode"
         pending = self._dispatched(toks, was_active, pool_done, sched,
-                                   fenced, "decode")
+                                   fenced, kind, counts, verify=verify)
         dt = time.perf_counter() - t0
         pending.t_dispatch = t0
         self.stats["dispatch_time_s"] += dt
         self.stats["decode_time_s"] += dt
         if self._rec() is not None:
-            # ONE decode grant per slot covering the whole stride
-            grants = tuple((b, s.req.request_id, "decode", stride)
+            # ONE decode grant per slot covering the whole stride (spec:
+            # stride verify windows of k tokens each)
+            per_slot = stride * self.speculative_k
+            grants = tuple((b, s.req.request_id, "decode", per_slot)
                            for b, s in enumerate(self.slots)
                            if s is not None and active[b])
-            self._record_dispatch(pending, "decode", grants,
+            self._record_dispatch(pending, kind, grants,
                                   sum(g[3] for g in grants),
-                                  self.B * stride, dt,
-                                  readout_stride=stride)
+                                  self.B * per_slot, dt,
+                                  readout_stride=per_slot)
         return pending
 
     # ------------------------------------------------------------------
@@ -2277,7 +2369,10 @@ class LLMEngine:
             toks3 = pending.toks.numpy()               # [windows, B, Ks]
             counts_np = pending.counts.numpy()         # [windows, B]
             wa_np = pending.was_active.numpy()         # [windows, B]
-            offered_np = pending.offered.numpy()       # [windows, B]
+            # [windows, B] from the fused programs; the legacy scan's
+            # windows are never clamped, so it reads back none
+            offered_np = pending.offered.numpy() \
+                if pending.offered is not None else None
             Kh, B_, _ = toks3.shape
             # windows flattened into the [rows, B] stream the readout
             # walks: row i of a window is live iff i < its count, so the
@@ -2359,14 +2454,19 @@ class LLMEngine:
             if spec and n_read > 0:
                 # drafts that landed in the output (row 0 of a window is
                 # the committed token, not a draft), against the drafts
-                # the device OFFERED (the in-graph clamps can shrink a
-                # window below its grant)
+                # the device OFFERED: the fused programs' in-graph clamps
+                # can shrink a window below its grant, the legacy scan
+                # never does, so there the grant is exact
                 n_committed = sum(1 for k in range(toks_np.shape[0])
                                   if act_np[k, b] and k % Ks == 0)
                 accepted = max(n_read - n_committed, 0)
                 self.stats["draft_tokens_accepted"] += accepted
-                proposed = int(np.maximum(offered_np[:, b] - 1, 0)
-                               [wa_np[:, b]].sum())
+                if offered_np is not None:
+                    proposed = int(np.maximum(offered_np[:, b] - 1, 0)
+                                   [wa_np[:, b]].sum())
+                else:
+                    proposed = int(wa_np[:, b].sum()) * \
+                        pending.verify.get(b, Ks - 1)
                 self.stats["spec_proposed_tokens"] += proposed
                 self.stats["spec_accepted_tokens"] += accepted
                 spec_acc_total += accepted

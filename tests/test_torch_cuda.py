@@ -12,6 +12,8 @@ outputs within the unquantized forms' tolerances); the int4 GEMM within one
 bf16 step of its output's magnitude (bf16) or 1e-5 of it (float32), the
 same bits on every run, and weights quantized on the card bit for bit as on
 the CPU."""
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1400,3 +1402,121 @@ def test_fused_spec_paged_engine_on_card(cuda, monkeypatch, stride):
     eng._check_pool_invariants()
     assert len(eng._free_blocks) == eng.n_blocks
     assert _greedy_misses(model, prompts, got) == 0
+
+
+def _first_parting_margin(model, prompts, want, got):
+    """Per stream pair that differs: the top-1/top-2 margin of a no-cache
+    forward at the first differing step, over the prompt and the common
+    prefix."""
+    margins = []
+    with torch.no_grad():
+        for p, a, b in zip(prompts, want, got):
+            if a == b:
+                continue
+            n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            seq = torch.tensor([list(p) + list(a[:n])], device=model.device)
+            top2 = torch.topk(model(seq)[0, -1].float(), 2).values
+            margins.append(float(top2[0] - top2[1]))
+    return margins
+
+
+@pytest.mark.parametrize("weights", ["bf16", "int4"])
+def test_legacy_spec_engine_on_card(cuda, monkeypatch, weights):
+    """The legacy dense speculative scan, ``LLMEngine(model,
+    speculative_k=4, horizon=2)`` (the reference's default speculation),
+    over bf16 weights and over a model quantized to weight-only int4 at
+    B8's shapes: its masked attention launches no flash or paged kernel,
+    no plain version runs (B8's included), drafts are proposed, and the
+    streams equal the spec-off engine's up to a near-tie (a window's
+    products round apart from a one-row step's in bf16), both passing the
+    margin check against a no-cache forward. The int4 model launches B8
+    once for each of its 7 projections a layer per verify window, every
+    call at B x k rows (the admission windows' 256 rows take the split
+    route), and none in the spec-off engine's prefill."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import quant as quant_mod
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    if weights == "bf16":
+        model = _bf16_d128(cuda)
+    else:
+        # hidden 1024 and ff 2048 tile for B8; vocab 1000 does not, so
+        # lm_head takes the split route
+        cfg = LlamaConfig(vocab_size=1000, hidden_size=1024,
+                          intermediate_size=2048, num_hidden_layers=2,
+                          num_attention_heads=8, num_key_value_heads=8,
+                          max_position_embeddings=512, dtype="bfloat16")
+        model = LlamaForCausalLM(cfg, device=cuda, seed=6).eval()
+        quant_mod.quantize_linears_for_inference(model, weight_dtype="int4")
+    L = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(12)
+    base = rng.integers(0, vocab, 6).tolist()
+    prompts = [(base * 9)[:41], rng.integers(0, vocab, 9).tolist(),
+               (base[::-1] * 5)[:23]]
+    plain, rows = [], collections.Counter()
+    for mod, name in ((pa_mod, "paged_attention_decode_plain"),
+                      (pa_mod, "paged_attention_append_plain"),
+                      (IF, "paged_attention_decode_plain"),
+                      (IF, "paged_attention_append_plain"),
+                      (i4_mod, "int4_matmul_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                            plain.append(_n))
+    route = quant_mod.int4_matmul
+
+    def logged(x2d, *a, **k):
+        rows[int(x2d.shape[0])] += 1
+        return route(x2d, *a, **k)
+
+    monkeypatch.setattr(quant_mod, "int4_matmul", logged)
+    kw = dict(max_batch=2, max_seq_len=256, chunk_size=256, horizon=2)
+    streams, b8 = {}, {}
+    for k in (4, 1):
+        eng = LLMEngine(model, device=cuda, speculative_k=k, **kw)
+        assert (eng.scheduler, eng.cache_impl) == ("legacy", "dense")
+        windows = []
+        if k > 1:
+            scan = eng._spec_scan
+
+            def counted(active, eos_ids, budgets, n_win, _scan=scan):
+                windows.append(n_win)
+                return _scan(active, eos_ids, budgets, n_win)
+
+            eng._spec_scan = counted
+        n0 = (_flash_launches(), _paged_launches(), int4_matmul.launches)
+        streams[k] = [list(o.token_ids) for o in eng.generate(
+            prompts, max_new_tokens=16)]
+        torch.cuda.synchronize()
+        assert (_flash_launches(), _paged_launches()) == n0[:2]
+        b8[k] = (int4_matmul.launches - n0[2], sum(windows))
+        if k > 1:
+            assert eng.stats["spec_proposed_tokens"] > 0 and windows
+    assert not plain, plain
+    assert all(len(s) == 16 for s in streams[4])
+    margin = 0.05
+    if weights == "int4":
+        n_on, n_win = b8[4]
+        assert n_on == 7 * L * n_win and n_win > 0
+        # the spec-off engine's decode steps take B8 at B rows
+        assert b8[1][0] > 0 and set(rows) == {2 * 4, 2}
+        # B8 and the split route round apart: widen the margin by four
+        # times their largest logit gap on 32 rows, as the smoke does
+        from paddle_tpu_torch.core.flags import get_flags, set_flags
+        ids = torch.tensor([prompts[0][:16], prompts[2][:16]], device=cuda)
+        saved = get_flags("FLAGS_use_pallas_int4")
+        try:
+            with torch.no_grad():
+                on = model(ids).float()
+                set_flags({"FLAGS_use_pallas_int4": False})
+                off = model(ids).float()
+        finally:
+            set_flags(saved)
+        margin += 4 * (on - off).abs().max().item()
+    else:
+        assert b8 == {4: (0, b8[4][1]), 1: (0, 0)} and not rows
+    assert all(m <= margin for m in _first_parting_margin(
+        model, prompts, streams[1], streams[4]))
+    for k in (4, 1):
+        assert _greedy_misses(model, prompts, streams[k], margin) == 0

@@ -160,18 +160,25 @@ def test_unported_options_raise(gqa):
             with pytest.raises(NotImplementedError):
                 LLMEngine(tm, device="cpu",
                           **{**_kw(scheduler=scheduler), **kw})
-    # speculation's fused verify grants are ported (dense and bf16
-    # paged); the legacy scan and quantized pools are its second half,
-    # and a legacy paged engine refuses it with the reference's ValueError
+    # speculation is ported: the fused verify grants (dense and bf16
+    # paged) and the legacy dense scan, which constructs and serves
+    # (tests/test_torch_legacy_spec.py holds it to the reference); a
+    # legacy paged engine refuses it with the reference's ValueError, and
+    # quantized pools are the rest of its second half
     assert LLMEngine(tm, device="cpu", speculative_k=2,
                      **_kw(scheduler="fused")).speculative_k == 2
     with pytest.raises(ValueError, match="dense-only"):
         LLMEngine(tm, device="cpu", speculative_k=2, **_kw())
-    for kw in (dict(cache_impl="dense"),
-               dict(scheduler="fused", kv_cache_dtype="int8")):
-        with pytest.raises(NotImplementedError,
-                           match="A8\\(e\\), second half"):
-            LLMEngine(tm, device="cpu", speculative_k=2, **_kw(**kw))
+    spec = LLMEngine(tm, device="cpu", speculative_k=2,
+                     **_kw(cache_impl="dense"))
+    (out,) = spec.generate([np.arange(1, 9, dtype=np.int32)],
+                           max_new_tokens=6)
+    assert out.finished and len(out.token_ids) == 6
+    assert spec.stats["spec_proposed_tokens"] > 0
+    with pytest.raises(NotImplementedError,
+                       match="A8\\(e\\), second half"):
+        LLMEngine(tm, device="cpu", speculative_k=2,
+                  **_kw(scheduler="fused", kv_cache_dtype="int8"))
     # multi-step decode is ported: the fused scheduler takes a stride,
     # the legacy one refuses it as the reference does (its `horizon`)
     assert LLMEngine(tm, device="cpu", readout_stride=2,

@@ -541,12 +541,11 @@ def test_reference_value_errors(models, kw, exc, match):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scheduler="legacy"),
     dict(scheduler="fused", cache_impl="paged", block_size=8,
          kv_cache_dtype="int8"),
     dict(scheduler="fused", cache_impl="paged", block_size=8,
          kv_cache_dtype="int4"),
-], ids=["legacy_dense_scan", "int8_pool", "int4_pool"])
+], ids=["int8_pool", "int4_pool"])
 def test_second_half_raises(models, kw):
     _, tm = models
     with pytest.raises(NotImplementedError,
