@@ -211,6 +211,32 @@ Phases:
                 windows per dispatch, TTFT and e2e p50, speculation_speedup
                 at B 8 and B 1, and the legacy spec arm against (d-viii)'s
                 fused one at B 8 (information);
+  (d-x) kv_tier — the llama_serve_kv_tier rung (bench.py:1341-1451 at its
+                defaults): its 3-layer model (7B widths, ff 11264, MHA,
+                bf16, seed 0, rope table 512) and 16 requests of 249-263
+                tokens (one of two shared 153-token system prompts in
+                alternation, then a unique tail; 64 new each) through
+                AsyncLLMServer over the rung's engine (8 slots, chunk 256,
+                block 64, capacity 512, paged, fused, prefix cache on,
+                warmed with one 3-token request, then reset and
+                reset_stats) in five arms: floor (64 blocks, tier off), off
+                (32 blocks), on (32 blocks, kv_host_swap,
+                kv_host_spill_bytes 256 MiB), int8 at 64 blocks with the
+                tier off and at 32 with it on. Gates: every request
+                finishes with its 64 tokens; the off arm preempts and the
+                on arm re-prefills fewer tokens (prefill tokens beyond the
+                floor arm's); swap-outs, restores and saved tokens in the
+                on arms; every arm ends with every block free or cached,
+                the swap store empty, the pool invariants and a healthy
+                server; the on arms' streams equal their floor's up to a
+                reported near-tie; the greedy check on the bf16 arms; no
+                synchronizing call in step_begin; B3 once a layer a mixed
+                step and B2 once a layer an all-decode step (B4 in the
+                int8 arms), never a plain version; a swap-out and a
+                restore of 8 blocks timed alone, from and into pinned
+                memory, restoring the same bits. Per arm tokens/s, TTFT
+                p50, the swap stall share, swap, spill and promote counts
+                and bytes (information);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
@@ -276,6 +302,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1945,10 +1972,15 @@ def drift(ref_toks, arm_toks):
             "token_parity": first_div is None}
 
 
-def serve_engine(eng, prompts, name, n_new=64):
+def serve_engine(eng, prompts, name, n_new=64, burst=False):
     """The requests through AsyncLLMServer (default depth) over ``eng``
     with ``n_new`` new tokens each, every step_begin under the sync watch
     on the engine thread; B8's launches are counted per step by kind.
+    ``burst``: the engine takes its first request only once every request
+    is submitted, so the first step finds them all queued, as if they
+    arrived at one instant; thread timing otherwise decides how many ramps
+    share the first steps, and so how much of a shared prompt head each
+    misses, and with it whether a pressured pool preempts at all.
     Gates: every request finishes with its tokens, no synchronizing call,
     no plain version, the server healthy at the end. Returns the arm's
     line (without the pool's fields) and its outputs."""
@@ -1978,6 +2010,15 @@ def serve_engine(eng, prompts, name, n_new=64):
         return done
 
     eng.step_begin, eng.step_finish = watched_begin, timed_finish
+    submitted = threading.Event()
+    if burst:
+        add = eng.add_request
+
+        def gated_add(*a, **k):
+            submitted.wait(60)
+            return add(*a, **k)
+
+        eng.add_request = gated_add
     server = AsyncLLMServer(eng, max_queue_size=len(prompts) + 1)
     reset_kernel_counts()
     b1 = flash_attention_fwd.launches
@@ -1985,6 +2026,7 @@ def serve_engine(eng, prompts, name, n_new=64):
         server.start()
         t0 = clock["prev"] = time.perf_counter()
         handles = [server.submit(p, max_new_tokens=n_new) for p in prompts]
+        submitted.set()
         outs, resident = [], []
         for h in handles:
             while True:
@@ -2045,20 +2087,33 @@ def serve_engine(eng, prompts, name, n_new=64):
     # the watch wrappers close over the engine: drop them so the engine's
     # buffers are freed with it, not at the next garbage collection
     del eng.step_begin, eng.step_finish
+    if burst:
+        del eng.add_request
     return arm, outs
 
 
 def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
-              **engine_kw):
+              warm=None, tier=False, burst=False, **engine_kw):
     """One paged arm: the fused engine (or another, by ``engine_kw``) over
     ``n_blocks`` pool blocks of dtype ``quant`` through
     :func:`serve_engine`; the pool invariants hold at the end, and the arm
     launches only its own paged kernels (one per layer per step of each
-    kind)."""
+    kind). ``warm``: a prompt the engine first generates 2 tokens for,
+    then ``reset()`` and ``reset_stats()``, as the rungs warm. ``tier``:
+    the line carries the host KV tier's counters and end state (every
+    block free or cached, the swap store empty). ``burst``: as in
+    :func:`serve_engine`."""
     name = name or quant or "bf16"
     eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
                             kv_cache_dtype=quant, **engine_kw)
-    arm, outs = serve_engine(eng, prompts, name, n_new)
+    if warm is not None:
+        eng.generate([warm], max_new_tokens=2)
+        torch.cuda.synchronize()
+        eng.reset()
+        eng.reset_stats()
+    arm, outs = serve_engine(eng, prompts, name, n_new, burst)
+    if tier:
+        arm["tier"] = tier_report(eng, arm["wall_s"])
     launches = arm["launches"]
     L = model.config.num_hidden_layers
     n_mixed, n_decode = arm["mixed_steps"], arm["all_decode_steps"]
@@ -3802,6 +3857,201 @@ def run_legacy_spec(rung, dev, fused_b8_on_tps):
 
 
 # ---------------------------------------------------------------------------
+# (d-x) the host KV tier: the llama_serve_kv_tier rung
+# ---------------------------------------------------------------------------
+
+#: the rung's traffic and engine (bench.py:1362-1451, its defaults): the
+#: 3-layer model at 7B widths (ff 11264, MHA, bf16, seed 0) with a rope
+#: table of the capacity; 16 requests of 249-263 tokens, one of two shared
+#: 153-token system prompts in alternation before a unique tail, 64 new
+#: tokens each; 8 slots, chunk 256, block 64, capacity 512, the prefix
+#: cache on; the pressured pool holds half the 64-block demand, the spill
+#: store 256 MiB
+KT_REQUESTS, KT_PROMPT, KT_SYS_FRAC, KT_NEW = 16, 256, 0.6, 64
+KT_CAP = -(-(KT_PROMPT + KT_NEW) // DENSE_CHUNK) * DENSE_CHUNK
+KT_FULL = DENSE_SLOTS * (KT_CAP // 64)
+KT_POOL = KT_FULL // 2
+KT_SPILL = 256 << 20
+KT_TIER = dict(kv_host_swap=True, kv_host_spill_bytes=KT_SPILL)
+#: (arm, KV dtype, pool blocks, tier on)
+KT_ARMS = (("floor", None, KT_FULL, False), ("off", None, KT_POOL, False),
+           ("on", None, KT_POOL, True),
+           ("int8_floor", "int8", KT_FULL, False),
+           ("int8_on", "int8", KT_POOL, True))
+TIER_STATS = ("preemptions", "prefill_tokens", "prefix_hit_tokens",
+              "kv_swap_out_blocks", "kv_swap_in_blocks", "kv_swap_out_bytes",
+              "kv_swap_in_bytes", "kv_swap_saved_tokens", "kv_spill_blocks",
+              "kv_promote_blocks", "swap_out_time_s", "swap_in_time_s")
+
+
+def kv_tier_model(dev):
+    return build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                       intermediate_size=DENSE_FF,
+                       max_position_embeddings=KT_CAP)
+
+
+def kv_tier_prompts(vocab):
+    """The rung's prompts (bench.py:1386-1393)."""
+    rng = np.random.default_rng(0)
+    sys_len = int(KT_PROMPT * KT_SYS_FRAC)
+    heads = [rng.integers(0, vocab, (sys_len,)).astype(np.int32)
+             for _ in range(2)]
+    return [np.concatenate([heads[i % 2], rng.integers(
+        0, vocab, (KT_PROMPT - sys_len - 7 + int(x),)).astype(np.int32)])
+        for i, x in enumerate(rng.integers(0, 15, size=KT_REQUESTS))]
+
+
+def tier_report(eng, wall_s):
+    """The host KV tier's line of an arm: its counters, the swap stall
+    share of the serve wall (host seconds in the tier's calls: the copies
+    themselves are asynchronous), bytes over those seconds, the spill
+    store at the end, and the end state the gates read."""
+    st = {k: eng.stats[k] for k in TIER_STATS}
+    stall = st["swap_out_time_s"] + st["swap_in_time_s"]
+    return {**st, "swap_stall_share": stall / wall_s,
+            "swap_out_bytes_per_host_s": st["kv_swap_out_bytes"]
+            / st["swap_out_time_s"] if st["swap_out_time_s"] else None,
+            "swap_in_bytes_per_host_s": st["kv_swap_in_bytes"]
+            / st["swap_in_time_s"] if st["swap_in_time_s"] else None,
+            "spill_entries": len(eng._spill),
+            "spill_bytes": eng._spill_bytes,
+            "swap_store_empty": not eng._swap_store,
+            "blocks_free_or_cached":
+                len(eng._free_blocks) + len(eng._lru) == eng.n_blocks}
+
+
+def tier_copy_rate(model, dev, n=8, reps=5):
+    """The tier's copies on the card, timed with CUDA events: a swap-out of
+    ``n`` blocks (the gather of every layer's K and V blocks and its copy
+    into pinned host memory) and a restore of them (the copy up and the
+    scatter into ``n`` other blocks), median of ``reps`` after a warm
+    pair; the host ms of the swap-out call, the first (which may have to
+    page-lock a new pinned buffer) and the median of the rest; then the
+    restored blocks against their sources, bit for bit."""
+    eng = make_fused_engine(model, dev, kv_pool_blocks=2 * n,
+                            max_seq_len=KT_CAP, kv_host_swap=True)
+    pools, _ = eng._tier_pools()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for p in pools:
+        p.copy_(torch.randn(p.shape, generator=gen, device=dev,
+                            dtype=torch.float32).to(p.dtype))
+    src, dst = list(range(n)), list(range(n, 2 * n))
+    out_ms, in_ms, host_ms = [], [], []
+    for i in range(reps + 1):
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        t0 = time.perf_counter()
+        entry = eng._stage_blocks(src)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        eng._restore_blocks(entry, 0, dst)
+        c.record()
+        torch.cuda.synchronize()
+        if i:
+            out_ms.append(a.elapsed_time(b))
+            in_ms.append(b.elapsed_time(c))
+    exact = all(torch.equal(p[src], p[dst]) for p in pools)
+    nbytes = n * eng.kv_bytes_per_block()
+    pinned = entry["kv"].is_pinned()
+    del eng, entry
+    torch.cuda.empty_cache()
+    return {"blocks": n, "bytes": nbytes, "pinned": pinned,
+            "swap_out_ms": median(out_ms), "swap_in_ms": median(in_ms),
+            "swap_out_gb_per_s": nbytes / median(out_ms) / 1e6,
+            "swap_in_gb_per_s": nbytes / median(in_ms) / 1e6,
+            "swap_out_host_ms_first": host_ms[0],
+            "swap_out_host_ms_later": median(host_ms[1:]),
+            "restored_bits_equal": exact}
+
+
+def run_kv_tier(dev):
+    """The llama_serve_kv_tier rung's traffic through AsyncLLMServer over
+    the rung's engine in five arms (KT_ARMS): the floor, the pressured
+    pool with the tier off and on, and an int8 pool's floor and tier-on
+    pair; the tier's copies timed alone. Returns the paged launches of
+    the arms, summed."""
+    t_phase = time.perf_counter()
+    model = kv_tier_model(dev)
+    vocab = model.config.vocab_size
+    prompts = kv_tier_prompts(vocab)
+    warm = np.random.default_rng(1).integers(0, vocab, (3,)).astype(np.int32)
+    arms, toks = {}, {}
+    for name, quant, n_blocks, on in KT_ARMS:
+        arms[name], toks[name] = serve_arm(
+            model, dev, prompts, quant, n_blocks, name=f"kv_tier {name}",
+            n_new=KT_NEW, warm=warm, tier=True, burst=True,
+            max_seq_len=KT_CAP,
+            enable_prefix_cache=True, **(KT_TIER if on else {}))
+        gc.collect()
+        torch.cuda.empty_cache()
+    greedy = {}
+    for name in ("floor", "off", "on"):
+        greedy[name] = greedy_check(model, dev, prompts, [
+            collections.namedtuple("Out", "token_ids")(t)
+            for t in toks[name]])
+    parts = {"on": first_parting(model, dev, prompts, toks["floor"],
+                                 toks["on"]),
+             "int8_on": first_parting(model, dev, prompts,
+                                      toks["int8_floor"], toks["int8_on"])}
+    copies = tier_copy_rate(model, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # prefill tokens beyond the floor arm's, reported as information: it
+    # can be negative, since the floor's 8 concurrent ramps miss each
+    # other's shared heads where a pressured pool's staggered admissions
+    # hit them. The gate compares the pressured arms' prefill directly
+    pre = {k: a["tier"]["prefill_tokens"] for k, a in arms.items()}
+    beyond = {"off": pre["off"] - pre["floor"],
+              "on": pre["on"] - pre["floor"],
+              "int8_on": pre["int8_on"] - pre["int8_floor"]}
+    emit({"phase": "kv_tier", "requests": KT_REQUESTS,
+          "prompt_lens": [len(p) for p in prompts], "new_tokens": KT_NEW,
+          "capacity": KT_CAP, "full_blocks": KT_FULL, "pool_blocks": KT_POOL,
+          "spill_bytes": KT_SPILL, "prefill_tokens": pre,
+          "prefill_beyond_floor": beyond,
+          "tokens_per_s": {k: a["tokens_per_s"] for k, a in arms.items()},
+          "ttft_p50_s": {k: a["ttft_p50_s"] for k, a in arms.items()},
+          "tiering_speedup": arms["on"]["tokens_per_s"]
+          / arms["off"]["tokens_per_s"],
+          "partings": parts, "copies": copies,
+          "greedy": {k: {"checked": c, "excused_near_ties": e,
+                         "mismatched": m}
+                     for k, (c, e, m) in greedy.items()},
+          "arms": arms, "margin": MARGIN,
+          "seconds": time.perf_counter() - t_phase})
+    require(arms["off"]["preemptions"] >= 1,
+            "kv_tier off arm: no preemption, the pool is not pressured")
+    require(pre["on"] < pre["off"],
+            f"kv_tier: the on arm prefilled {pre['on']} tokens, not fewer "
+            f"than the off arm's {pre['off']}")
+    for name in ("on", "int8_on"):
+        t = arms[name]["tier"]
+        require(t["kv_swap_out_blocks"] >= 1 and t["kv_swap_in_blocks"] >= 1
+                and t["kv_swap_saved_tokens"] >= 1,
+                f"kv_tier {name} arm: no swap cycle: {t}")
+    for name, a in arms.items():
+        require(a["pool_invariants"] and a["tier"]["swap_store_empty"]
+                and a["tier"]["blocks_free_or_cached"],
+                f"kv_tier {name} arm: the pool or the swap store did not "
+                f"drain: {a['tier']}")
+    for name, ps in parts.items():
+        require(all(p["margin"] <= MARGIN for p in ps),
+                f"kv_tier {name} arm parts from its floor where the margin "
+                f"exceeds {MARGIN}: {ps}")
+    for name, (_, _, mismatched) in greedy.items():
+        require(mismatched == 0, f"kv_tier {name} arm: {mismatched} greedy "
+                f"tokens disagree with the no-cache forward beyond {MARGIN}")
+    require(copies["restored_bits_equal"] and copies["pinned"],
+            "kv_tier: a restored block differs from its source, or the "
+            "host copy is not in pinned memory")
+    total = collections.Counter()
+    for a in arms.values():
+        total.update(a["launches"])
+    return dict(total)
+
+
+# ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
 
@@ -4325,6 +4575,8 @@ def main():
     del rung
     gc.collect()
     torch.cuda.empty_cache()
+    tier_launches = run_kv_tier(dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -4385,7 +4637,7 @@ def main():
          "launches": paged_launches + fused_decode_launches
          + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
          + dense_launches["b2_decode"] + rung_launches["b2_decode"]
-         + spec_launches["b2_decode"],
+         + spec_launches["b2_decode"] + tier_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
@@ -4393,7 +4645,7 @@ def main():
          "source": APPEND_SRC, "replaces": APPEND_REPLACES,
          "launches": append_launches + prefix_launches.get("b3_append", 0)
          + dense_launches["b3_append"] + rung_launches["b3_append"]
-         + spec_launches["b3_append"],
+         + spec_launches["b3_append"] + tier_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -4432,7 +4684,8 @@ def main():
             kernels.append(
                 {"name": f"paged_attention_{form}_{q}", "route": "cuda",
                  "source": src, "replaces": replaces,
-                 "launches": n + prefix_launches.get(f"b4_{form}_{q}", 0),
+                 "launches": n + prefix_launches.get(f"b4_{form}_{q}", 0)
+                 + tier_launches.get(f"b4_{form}_{q}", 0),
                  "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})

@@ -133,9 +133,22 @@ inert without speculation) and ``trace_ctx``
 requests (ROADMAP A10) and KV export (A8(h)) raise
 ``NotImplementedError``.
 
+The host KV tier (paged, fused; reference ``llm_engine.py:2357-2638``):
+``kv_host_swap=True`` demotes a preempted slot's committed blocks to
+pinned host memory (one gather of every layer's K/V blocks, with a
+quantized pool's scale rows, copied down without blocking the host) and
+re-admission restores them into freshly allocated private blocks at the
+top of a mixed step, then recomputes only the last position (the
+stitch); ``kv_host_spill_bytes=N`` (with the prefix cache) demotes an
+LRU-evicted registered block into a host store of at most ``N`` bytes,
+oldest out first, and a probe that misses the device store promotes it
+back. Both copies go on the engine's stream, so a restore is ordered
+after its swap-out without a host wait, and the caching pinned allocator
+keeps a buffer from reuse until the copies that touch it have landed.
+
 Not in this port yet (each raises ``NotImplementedError``): verify
 windows over int8/int4 pools (ROADMAP A8(e), second half), LoRA
-adapters, the host KV tier and meshes;
+adapters and meshes;
 sampling with ``temperature > 0`` waits for the threefry port (ROADMAP
 A7). The reference's
 ``PADDLE_TPU_TRANSFER_CHECKS=1`` stride guard (a thread-local
@@ -167,18 +180,34 @@ __all__ = ["LLMEngine", "GenerationRequest", "RequestOutput", "PendingStep",
 
 
 def default_engine_stats():
-    """Fresh engine ``stats`` dict: the reference's keys that this
-    engine's paths touch (the server reads them by name)."""
+    """Fresh engine ``stats`` dict: the reference's whole key schema
+    (``llm_engine.py:54-95``), since the serving layer and the bench read
+    keys by name off any engine. Keys of paths this port does not have yet
+    (adapters, embeddings, KV shipping, the transfer guard) stay 0."""
     return {"steps": 0, "prefill_chunks": 0, "tokens_generated": 0,
             "draft_tokens_accepted": 0,
             "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
-            "preemptions": 0, "prefill_tokens": 0, "fused_steps": 0,
-            "multi_steps": 0,
+            "preemptions": 0,
+            "fused_steps": 0, "multi_steps": 0,
+            "prefill_tokens": 0,
             "prefix_hit_tokens": 0, "prefix_cow_blocks": 0,
             "prefix_evicted_blocks": 0,
+            "adapter_cache_hits": 0, "adapter_cache_misses": 0,
+            "adapter_swaps": 0, "embed_requests": 0,
+            # the host KV tier: preemption swap (blocks and bytes each
+            # way, and the re-prefill tokens a restore avoided) and the
+            # prefix spill (evicted blocks demoted, spilled ones promoted)
+            "kv_swap_out_blocks": 0, "kv_swap_in_blocks": 0,
+            "kv_swap_out_bytes": 0, "kv_swap_in_bytes": 0,
+            "kv_swap_saved_tokens": 0,
+            "kv_spill_blocks": 0, "kv_promote_blocks": 0,
+            "kv_ship_out_blocks": 0, "kv_ship_in_blocks": 0,
+            "kv_ship_out_bytes": 0, "kv_ship_in_bytes": 0,
+            "swap_out_time_s": 0.0, "swap_in_time_s": 0.0,
             "decode_time_s": 0.0, "admit_time_s": 0.0,
             "dispatch_time_s": 0.0, "host_sync_time_s": 0.0,
-            "emit_time_s": 0.0}
+            "emit_time_s": 0.0,
+            "guarded_syncs": 0}
 
 
 #: chain-hash seed of block 0 of every sequence (reference
@@ -404,7 +433,9 @@ class LLMEngine:
     verifies windows of 1 + up to ``k - 1`` prompt-lookup drafts
     (``lookup_ngram`` tokens matched): ``horizon`` full windows a step
     under the legacy scheduler (dense only), adaptive verify grants under
-    the fused one (dense or bf16 paged)."""
+    the fused one (dense or bf16 paged). ``kv_host_swap`` (paged, fused)
+    and ``kv_host_spill_bytes`` (paged, prefix cache) arm the host KV
+    tier."""
 
     def __init__(self, model, max_batch=4, max_seq_len=None, chunk_size=64,
                  top_k=0, stream_callback=None, horizon=1, speculative_k=1,
@@ -479,8 +510,29 @@ class LLMEngine:
                     "scheduler's all-decode steps — set one, not both")
         if adapter_store is not None:
             _unported("adapter_store (batched multi-LoRA)", "A10")
-        if kv_host_swap or kv_host_spill_bytes:
-            _unported("the host KV tier", "A8(g)")
+        # the host KV tier: the reference's ValueErrors
+        # (llm_engine.py:620-639)
+        self.kv_host_swap = bool(kv_host_swap)
+        self.kv_host_spill_bytes = int(kv_host_spill_bytes or 0)
+        if self.kv_host_swap:
+            if cache_impl != "paged":
+                raise ValueError(
+                    "kv_host_swap needs cache_impl='paged' — the host "
+                    "tier swaps physical pool blocks; the dense per-slot "
+                    "buffers have none")
+            if scheduler != "fused":
+                raise ValueError(
+                    "kv_host_swap needs scheduler='fused' — re-admission "
+                    "restores blocks and resumes the ramp at the stitch "
+                    "position, which only the fused scheduler's "
+                    "prefill_pos can express")
+        if self.kv_host_spill_bytes:
+            if cache_impl != "paged" or not enable_prefix_cache:
+                raise ValueError(
+                    "kv_host_spill_bytes needs cache_impl='paged' with "
+                    "enable_prefix_cache=True — the spill store holds "
+                    "LRU-evicted registered prefix blocks; without the "
+                    "content store there is no eviction to spill")
         if mesh is not None:
             _unported("mesh (multi-process / tensor-parallel serving)", "A14")
         self.device = resolve_device(device)
@@ -626,13 +678,25 @@ class LLMEngine:
         #: refcount-0 registered blocks, oldest freed first: allocation
         #: evicts from here before any slot is preempted
         self._lru = collections.OrderedDict()
+        # the host KV tier (kv_host_swap / kv_host_spill_bytes)
+        #: rid -> swap entry (the tokens its blocks cover, the tenant, the
+        #: host block copies) of a request whose committed KV was demoted
+        #: at preemption; dropped at re-admission's full restore, at any
+        #: terminal finish and here (a supervised restart re-prefills)
+        self._swap_store = {}
+        #: chain hash -> spilled block entry: the bounded host store of
+        #: LRU-evicted registered blocks, oldest spilled first out
+        self._spill = collections.OrderedDict()
+        self._spill_bytes = 0
 
     def reset(self):
         """Tear the engine down to EMPTY and re-arm it: the supervised
         server's crash-recovery hook. Every slot, waiting request, finished
         output and preemption stitch drops, and the pools (scale arrays
         included), carried logits, lens and allocator are rebuilt from
-        zeros (the token history too), and the prefix store empties. The
+        zeros (the token history too), and the prefix store and the host
+        tier's swap and spill stores empty (their entries describe pools
+        that no longer exist, so re-admission re-prefills). The
         request-id counter, the cumulative ``stats`` and the rid-keyed
         acceptance EWMA mirror survive."""
         self.slots = [None] * self.B
@@ -841,10 +905,16 @@ class LLMEngine:
 
     def _pop_block(self):
         """One writable block: the smallest free index, else the oldest
-        LRU block, whose content identity is unregistered."""
+        LRU block, whose content identity is unregistered (and, with a
+        spill budget, demoted to the host spill store first)."""
         if self._free_blocks:
             return heapq.heappop(self._free_blocks)
         phys, _ = self._lru.popitem(last=False)
+        if self.kv_host_spill_bytes:
+            # demote the evicted content to the host spill store before its
+            # identity unregisters: a later probe promotes it back instead
+            # of recomputing the chunk
+            self._spill_block(phys)
         self._unregister(phys)
         self.stats["prefix_evicted_blocks"] += 1
         return phys
@@ -1035,15 +1105,20 @@ class LLMEngine:
             self._register_block(blocks[i], h, parent, toks)
             slot.reg_blocks += 1
 
-    def _probe_prefix(self, slot_idx, token_ids, chunk_granular=False):
+    def _probe_prefix(self, slot_idx, token_ids, chunk_granular=False,
+                      no_cow=False):
         """Attach the longest cached prefix of ``token_ids`` to slot
         ``slot_idx`` by table writes and refcount bumps; the hit is capped
         at P - 1 tokens, so the last prompt position is always computed
         and admission has its logits. ``chunk_granular`` (legacy): the
         hit rounds down to whole chunks, since legacy windows scatter
         whole chunk spans and must never write a shared block. Otherwise
-        a copy-on-write tail extends it to token granularity. Returns
-        ``(hit tokens, chain hashes of the full-block hits)``."""
+        a copy-on-write tail extends it to token granularity, unless
+        ``no_cow`` (a swapped request's re-admission: the restore attaches
+        whole host block copies after the hit, which must stay
+        block-aligned). A block found in the host spill store on a device
+        miss is promoted back first. Returns ``(hit tokens, chain hashes
+        of the full-block hits)``."""
         P = len(token_ids)
         bs = self.block_size
         max_full = (P - 1) // bs
@@ -1053,13 +1128,18 @@ class LLMEngine:
         for k in range(min(max_full, self._max_blocks)):
             h = self._chain_hash(parent, token_ids[k * bs:(k + 1) * bs])
             phys = self._store.get(h)
+            if phys is None and self.kv_host_spill_bytes:
+                # device miss, host-tier hit: promote the spilled block
+                # back into the pool, registered, as a cached hit
+                phys = self._promote_spilled(h)
             if phys is None:
                 break
-            # claim it now. A registered block may sit in quarantine
-            # (released while its writer's dispatch was in flight):
-            # attaching it is safe, the write precedes any reader on the
-            # stream, but it must leave quarantine or its unfence would
-            # free a live block
+            # claim it now, not in a second pass: a later promotion's
+            # _pop_block may evict a refcount-0 block this walk found. A
+            # registered block may sit in quarantine (released while its
+            # writer's dispatch was in flight): attaching it is safe, the
+            # write precedes any reader on the stream, but it must leave
+            # quarantine or its unfence would free a live block
             if self._block_ref[phys] == 0:
                 self._lru.pop(phys, None)
                 self._quarantine.discard(phys)
@@ -1079,7 +1159,7 @@ class LLMEngine:
             blocks.append(phys)
             chain.append(h)
         hit = len(found) * bs
-        if not chunk_granular:
+        if not chunk_granular and not no_cow:
             hit += self._cow_tail(slot_idx, token_ids, hit, chain)
         self._check_pool_invariants()
         return hit, chain
@@ -1102,14 +1182,15 @@ class LLMEngine:
     def probe_prefix_len(self, token_ids, chain_hashes=None, adapter_id=0):
         """Read-only probe: how many leading tokens of ``token_ids`` the
         store could serve now, in full blocks (no COW, no refcounts, no
-        table writes). 0 when the prefix cache is off."""
+        table writes); a spilled block counts, one promotion away. 0 when
+        the prefix cache is off."""
         if not self.prefix_cache:
             return 0
         if chain_hashes is None:
             chain_hashes = self.prefix_chain_hashes(token_ids, adapter_id)
         hit = 0
         for h in chain_hashes[:self._max_blocks]:
-            if h not in self._store:
+            if h not in self._store and h not in self._spill:
                 break
             hit += self.block_size
         return hit
@@ -1217,8 +1298,9 @@ class LLMEngine:
     def _preempt_slot(self, b, retired=None):
         """Evict slot ``b`` to the front of the waiting queue, its
         committed tokens joined to the prompt (re-prefill reproduces the
-        greedy state). A slot whose grown prompt no longer fits the pool
-        at all retires 'preempted_pool' instead."""
+        greedy state; with ``kv_host_swap`` its blocks go to the host tier
+        first). A slot whose grown prompt no longer fits the pool at all
+        retires 'preempted_pool' instead."""
         slot = self.slots[b]
         req = slot.req
         done = np.concatenate([req.prompt_ids,
@@ -1226,6 +1308,11 @@ class LLMEngine:
         if self.prefill_blocks_needed(len(done)) > self.n_blocks:
             self._retire_pool_edge(b, retired)
             return
+        if self.kv_host_swap:
+            # demote the committed KV to host memory BEFORE the blocks
+            # release: re-admission restores it and recomputes one
+            # position instead of re-prefilling the stream
+            self._swap_out_slot(b, slot)
         prefix = self._preempted_prefix.get(req.request_id, [])
         self._preempted_prefix[req.request_id] = \
             list(prefix) + list(slot.generated)
@@ -1244,9 +1331,13 @@ class LLMEngine:
     def _finish_tokens(self, req, generated):
         """Full output stream including tokens committed before a
         preemption. Called once per terminal output, so it also drops the
-        request's acceptance EWMA entry."""
+        request's acceptance EWMA entry and its host-tier swap entry."""
         prefix = self._preempted_prefix.pop(req.request_id, [])
         self._spec_ewma.pop(req.request_id, None)
+        if self._paged:
+            # a terminal output's swap entry is dead weight and a rid-reuse
+            # hazard
+            self._swap_store.pop(req.request_id, None)
         return list(prefix) + list(generated)
 
     # ------------------------------------------------------------------
@@ -1273,6 +1364,221 @@ class LLMEngine:
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         buf.copy_(t, non_blocking=True)
         return buf
+
+    # ------------------------------------------------------------------
+    # the host KV tier (reference ``llm_engine.py:2357-2638``)
+    # ------------------------------------------------------------------
+    def _tier_pools(self):
+        """The tensors a block's content lives in, in a staged copy's
+        order: every layer's K payload, then V; and (quantized) every
+        layer's K scale rows, then V (None on a bf16 pool)."""
+        scales = (*self._k_scale, *self._v_scale) if self.kv_quant else None
+        return (*self._k, *self._v), scales
+
+    def _stage_blocks(self, blocks):
+        """Staging gather: physical ``blocks`` out of every layer's K and V
+        pool, and a quantized pool's scale rows with them, as a new entry
+        ``{"kv": [n, 2L, Hkv, block_size, Dp], "scale": [n, 2L, Hkv] |
+        None}``. The gather reads the pools on the engine's stream after
+        every dispatched write, so a slot's committed content has landed
+        by construction, and before any later owner's writes. On the card
+        the copy goes down into pinned host memory without blocking the
+        host; nothing reads the host copy but a restore, which the stream
+        orders after it, and the pinned allocator holds the buffer until
+        the copy has landed. Bit for bit: payload and scales are copied,
+        never requantized."""
+        idx = self._upload(np.asarray(blocks, np.int64))
+        pools, scales = self._tier_pools()
+        kv = self._download(torch.stack(
+            [p.index_select(0, idx) for p in pools], dim=1))
+        sc = None
+        if scales is not None:
+            sc = self._download(torch.stack(
+                [t.index_select(0, idx) for t in scales], dim=1))
+        return {"kv": kv, "scale": sc}
+
+    def _restore_blocks(self, entry, lo, dst):
+        """Restore scatter: rows ``[lo, lo + len(dst))`` of ``entry``'s host
+        copy into physical blocks ``dst`` of every pool (scales too). On
+        the card the copy goes up from the entry's pinned buffer without
+        blocking, ordered after its swap-out's copy down by the stream;
+        the pinned allocator keeps the buffer from reuse until it has
+        landed, even once the entry is dropped. ``dst`` are freshly
+        allocated blocks: the write fence keeps every block an in-flight
+        dispatch may write out of the allocator, so this cannot race a
+        pipelined writer."""
+        n = len(dst)
+        idx = self._upload(np.asarray(dst, np.int64))
+        pools, scales = self._tier_pools()
+        for host, targets in ((entry["kv"], pools),
+                              (entry["scale"], scales)):
+            if targets is None:
+                continue
+            rows = host[lo:lo + n]                 # contiguous: still pinned
+            if self.device.type == "cuda":
+                rows = rows.to(self.device, non_blocking=True)
+            for j, t in enumerate(targets):
+                t.index_copy_(0, idx, rows[:, j])
+
+    def _swap_out_slot(self, b, slot):
+        """Demote slot ``b``'s committed KV to host memory at preemption,
+        before its blocks release (the tier's swap-out half). An in-flight
+        dispatch writes only positions at or past the committed length,
+        and the fence keeps the released blocks from a new owner until it
+        lands, as for any other release. The entry covers the prompt and
+        the committed tokens up to the dispatched length; a re-preempted
+        request's newest entry wins."""
+        req = slot.req
+        kv_len = slot.prefill_pos + len(slot.generated)
+        if kv_len <= 0 or req.kind == "embed":
+            return
+        nb = (kv_len - 1) // self.block_size + 1
+        blocks = self._slot_blocks[b][:nb]
+        if len(blocks) < nb:
+            return
+        t0 = time.perf_counter()
+        entry = self._stage_blocks(blocks)
+        done = np.concatenate([req.prompt_ids,
+                               np.asarray(slot.generated, np.int32)])
+        entry.update(tokens=done[:kv_len], adapter_id=req.adapter_id,
+                     n_blocks=nb, nbytes=nb * self.kv_bytes_per_block())
+        self._swap_store[req.request_id] = entry
+        self.stats["kv_swap_out_blocks"] += nb
+        self.stats["kv_swap_out_bytes"] += entry["nbytes"]
+        self.stats["swap_out_time_s"] += time.perf_counter() - t0
+
+    def _try_swap_restores(self):
+        """The swap-in half, at the top of every mixed step (where the
+        prefill grants it replaces would be scheduled): each ramping slot
+        with a live swap entry restores as many of its host blocks as the
+        pool can cover now into private blocks, and ``prefill_pos`` and
+        the lens jump to the stitch. The entry survives a dry pool (the
+        restore retries as retirements free blocks); a partial restore
+        stays block-aligned so the rest can follow; a full one stitches at
+        ``T - 1`` (the last position recomputes, so the last prefill grant
+        still produces the sampler's logits) and consumes the entry. It is
+        dropped when it no longer applies: another tenant or token prefix,
+        a ramp that passed it by re-prefilling, or a slot that has
+        generated. Gated on the store, not on ``kv_host_swap``."""
+        if not self._paged or not self._swap_store:
+            return
+        bs = self.block_size
+        for b, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            req = slot.req
+            rid = req.request_id
+            entry = self._swap_store.get(rid)
+            if entry is None:
+                continue
+            T = len(entry["tokens"])
+            pos = slot.prefill_pos
+            # the token-prefix compare is O(T): once per (entry, resident
+            # request); both arrays are immutable, so the verdict holds
+            # for every dry-pool retry
+            if entry.get("validated") != rid:
+                if entry["adapter_id"] != req.adapter_id or \
+                        T > slot.prompt_len or \
+                        not np.array_equal(entry["tokens"],
+                                           req.prompt_ids[:T]):
+                    del self._swap_store[rid]
+                    continue
+                entry["validated"] = rid
+            if (not slot.ramping) or slot.generated or pos >= T - 1 or \
+                    req.kind == "embed":
+                del self._swap_store[rid]
+                continue
+            if pos % bs:
+                # a budget-clamped grant left the ramp mid-block: keep the
+                # entry for a later aligned position
+                continue
+            target = T - 1               # the stitch: T - 1 recomputes
+            first_blk = pos // bs
+            n_restore = target // bs + 1 - first_blk
+            t0 = time.perf_counter()
+            # blocks the slot already owns past the stitch count toward the
+            # restore span (a clamped grant may have grabbed coverage it
+            # never filled): only the shortfall allocates
+            have = max(len(self._slot_blocks[b]) - first_blk, 0)
+            got = min(n_restore, have + self._n_allocatable())
+            need = first_blk + got - len(self._slot_blocks[b])
+            if got <= 0 or (need > 0 and not self._alloc_blocks(b, need)):
+                continue                 # pool dry now: retry next step
+            dst = self._slot_blocks[b][first_blk:first_blk + got]
+            self._restore_blocks(entry, first_blk, dst)
+            covered = (first_blk + got) * bs
+            # a partial restore stops at a block boundary; a full one
+            # stitches at T - 1
+            stitch = target if covered > target else covered
+            slot.prefill_pos = stitch
+            self._lens[b].fill_(stitch)
+            if stitch >= target:
+                del self._swap_store[rid]
+            per = self.kv_bytes_per_block()
+            self.stats["kv_swap_in_blocks"] += got
+            self.stats["kv_swap_in_bytes"] += got * per
+            self.stats["kv_swap_saved_tokens"] += max(stitch - pos, 0)
+            self.stats["swap_in_time_s"] += time.perf_counter() - t0
+            rec = self._rec()
+            if rec is not None:
+                rec.req_event(rid, "swapped_in",
+                              step_id=rec.next_step_id(),
+                              value=max(stitch - pos, 0))
+
+    def _spill_block(self, phys):
+        """Demote an LRU-evicted registered block into the bounded host
+        spill store (the tier's eviction half), keyed by its chain hash,
+        before ``_unregister`` strips its identity; the byte budget drops
+        the oldest spilled entries first. Spill traffic books only
+        ``kv_spill_blocks``, never the swap bytes, which are the
+        StepRecord's preempt_swap signal."""
+        h = self._block_hash.get(phys)
+        per = self.kv_bytes_per_block()
+        if h is None or h in self._spill or per > self.kv_host_spill_bytes:
+            return
+        t0 = time.perf_counter()
+        entry = self._stage_blocks([phys])
+        while self._spill_bytes + per > self.kv_host_spill_bytes \
+                and self._spill:
+            _, old = self._spill.popitem(last=False)
+            self._spill_bytes -= old["nbytes"]
+        entry.update(parent=self._block_parent[phys],
+                     tokens=self._block_tokens[phys], n_blocks=1,
+                     nbytes=per)
+        self._spill[h] = entry
+        self._spill_bytes += per
+        self.stats["kv_spill_blocks"] += 1
+        self.stats["swap_out_time_s"] += time.perf_counter() - t0
+
+    def _promote_spilled(self, h):
+        """Promote spilled block ``h`` back into the pool: claim a writable
+        block, copy the host block in, re-register its content and park
+        it refcount-0 in the LRU, where the probe attaches it like any
+        cached hit. Returns the physical block, or None (no such entry,
+        or the pool is dry). Books only ``kv_promote_blocks``."""
+        entry = self._spill.get(h)
+        if entry is None or not self._n_allocatable():
+            return None
+        t0 = time.perf_counter()
+        del self._spill[h]
+        self._spill_bytes -= entry["nbytes"]
+        phys = self._pop_block()
+        self._restore_blocks(entry, 0, [phys])
+        self._register_block(phys, h, entry["parent"],
+                             np.frombuffer(entry["tokens"], np.int32))
+        self._lru[phys] = None
+        self.stats["kv_promote_blocks"] += 1
+        self.stats["swap_in_time_s"] += time.perf_counter() - t0
+        return phys
+
+    def swap_resident_rids(self):
+        """Request ids whose committed KV lives in the host tier now
+        (preempted and swapped out, awaiting re-admission or mid-restore):
+        a read-only probe for a router's failover. Empty on a dense
+        engine."""
+        if not self._paged:
+            return ()
+        return tuple(self._swap_store)
 
     # ------------------------------------------------------------------
     # admission
@@ -1437,7 +1743,12 @@ class LLMEngine:
         t0 = time.perf_counter()
         hit, chain = 0, []
         if self.prefix_cache:
-            hit, chain = self._probe_prefix(slot_idx, req.prompt_ids)
+            # a live swap entry restores lazily in the scheduler
+            # (_try_swap_restores, the next mixed step), after a
+            # block-aligned probe; gated on the store, not the flag
+            swapped = self._paged and req.request_id in self._swap_store
+            hit, chain = self._probe_prefix(slot_idx, req.prompt_ids,
+                                            no_cow=swapped)
         self._lens[slot_idx].fill_(hit)
         # the WHOLE prompt, host-known even over a prefix hit
         self._set_token_history(slot_idx, req.prompt_ids)
@@ -1787,14 +2098,15 @@ class LLMEngine:
                          dispatch_s, readout_stride=1):
         """Emit this dispatch's StepRecord (recorder attached and armed by
         step_begin) and stamp ``pending`` with its step id (reference
-        ``llm_engine.py:3443-3502``). The admit/schedule splits come from
-        the engine's own stats deltas anchored at step_begin entry. The
-        host KV tier (A8(g)) and adapters (A10) are not ported: their
-        fields carry what a reference engine without them records."""
+        ``llm_engine.py:3443-3502``). The admit/schedule splits and the
+        swap-byte deltas come from the engine's own stats anchored at
+        step_begin entry. Adapters (A10) and KV shipping (A8(h)) are not
+        ported: their fields carry what a reference engine without them
+        records."""
         rec, ctx = self._rec(), self._rec_ctx
         if rec is None or ctx is None:
             return
-        t0, admit0, hits0 = ctx
+        t0, admit0, hits0, kvin0, kvout0 = ctx
         wall = time.perf_counter() - t0
         admit_s = self.stats["admit_time_s"] - admit0
         paged = self._paged
@@ -1818,9 +2130,15 @@ class LLMEngine:
             kv_cache_dtype=(self.kv_quant
                             or str(self._dtype).replace("torch.", ""))
             if paged else None,
-            kv_swap_in_bytes=0 if paged else None,
-            kv_swap_out_bytes=0 if paged else None,
-            kv_host_spill_blocks=0 if paged else None,
+            # the swap traffic THIS step moved (swap-outs at its
+            # preemptions, restores at its scheduling) and the spill
+            # store's size: the swap bytes are explain_tail's
+            # preempt_swap signal, spill traffic books elsewhere
+            kv_swap_in_bytes=(self.stats["kv_swap_in_bytes"] - kvin0)
+            if paged else None,
+            kv_swap_out_bytes=(self.stats["kv_swap_out_bytes"] - kvout0)
+            if paged else None,
+            kv_host_spill_blocks=len(self._spill) if paged else None,
             kv_ship_in_bytes=0 if paged else None,
             kv_ship_out_bytes=0 if paged else None,
             adapter_slots=(), adapter_swaps=0)
@@ -1901,11 +2219,14 @@ class LLMEngine:
     def _step_begin(self):
         if self._rec() is not None:
             # wall-split anchors for this step's record: entry time, the
-            # admit-stat baseline (scheduling = wall - admit - dispatch)
-            # and the prefix-hit baseline (the record carries the delta)
+            # admit-stat baseline (scheduling = wall - admit - dispatch),
+            # the prefix-hit and swap-byte baselines (the record carries
+            # the deltas)
             self._rec_ctx = (time.perf_counter(),
                              self.stats["admit_time_s"],
-                             self.stats["prefix_hit_tokens"])
+                             self.stats["prefix_hit_tokens"],
+                             self.stats["kv_swap_in_bytes"],
+                             self.stats["kv_swap_out_bytes"])
             self._rec_preempted = []
         self._admit_waiting()
         if not any(s is not None for s in self.slots):
@@ -2258,7 +2579,9 @@ class LLMEngine:
 
     def _begin_mixed_step(self, pool_done):
         """Schedule and DISPATCH one fused mixed step (>= 1 slot is
-        ramping)."""
+        ramping). Host-tier restores fire first, displacing the prefill
+        grants they make redundant."""
+        self._try_swap_restores()
         for _ in range(self.B + 1):
             ids, q_lens, is_dec, active, sched, spec_ks = \
                 self._schedule_mixed(pool_done)

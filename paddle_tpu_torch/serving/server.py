@@ -69,9 +69,13 @@ from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
 
 __all__ = ["AsyncLLMServer"]
 
-#: engine stats of the prefix cache, booked as telemetry counters
+#: engine stats of the prefix cache and the host KV tier (swap-outs,
+#: spills and restores all happen inside step_begin), booked as
+#: telemetry counters
 _PREFIX_COUNTERS = ("prefix_hit_tokens", "prefix_cow_blocks",
-                    "prefix_evicted_blocks")
+                    "prefix_evicted_blocks", "kv_swap_out_blocks",
+                    "kv_swap_in_blocks", "kv_swap_saved_tokens",
+                    "kv_spill_blocks", "kv_promote_blocks")
 #: engine stats of speculation, booked as telemetry counters at readout
 _SPEC_COUNTERS = ("spec_proposed_tokens", "spec_accepted_tokens")
 
@@ -708,8 +712,9 @@ class AsyncLLMServer:
         if d_ptok:
             tel.inc("prefill_tokens", d_ptok)
         for key, before in s_pfx.items():
-            # prefix-cache hits, COW clones and LRU evictions all happen
-            # inside step_begin
+            # prefix-cache hits, COW clones, LRU evictions and the host
+            # tier's swaps, spills and restores all happen inside
+            # step_begin
             if eng.stats.get(key, 0) > before:
                 tel.inc(key, eng.stats[key] - before)
         if eng.stats["preemptions"] > s_pre:
@@ -791,6 +796,17 @@ class AsyncLLMServer:
                           1.0 - free / max(eng.n_blocks, 1))
             tel.set_gauge("kv_pool_effective_blocks",
                           eng.kv_pool_effective_blocks())
+            # host KV tier traffic (0 with the tier off): the cumulative
+            # swap bytes, and the spill store in blocks and in bytes, the
+            # unit of its bound
+            tel.set_gauge("kv_swap_in_bytes",
+                          eng.stats.get("kv_swap_in_bytes", 0))
+            tel.set_gauge("kv_swap_out_bytes",
+                          eng.stats.get("kv_swap_out_bytes", 0))
+            tel.set_gauge("kv_host_spill_blocks",
+                          len(getattr(eng, "_spill", ())))
+            tel.set_gauge("kv_host_spill_bytes",
+                          getattr(eng, "_spill_bytes", 0))
             if getattr(eng, "prefix_cache", False):
                 tel.set_gauge("prefix_cached_blocks", len(eng._lru))
                 hit = eng.stats["prefix_hit_tokens"]

@@ -1520,3 +1520,143 @@ def test_legacy_spec_engine_on_card(cuda, monkeypatch, weights):
         model, prompts, streams[1], streams[4]))
     for k in (4, 1):
         assert _greedy_misses(model, prompts, streams[k], margin) == 0
+
+
+def _host_rows(eng, blocks):
+    """``blocks`` of every pool in a staged copy's layout, gathered on the
+    card from an index uploaded without blocking (no sync)."""
+    pools, scales = eng._tier_pools()
+    idx = eng._upload(np.asarray(blocks, np.int64))
+    kv = torch.stack([p.index_select(0, idx) for p in pools], dim=1)
+    sc = None if scales is None else torch.stack(
+        [t.index_select(0, idx) for t in scales], dim=1)
+    return kv, sc
+
+
+def _bits(t):
+    t = t.cpu().contiguous()
+    if t.is_floating_point():
+        t = t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_kv_tier_engine_on_card(cuda, monkeypatch, quant):
+    """The host KV tier at the kernels' shapes (block 64, D 128) over a
+    bf16 and an int8 pool: a swap cycle under pool pressure and a spill
+    promotion. Every step_begin runs under CUDA's sync debug mode and
+    makes no synchronizing call (the swap-out's gather and its copy into
+    pinned memory, and the restore's copy up, never wait); every staged
+    copy equals its source blocks and every restored block the host rows
+    it came from, payload and scales, bit for bit, once the card is
+    synchronized after the run; the paged kernels of the pool take every
+    step (once a layer) and no plain version runs; the streams equal the
+    full-pool engine's up to a near-tie (a stitch row rounds in a mixed
+    step where it first ran in a decode step); the pool drains."""
+    import warnings
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    monkeypatch.setenv("PADDLE_TPU_POOL_CHECKS", "1")
+    model = _bf16_d128(cuda, kvh=2)
+    L = model.config.num_hidden_layers
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (120, 110)]
+    kw = dict(device=cuda, cache_impl="paged", scheduler="fused",
+              max_batch=2, max_seq_len=256, chunk_size=64, block_size=64,
+              kv_cache_dtype=quant)
+    want = [list(o.token_ids) for o in LLMEngine(model, **kw).generate(
+        prompts, max_new_tokens=40)]
+    plain = []
+    for mod in (pa_mod, IF):
+        for name in ("paged_attention_decode_plain",
+                     "paged_attention_append_plain"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    checks, syncs = [], []
+
+    def watch(eng):
+        stage, restore, begin = (eng._stage_blocks, eng._restore_blocks,
+                                 eng.step_begin)
+
+        def staged(blocks):
+            entry = stage(blocks)
+            checks.append((entry["kv"], entry["scale"],
+                           *_host_rows(eng, blocks)))
+            return entry
+
+        def restored(entry, lo, dst):
+            restore(entry, lo, dst)
+            n = len(dst)
+            sc = entry["scale"]
+            checks.append((entry["kv"][lo:lo + n],
+                           None if sc is None else sc[lo:lo + n],
+                           *_host_rows(eng, dst)))
+
+        def watched_begin():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    return begin()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(str(w.message) for w in caught
+                             if "synchroniz" in str(w.message))
+
+        eng._stage_blocks, eng._restore_blocks = staged, restored
+        eng.step_begin = watched_begin
+
+    # the swap cycle: 2 blocks a prompt, 3 a stream, over 5 blocks
+    eng = LLMEngine(model, kv_pool_blocks=5, kv_host_swap=True, **kw)
+    watch(eng)
+    n0 = _paged_launches()
+    got = [list(o.token_ids) for o in eng.generate(prompts,
+                                                   max_new_tokens=40)]
+    torch.cuda.synchronize()
+    n1 = _paged_launches()
+    mixed = eng.stats["fused_steps"]
+    decode = eng.stats["steps"] - mixed
+    if quant is None:
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (decode * L, mixed * L)
+    else:
+        assert (n1[2][quant] - n0[2][quant],
+                n1[3][quant] - n0[3][quant]) == (decode * L, mixed * L)
+    assert eng.stats["preemptions"] >= 1
+    assert eng.stats["kv_swap_in_blocks"] >= 1
+    assert eng.stats["kv_swap_saved_tokens"] >= 1
+    assert all(len(s) == 40 for s in got)
+    assert got == want or all(m <= 0.05 for m in _first_parting_margin(
+        model, prompts, want, got))
+    assert not eng._swap_store
+    eng._check_pool_invariants()
+    assert len(eng._free_blocks) == eng.n_blocks
+    del eng
+    # the spill: a prompt's registered blocks evicted by churn over the
+    # same 5 blocks, then promoted back when the prompt returns
+    churn = [rng.integers(0, 512, 130).tolist() for _ in range(2)]
+    eng = LLMEngine(model, kv_pool_blocks=5, enable_prefix_cache=True,
+                    kv_host_spill_bytes=64 << 20, **kw)
+    watch(eng)
+    first = eng.generate([prompts[0]], max_new_tokens=8)[0].token_ids
+    eng.generate(churn, max_new_tokens=40)
+    assert eng.stats["kv_spill_blocks"] >= 1
+    again = eng.generate([prompts[0]], max_new_tokens=8)[0].token_ids
+    torch.cuda.synchronize()
+    assert eng.stats["kv_promote_blocks"] >= 1
+    assert eng.stats["prefix_hit_tokens"] >= 64
+    assert list(again) == list(first) or all(
+        m <= 0.05 for m in _first_parting_margin(
+            model, prompts[:1], [list(first)], [list(again)]))
+    assert eng.stats["kv_swap_in_bytes"] == eng.stats["kv_swap_out_bytes"] \
+        == 0
+    eng._check_pool_invariants()
+    assert not plain, plain
+    assert not syncs, syncs[:3]
+    assert checks
+    for host_kv, host_sc, dev_kv, dev_sc in checks:
+        assert host_kv.is_pinned()
+        assert torch.equal(_bits(host_kv), _bits(dev_kv))
+        assert (host_sc is None) == (quant is None) == (dev_sc is None)
+        if host_sc is not None:
+            assert torch.equal(_bits(host_sc), _bits(dev_sc))

@@ -152,14 +152,19 @@ def test_pool_capacity_error_and_pool_edge(gqa):
 def test_unported_options_raise(gqa):
     _, tm = gqa
     for scheduler in ("legacy", "fused"):
-        for kw in (dict(adapter_store=object()),
-                   dict(kv_host_swap=True), dict(mesh=object()),
-                   # the prefix cache is ported; its host spill is not
-                   dict(enable_prefix_cache=True,
-                        kv_host_spill_bytes=1 << 20)):
+        for kw in (dict(adapter_store=object()), dict(mesh=object())):
             with pytest.raises(NotImplementedError):
                 LLMEngine(tm, device="cpu",
                           **{**_kw(scheduler=scheduler), **kw})
+    # the host KV tier is ported (tests/test_torch_kv_tier.py): fused
+    # paged engines take it; a legacy one refuses the swap with the
+    # reference's ValueError
+    tier = dict(enable_prefix_cache=True, kv_host_swap=True,
+                kv_host_spill_bytes=1 << 20)
+    eng = LLMEngine(tm, device="cpu", **_kw(scheduler="fused", **tier))
+    assert eng.kv_host_swap and eng.kv_host_spill_bytes == 1 << 20
+    with pytest.raises(ValueError, match="scheduler='fused'"):
+        LLMEngine(tm, device="cpu", **_kw(**tier))
     # speculation is ported: the fused verify grants (dense and bf16
     # paged) and the legacy dense scan, which constructs and serves
     # (tests/test_torch_legacy_spec.py holds it to the reference); a

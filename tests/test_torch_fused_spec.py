@@ -150,7 +150,11 @@ def _pool_drained(eng):
 
 
 def _counters(eng):
-    return {k: v for k, v in eng.stats.items() if not k.endswith("_s")}
+    # guarded_syncs is in the port's stats for the reference's key schema
+    # only: the reference books it under PADDLE_TPU_TRANSFER_CHECKS=1, a
+    # guard the port does not have (ROADMAP A11)
+    return {k: v for k, v in eng.stats.items()
+            if not k.endswith("_s") and k != "guarded_syncs"}
 
 
 def _events(rec):

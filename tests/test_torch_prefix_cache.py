@@ -424,8 +424,13 @@ def test_construction_edges(models):
     with pytest.raises(ValueError, match="paged"):
         LLMEngine(tm, device="cpu", cache_impl="dense",
                   enable_prefix_cache=True, max_seq_len=64, chunk_size=16)
-    with pytest.raises(NotImplementedError, match="A8"):
-        _engine(tm, True, kv_host_spill_bytes=1 << 20)
+    # the host spill store is ported (tests/test_torch_kv_tier.py): it
+    # constructs beside the prefix cache and, as in the reference, raises
+    # without it
+    assert _engine(tm, True, kv_host_spill_bytes=1 << 20) \
+        .kv_host_spill_bytes == 1 << 20
+    with pytest.raises(ValueError, match="enable_prefix_cache"):
+        _engine(tm, False, kv_host_spill_bytes=1 << 20)
     on = _engine(tm, True)
     _toks(on, _shared_workload(19, 16, (2, 3)), 2)
     assert on._store and on._lru
