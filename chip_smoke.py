@@ -237,6 +237,40 @@ Phases:
                 memory, restoring the same bits. Per arm tokens/s, TTFT
                 p50, the swap stall share, swap, spill and promote counts
                 and bytes (information);
+  (d-xi) cluster — the llama_serve_cluster rung (bench.py:1870-2020 at its
+                defaults): its 3-layer model (7B widths, ff 11264, MHA,
+                bf16, seed 0, rope table 512), one copy per replica, and 32
+                requests (one of two tenants' 256-token system prompts
+                before a 64-127-token tail; 64 new each) through
+                ReplicaRouter over AsyncLLMServer replicas of the rung's
+                engine (8 slots, chunk 256, horizon 64, block 64, capacity
+                512, paged, fused, prefix cache on, each warmed with one
+                3-token request): a seed wave of one request per tenant,
+                waited for, then the other 30 at once with their tenant as
+                routing_key. Arms: single (1 replica, affinity; run twice,
+                single_2 for the spread), cluster (2,
+                affinity), random (2, random placement), failover (2,
+                affinity, resume_inflight; replica 0's watchdog at 3 s and a
+                non-interruptible 10 s wedge at its first step that finds a
+                timed request mid-stream there). Gates: every request finishes
+                with its 64 tokens; the other arms' streams equal the single
+                arm's up to a reported near-tie; every arm's tokens, the
+                failover's resumed requests counted apart too, pass the
+                greedy check; each resumed stream starts with what its
+                caller had consumed (the wedged request's first token); the
+                single arms' step_begins make no synchronizing call (the
+                sync debug mode is process-wide, so only with one replica);
+                affinity placements and both
+                replicas placed in the cluster arm, whose hit rate beats the
+                random arm's; in the failover arm replica 0 reads hung,
+                evictions and resumptions, no request lost; each arm's B3
+                launches equal its replicas' mixed steps and its B2 launches
+                their decode iterations, once a layer, and no plain version
+                runs; the router stops with nothing outstanding. Per arm the
+                aggregate and per-replica tokens/s, hit rates, placements,
+                wall time, the host's microseconds a launch before and after
+                the arms, and the failover's timings (information). The
+                two replicas share the card and its default stream;
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
@@ -346,7 +380,8 @@ from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_decode_plain)
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.profiler import FlightRecorder
-from paddle_tpu_torch.serving import AsyncLLMServer, RestartPolicy
+from paddle_tpu_torch.serving import (AsyncLLMServer, FaultInjector,
+                                      ReplicaRouter, RestartPolicy)
 from paddle_tpu_torch.tools.cuda_timing import cuda_ms, host_us
 from paddle_tpu_torch.tools import paged_sweep
 from paddle_tpu_torch.tools.multi_step_ab import (serve_multi_step_ab,
@@ -4052,6 +4087,362 @@ def run_kv_tier(dev):
 
 
 # ---------------------------------------------------------------------------
+# (d-xi) the replica router: the llama_serve_cluster rung
+# ---------------------------------------------------------------------------
+
+#: the rung's traffic and engines (bench.py:1870-2020, its defaults): the
+#: 3-layer model at 7B widths (ff 11264, MHA, bf16, seed 0) with a rope
+#: table of the capacity, one copy per replica; 2 tenants, each prompt a
+#: tenant's 256-token system prompt before a 64-127-token tail, 32
+#: prompts, 64 new tokens each; 8 slots, chunk 256, horizon 64, block 64,
+#: paged, fused, the prefix cache on
+CL_REPLICAS, CL_TENANTS, CL_SYS, CL_TAIL, CL_NEW = 2, 2, 256, 128, 64
+CL_REQUESTS = 2 * DENSE_SLOTS * CL_REPLICAS
+CL_CAP = -(-(CL_SYS + CL_TAIL + CL_NEW) // DENSE_CHUNK) * DENSE_CHUNK
+#: the failover arm's watchdog on replica 0 (well above a warm step of
+#: either replica on the shared card) and its wedge, longer than the
+#: failover takes
+CL_STEP_TIMEOUT_S, CL_HANG_S = 3.0, 10.0
+#: (arm, replicas, policy, failover); single_2 repeats single in the same
+#: call, for the run-to-run spread of its rate and of its streams
+CL_ARMS = (("single", 1, "affinity", False),
+           ("single_2", 1, "affinity", False),
+           ("cluster", CL_REPLICAS, "affinity", False),
+           ("random", CL_REPLICAS, "random", False),
+           ("failover", CL_REPLICAS, "affinity", True))
+
+
+def cluster_traffic(vocab):
+    """The rung's prompts and each replica's 3-token warm prompt, drawn
+    from one generator in the rung's order (bench.py:1899-1930)."""
+    rng = np.random.default_rng(0)
+    heads = [rng.integers(0, vocab, (CL_SYS,)).astype(np.int32)
+             for _ in range(CL_TENANTS)]
+    tails = [rng.integers(0, vocab, (CL_TAIL // 2 + int(x),)).astype(
+        np.int32) for x in rng.integers(0, CL_TAIL // 2, size=CL_REQUESTS)]
+    prompts = [np.concatenate([heads[i % CL_TENANTS], t])
+               for i, t in enumerate(tails)]
+    warms = [rng.integers(0, vocab, (3,)).astype(np.int32)
+             for _ in range(CL_REPLICAS)]
+    return prompts, warms
+
+
+def cluster_replica(model, dev, i, warm, log, syncs=None,
+                    fault_injector=None, before_begin=None):
+    """One replica as the rung makes it: the engine warmed with one
+    2-token request (then reset and its stats zeroed), behind its own
+    AsyncLLMServer. Each dispatch's kind and rows land in ``log``, on the
+    replica's own thread; with ``syncs`` every step_begin runs under
+    CUDA's sync debug mode (process-wide, so only with one replica);
+    ``before_begin`` is called on that thread ahead of each step_begin."""
+    eng = LLMEngine(model, max_batch=DENSE_SLOTS, max_seq_len=CL_CAP,
+                    chunk_size=DENSE_CHUNK, horizon=DENSE_HORIZON,
+                    cache_impl="paged", block_size=64, scheduler="fused",
+                    enable_prefix_cache=True, device=dev)
+    eng.generate([warm], max_new_tokens=2)
+    torch.cuda.synchronize()
+    eng.reset()
+    eng.reset_stats()
+    begin = eng.step_begin
+
+    def logged_begin():
+        if before_begin is not None:
+            before_begin()
+        if syncs is None:
+            pending = begin()
+        else:
+            with sync_watch(syncs):
+                pending = begin()
+        if pending is not None and pending.toks is not None:
+            log.append((pending.kind, int(pending.toks.shape[0])))
+        return pending
+
+    eng.step_begin = logged_begin
+    return AsyncLLMServer(
+        eng, max_queue_size=CL_REQUESTS + 1, replica=i,
+        fault_injector=fault_injector,
+        step_timeout_s=CL_STEP_TIMEOUT_S if fault_injector else None)
+
+
+def cluster_arm(models, dev, prompts, warms, name, n, policy, failover):
+    """One arm of the rung: ``n`` replicas behind a ReplicaRouter, the
+    seed wave (one request per tenant, waited for), then the timed wave
+    (the other 30 at once, ``routing_key`` their tenant). ``failover``:
+    ``resume_inflight``, a FaultInjector on replica 0, and a
+    non-interruptible wedge of CL_HANG_S at the first step of replica 0
+    that finds a timed request there mid-stream; the caller consumes that
+    request's first token. Gates: every request finishes with its 64
+    tokens, the router stops with nothing outstanding, no plain version
+    runs, each replica's B3 launches equal its mixed steps and its B2
+    launches its decode iterations (once a layer each, summed over the
+    replicas against the counters), and with one replica no step_begin
+    synchronizes; with ``failover``, the resumed requests number the
+    router's ``resumed`` and each stream starts with the tokens its caller
+    had consumed. Returns the arm's line and its streams, seed wave
+    first."""
+    logs = [[] for _ in range(n)]
+    syncs = [] if n == 1 else None
+    fi = FaultInjector() if failover else None
+    fail, wedge, timed = {}, {}, threading.Event()
+    replicas = []
+
+    def wedge_mid_stream():
+        # on replica 0's thread, ahead of its step_begin: the first time a
+        # timed request there has streamed and not finished (a horizon-64
+        # readout can carry a whole stream), wedge this very step
+        if not timed.is_set() or wedge:
+            return
+        srv = replicas[0]
+        with srv._hlock:
+            mid = [h.request_id for h in srv._handles.values()
+                   if h.emitted and not h.done]
+        if mid:
+            wedge.update(rid=mid[0], mid_stream=len(mid),
+                         t=time.perf_counter())
+            fi.hang_at_step(1, seconds=CL_HANG_S, interruptible=False)
+
+    for i in range(n):
+        replicas.append(cluster_replica(
+            models[i], dev, i, warms[i], logs[i], syncs,
+            fi if i == 0 else None,
+            wedge_mid_stream if failover and i == 0 else None))
+    router = ReplicaRouter(replicas, policy=policy,
+                           resume_inflight=failover)
+    reset_kernel_counts()
+    with counting_plain() as plain_calls:
+        router.start()
+        t_seed = time.perf_counter()
+        seed_hs = [router.submit(prompts[i], max_new_tokens=CL_NEW,
+                                 routing_key=f"tenant{i % CL_TENANTS}")
+                   for i in range(CL_TENANTS)]
+        outs = [h.result(timeout=600) for h in seed_hs]
+        seed_s = time.perf_counter() - t_seed
+        for srv in replicas:
+            srv.engine.reset_stats()
+        t0 = time.perf_counter()
+        timed.set()
+        hs = [router.submit(p, max_new_tokens=CL_NEW,
+                            routing_key=f"tenant{i % CL_TENANTS}")
+              for i, p in enumerate(prompts[CL_TENANTS:], start=CL_TENANTS)]
+        if failover:
+            while not wedge:
+                require(time.perf_counter() - t0 < 600,
+                        f"cluster {name}: no timed request on replica 0 "
+                        f"was ever mid-stream at a step")
+                time.sleep(0.001)
+            # the caller consumes a wedged request's first token, so its
+            # resumption continues from a nonempty prefix
+            victim = next(h for h in hs if h.replica == 0
+                          and h._inner.request_id == wedge["rid"])
+            first = next(victim.tokens(timeout=600))
+            fail["mid_stream_at_wedge"] = wedge["mid_stream"]
+        for h in hs:
+            while True:
+                try:
+                    outs.append(h.result(timeout=0.05))
+                    break
+                except TimeoutError:
+                    require(time.perf_counter() - t0 < 600,
+                            f"cluster {name}: no progress in 600 s")
+                if failover:
+                    now = time.perf_counter() - wedge["t"]
+                    if "hung_seen_s" not in fail and \
+                            replicas[0].health()["state"] == "hung":
+                        fail["hung_seen_s"] = now
+                    if "first_resubmit_s" not in fail and \
+                            router.stats["resubmitted"] > 0:
+                        fail["first_resubmit_s"] = now
+        wall = time.perf_counter() - t0
+        if failover:
+            fail["served_after_hang_s"] = time.perf_counter() - wedge["t"]
+            fail["hung_at_end"] = replicas[0].health()["state"] == "hung"
+            fail["victim_resume_tokens"] = len(victim._resume_tokens or ())
+            # the requests resumed on the survivor (their index in the
+            # streams, seed wave first) with the prefix each resumed from
+            resumed = {CL_TENANTS + j: list(h._resume_tokens)
+                       for j, h in enumerate(hs)
+                       if h._resume_tokens is not None}
+            fail["victim"] = CL_TENANTS + hs.index(victim)
+            fail["resumed_requests"] = sorted(resumed)
+        stats = {k: (list(v) if isinstance(v, list) else v)
+                 for k, v in router.stats.items()}
+        per = []
+        for i, srv in enumerate(replicas):
+            st = srv.engine.stats
+            per.append({"replica": i, "tokens": st["tokens_generated"],
+                        "tokens_per_s": st["tokens_generated"] / wall,
+                        "prefix_hit_tokens": st["prefix_hit_tokens"],
+                        "prefill_tokens": st["prefill_tokens"],
+                        "placements": stats["placements"][i]})
+        errors = router.stop()
+        torch.cuda.synchronize()
+    outstanding = router.num_outstanding()
+    launches = kernel_counts()
+    L = models[0].config.num_hidden_layers
+    steps = [{"mixed": sum(k == "mixed" for k, _ in log),
+              "decode_iterations": sum(r for k, r in log if k == "decode")}
+             for log in logs]
+    hit = sum(p["prefix_hit_tokens"] for p in per)
+    pre = sum(p["prefill_tokens"] for p in per)
+    n_tok = sum(len(o.token_ids) for o in outs[CL_TENANTS:])
+    arm = {"arm": name, "replicas": n, "policy": policy,
+           "aggregate_tokens_per_s": n_tok / wall, "wall_s": wall,
+           "seed_wave_s": seed_s, "per_replica": per,
+           "affinity_hit_rate": hit / (hit + pre) if hit + pre else 0.0,
+           "stats": stats, "steps": steps, "launches": launches,
+           "plain_calls": dict(plain_calls), "stop_errors": len(errors),
+           "outstanding_after_stop": outstanding,
+           "finish_reasons": sorted({o.finish_reason for o in outs})}
+    if syncs is not None:
+        arm["step_begin_syncs"] = len(syncs)
+        arm["step_begin_sync_messages"] = sorted(set(syncs))[:5]
+    if failover:
+        arm["failover"] = fail
+    require(len(outs) == len(prompts) and all(
+        o.finish_reason == "length" and len(o.token_ids) == CL_NEW
+        for o in outs),
+        f"cluster {name}: a request did not finish with its {CL_NEW} "
+        f"tokens: {arm['finish_reasons']}")
+    require(not errors and outstanding == 0,
+            f"cluster {name}: stop gave {errors}, {outstanding} handles "
+            f"outstanding")
+    require(not plain_calls, f"cluster {name}: plain versions ran on the "
+            f"card: {dict(plain_calls)}")
+    require(all(s["mixed"] > 0 and s["decode_iterations"] > 0
+                for s in steps),
+            f"cluster {name}: a replica ran no mixed or no decode step: "
+            f"{steps}")
+    require(launches["b3_append"] == L * sum(s["mixed"] for s in steps)
+            and launches["b2_decode"]
+            == L * sum(s["decode_iterations"] for s in steps)
+            and all(v == 0 for k, v in launches.items()
+                    if k not in ("b2_decode", "b3_append")),
+            f"cluster {name}: launches {launches} against {steps} x {L}")
+    require(syncs is None or not syncs,
+            f"cluster {name}: step_begin made {len(syncs or ())} "
+            f"synchronizing calls")
+    if failover:
+        # each resumed stream continues from exactly what its caller had
+        # consumed: the victim's one token, the others' none
+        v = fail["victim"]
+        require(len(resumed) == arm["stats"]["resumed"] >= 1
+                and resumed.get(v) == [first]
+                and all(list(outs[j].token_ids[:len(r)]) == r
+                        for j, r in resumed.items()),
+                f"cluster {name}: resumed {sorted(resumed)} against "
+                f"stats {arm['stats']['resumed']}, victim {v} consumed "
+                f"{first} and resumed from {resumed.get(v)}")
+    for srv in replicas:
+        del srv.engine.step_begin
+    return arm, [list(o.token_ids) for o in outs]
+
+
+def host_launch_us(dev, n=2000):
+    """The host's microseconds a launch: ``n`` in-place adds on one
+    element, timed on the host clock without waiting for the card."""
+    x = torch.zeros(1, device=dev)
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def run_cluster(dev):
+    """The llama_serve_cluster rung's arms (CL_ARMS) over one model copy
+    per replica: one replica twice, two under affinity, two under random
+    placement, and two under affinity with replica 0 wedged mid-wave.
+    Every arm's tokens are held to the no-cache forward, and each arm's
+    streams to the first single arm's. Returns the arms' paged launches,
+    summed."""
+    t_phase = time.perf_counter()
+    launch_us = [host_launch_us(dev)]
+    models = [build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                          intermediate_size=DENSE_FF,
+                          max_position_embeddings=CL_CAP)
+              for _ in range(CL_REPLICAS)]
+    prompts, warms = cluster_traffic(models[0].config.vocab_size)
+    arms, toks = {}, {}
+    for name, n, policy, failover in CL_ARMS:
+        arms[name], toks[name] = cluster_arm(models, dev, prompts, warms,
+                                             name, n, policy, failover)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launch_us.append(host_launch_us(dev))
+    # the streams come seed wave first, which is the prompts' order; each
+    # request's tokens against the no-cache forward over its own prefix
+    out = collections.namedtuple("Out", "token_ids")
+    greedy = {name: [greedy_check(models[0], dev, [p], [out(t)])
+                     for p, t in zip(prompts, ts)]
+              for name, ts in toks.items()}
+    resumed = arms["failover"]["failover"]["resumed_requests"]
+    greedy_sum = {name: dict(zip(("checked", "excused_near_ties",
+                                  "mismatched"),
+                                 map(sum, zip(*rows))))
+                  for name, rows in greedy.items()}
+    greedy_sum["failover_resumed"] = dict(zip(
+        ("checked", "excused_near_ties", "mismatched"),
+        map(sum, zip(*[greedy["failover"][j] for j in resumed]))))
+    parts = {name: first_parting(models[0], dev, prompts, toks["single"],
+                                 toks[name])
+             for name in ("single_2", "cluster", "random", "failover")}
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    single, cluster = arms["single"], arms["cluster"]
+    emit({"phase": "cluster", "requests": CL_REQUESTS, "tenants": CL_TENANTS,
+          "sys_prompt_len": CL_SYS, "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": CL_NEW, "capacity": CL_CAP,
+          "step_timeout_s": CL_STEP_TIMEOUT_S, "hang_s": CL_HANG_S,
+          "host_launch_us": launch_us,
+          "aggregate_tokens_per_s": {k: a["aggregate_tokens_per_s"]
+                                     for k, a in arms.items()},
+          "affinity_hit_rate": {k: a["affinity_hit_rate"]
+                                for k, a in arms.items()},
+          "placements": {k: a["stats"]["placements"]
+                         for k, a in arms.items()},
+          # two replicas share one card here: not a capacity claim
+          "cluster_speedup_vs_single": cluster["aggregate_tokens_per_s"]
+          / single["aggregate_tokens_per_s"],
+          "token_exact": {k: not ps for k, ps in parts.items()},
+          "partings": parts,
+          "greedy": greedy_sum,
+          "arms": arms, "margin": MARGIN,
+          "seconds": time.perf_counter() - t_phase})
+    for name, ps in parts.items():
+        require(all(p["margin"] <= MARGIN for p in ps),
+                f"cluster {name} arm parts from the single arm where the "
+                f"margin exceeds {MARGIN}: {ps}")
+    for name, g in greedy_sum.items():
+        require(g["mismatched"] == 0, f"cluster {name}: {g['mismatched']} "
+                f"greedy tokens disagree with the no-cache forward beyond "
+                f"{MARGIN}")
+    st = cluster["stats"]
+    require(st["affinity_routed"] > 0 and all(st["placements"]),
+            f"cluster arm: affinity_routed {st['affinity_routed']}, "
+            f"placements {st['placements']}")
+    require(cluster["affinity_hit_rate"] > arms["random"]["affinity_hit_rate"],
+            f"cluster arm's hit rate {cluster['affinity_hit_rate']} is not "
+            f"above the random arm's {arms['random']['affinity_hit_rate']}")
+    fo = arms["failover"]
+    require(fo["stats"]["evicted_hung"] >= 1 and fo["stats"]["resumed"] >= 1
+            and fo["stats"]["replica_lost"] == 0,
+            f"failover arm: evicted_hung {fo['stats']['evicted_hung']}, "
+            f"resumed {fo['stats']['resumed']}, replica_lost "
+            f"{fo['stats']['replica_lost']}")
+    require("hung_seen_s" in fo["failover"],
+            f"failover arm: replica 0 never read hung: {fo['failover']}")
+    total = collections.Counter()
+    for a in arms.values():
+        total.update(a["launches"])
+    return dict(total)
+
+
+# ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
 
@@ -4577,6 +4968,8 @@ def main():
     torch.cuda.empty_cache()
     tier_launches = run_kv_tier(dev)
     torch.cuda.empty_cache()
+    cluster_launches = run_cluster(dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -4637,7 +5030,8 @@ def main():
          "launches": paged_launches + fused_decode_launches
          + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
          + dense_launches["b2_decode"] + rung_launches["b2_decode"]
-         + spec_launches["b2_decode"] + tier_launches["b2_decode"],
+         + spec_launches["b2_decode"] + tier_launches["b2_decode"]
+         + cluster_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
@@ -4645,7 +5039,8 @@ def main():
          "source": APPEND_SRC, "replaces": APPEND_REPLACES,
          "launches": append_launches + prefix_launches.get("b3_append", 0)
          + dense_launches["b3_append"] + rung_launches["b3_append"]
-         + spec_launches["b3_append"] + tier_launches["b3_append"],
+         + spec_launches["b3_append"] + tier_launches["b3_append"]
+         + cluster_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],

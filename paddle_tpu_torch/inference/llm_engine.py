@@ -721,6 +721,12 @@ class LLMEngine:
         dt = self.stats["decode_time_s"]
         return self.stats["tokens_generated"] / dt if dt > 0 else 0.0
 
+    def tp_degree(self):
+        """Size of the engine's tensor-parallel mesh axis (1 = single
+        chip): always 1 here, since tensor-parallel engines are not ported
+        yet (ROADMAP A14)."""
+        return 1
+
     # ------------------------------------------------------------------
     # KV-pool capacity accounting
     # ------------------------------------------------------------------

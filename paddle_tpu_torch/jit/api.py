@@ -38,13 +38,21 @@ class TrainStep:
     order, the reference's order, and the optimizer builds their slots
     here. After each call, ``missing_grads`` names the trainable
     parameters that had no grad after the backward; they are updated with
-    a zero grad, as in the reference."""
+    a zero grad, as in the reference.
+
+    ``donate`` is the reference's argument, kept in its place and stored as
+    ``self.donate``; it changes nothing here. The reference donates the
+    parameter and slot buffers to its jitted step so the update does not
+    hold two copies of the weights; the port's update writes parameters
+    and slots in place already (``optimizer/optimizer.py``), so there is
+    no second copy to avoid."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
-                 accumulate_steps=1):
+                 donate=True, accumulate_steps=1):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.donate = donate
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]

@@ -8,18 +8,22 @@ per-stage telemetry (:mod:`paddle_tpu_torch.profiler.serving_telemetry`),
 and optionally a flight recorder and a metrics store
 (:mod:`paddle_tpu_torch.profiler`). :class:`RestartPolicy` arms supervised
 crash recovery and :class:`FaultInjector` scripts chaos for the tests.
+:class:`ReplicaRouter` (``cluster.py``) places requests over several
+servers by prefix affinity and load, with failover and drain.
 
-Not in this port yet: ``ReplicaRouter`` and the tensor-parallel engine
-(``cluster.py``, A14), adapters and embeddings (A10), KV transport (A8(h))
-and the SLO, pathology-detector and black-box layer (A11).
+Not in this port yet: the tensor-parallel engine (A14), adapters and
+embeddings (A10), KV transport and disaggregated roles (A8(h)) and the
+SLO, pathology-detector and black-box layer (A11).
 """
 from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
                     ServerClosed, ServerQueueFull, TraceContext)
 from .scheduler import AdmissionQueue
 from .faults import FaultInjector, InjectedFault, RestartPolicy
 from .server import AsyncLLMServer
+from .cluster import ReplicaRouter, RouterHandle
 
 __all__ = ["AsyncLLMServer", "AdmissionQueue", "RequestHandle",
            "RequestState", "ServeRequest", "ServeResult", "ServerClosed",
            "ServerQueueFull", "TraceContext", "FaultInjector",
-           "InjectedFault", "RestartPolicy"]
+           "InjectedFault", "RestartPolicy", "ReplicaRouter",
+           "RouterHandle"]

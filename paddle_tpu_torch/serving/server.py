@@ -321,6 +321,23 @@ class AsyncLLMServer:
                 "heartbeat_age_s": age, "restarts": self.restarts,
                 "thread_alive": alive}
 
+    def evict_request(self, request_id, reason="evicted"):
+        """Force-finish one request from ANY thread, without the engine
+        thread's help: the router's hung-replica failover hook. The handle
+        detaches at once (no further token can reach it) and finishes with
+        ``finish_reason=reason`` carrying every token emitted so far. The
+        engine is NOT touched: if the wedged loop later revives, the zombie
+        slot decodes to a finish whose output is dropped (its handle is
+        gone) and frees its pool blocks normally. Returns the detached
+        handle, or None if unknown or done."""
+        with self._hlock:
+            h = self._handles.pop(request_id, None)
+        if h is None or h.done:
+            return None
+        self._queue.remove(h)
+        self._finish_handle(h, h.full_stream(), reason)
+        return h
+
     def __enter__(self):
         return self.start()
 

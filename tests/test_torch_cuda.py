@@ -1660,3 +1660,69 @@ def test_kv_tier_engine_on_card(cuda, monkeypatch, quant):
         assert (host_sc is None) == (quant is None) == (dev_sc is None)
         if host_sc is not None:
             assert torch.equal(_bits(host_sc), _bits(dev_sc))
+
+
+def test_router_on_card(cuda, monkeypatch):
+    """Two warmed replicas on the card behind ``ReplicaRouter``: a seed
+    wave of one request per tenant spreads the tenants, the rest follow
+    their tenant's cached head. Every stream equals one engine's
+    ``generate`` up to a near-tie (bf16 rows round differently in other
+    batch compositions), both replicas take placements and affinity
+    hits, the paged kernels take every step and no plain version runs,
+    and the router stops with nothing outstanding."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    from paddle_tpu_torch.serving import AsyncLLMServer, ReplicaRouter
+    model = _bf16_d128(cuda, kvh=2)
+    rng = np.random.default_rng(17)
+    heads = [rng.integers(0, 512, 128).tolist() for _ in range(2)]
+    prompts = [heads[i % 2] + rng.integers(0, 512, 20 + i).tolist()
+               for i in range(8)]
+    kw = dict(device=cuda, cache_impl="paged", scheduler="fused",
+              max_batch=2, max_seq_len=256, chunk_size=64, block_size=64,
+              enable_prefix_cache=True)
+    want = [list(o.token_ids) for o in LLMEngine(model, **kw).generate(
+        prompts, max_new_tokens=16)]
+    plain = []
+    for mod in (pa_mod, IF):
+        for name in ("paged_attention_decode_plain",
+                     "paged_attention_append_plain"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    replicas = []
+    for i in range(2):
+        eng = LLMEngine(model, **kw)
+        eng.generate([prompts[0][:3]], max_new_tokens=2)
+        eng.reset()
+        eng.reset_stats()
+        replicas.append(AsyncLLMServer(eng, max_queue_size=16, replica=i))
+    n0 = _paged_launches()
+    router = ReplicaRouter(replicas)
+    router.start()
+    try:
+        seed = [router.submit(p, max_new_tokens=16,
+                              routing_key=f"tenant{i}")
+                for i, p in enumerate(prompts[:2])]
+        outs = [h.result(timeout=300) for h in seed]
+        rest = [router.submit(p, max_new_tokens=16,
+                              routing_key=f"tenant{i % 2}")
+                for i, p in enumerate(prompts[2:], start=2)]
+        outs += [h.result(timeout=300) for h in rest]
+    finally:
+        errors = router.stop()
+    torch.cuda.synchronize()
+    n1 = _paged_launches()
+    assert errors == [] and router.num_outstanding() == 0
+    assert all(o.finish_reason == "length" and len(o.token_ids) == 16
+               for o in outs)
+    got = [list(o.token_ids) for o in outs]
+    assert got == want or all(m <= 0.05 for m in _first_parting_margin(
+        model, prompts, want, got))
+    assert all(n > 0 for n in router.stats["placements"])
+    assert router.stats["affinity_routed"] > 0
+    mixed = sum(s.engine.stats["fused_steps"] for s in replicas)
+    decode = sum(s.engine.stats["steps"] for s in replicas) - mixed
+    L = model.config.num_hidden_layers
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (decode * L, mixed * L)
+    assert not plain, plain

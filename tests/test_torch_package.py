@@ -63,7 +63,8 @@ def test_entry_points_raise_without_cuda():
 
 def test_package_imports_without_nvcc(tmp_path):
     """A fresh interpreter with no CUDA compiler reachable imports every
-    module of the port (kernels build at first use, never at import)."""
+    module of the port (kernels build at first use, never at import), and
+    none of them imports jax or any module of the reference package."""
     mods = sorted(
         ".".join(f.relative_to(ROOT).with_suffix("").parts).replace(
             ".__init__", "")
@@ -71,6 +72,9 @@ def test_package_imports_without_nvcc(tmp_path):
     code = "import importlib, sys\n" \
         f"for m in {mods!r}: importlib.import_module(m)\n" \
         "assert 'jax' not in sys.modules, 'jax imported'\n" \
+        "ref = sorted(n for n in sys.modules if n == 'paddle_tpu' or " \
+        "n.startswith('paddle_tpu.'))\n" \
+        "assert not ref, f'reference modules imported: {ref}'\n" \
         "print('ok')"
     env = {"PATH": str(tmp_path), "PYTHONPATH": str(ROOT),
            "HOME": str(tmp_path)}

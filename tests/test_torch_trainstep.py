@@ -156,6 +156,44 @@ def test_accumulation_equals_one_step_on_the_mean():
                                    atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("form", ["keyword", "position",
+                                  "accumulate_by_position"])
+def test_c6_donate_is_accepted_and_keeps_the_step(form):
+    """``donate`` is the reference's fourth argument, before
+    ``accumulate_steps``: given by keyword or by position (and
+    ``accumulate_steps`` by position after it) it is stored and changes no
+    loss and no parameter against a step built without it (float32, the
+    same seed, so the same bits)."""
+    batches = [tuple(torch.from_numpy(a) for a in b) for b in _batches(4)]
+
+    def fresh():
+        m = LlamaForCausalLM(LlamaConfig(**GQA), device="cpu", seed=5)
+        m.train()
+        return m, AdamW(learning_rate=1e-4, parameters=m.parameters())
+
+    m1, o1 = fresh()
+    m2, o2 = fresh()
+    if form == "keyword":
+        s1 = TrainStep(m1, _loss_fn, o1, donate=True)
+        s2 = TrainStep(m2, _loss_fn, o2)
+        assert s1.donate is True and s1.accumulate_steps == 1
+    elif form == "position":
+        s1 = TrainStep(m1, _loss_fn, o1, False)
+        s2 = TrainStep(m2, _loss_fn, o2)
+        assert s1.donate is False and s1.accumulate_steps == 1
+    else:
+        s1 = TrainStep(m1, _loss_fn, o1, False, 2)
+        s2 = TrainStep(m2, _loss_fn, o2, accumulate_steps=2)
+        assert s1.donate is False and s1.accumulate_steps == 2
+    assert s2.donate is True
+    for b in batches:
+        np.testing.assert_array_equal(s1(*b).numpy(), s2(*b).numpy())
+    assert o1._step_count == o2._step_count > 0
+    for (n, a), b in zip(m1.named_parameters(), m2.parameters()):
+        np.testing.assert_array_equal(a.detach().numpy(),
+                                      b.detach().numpy(), err_msg=n)
+
+
 class _TwoHeads(paddle.nn.Layer):
     def __init__(self):
         super().__init__()
