@@ -271,6 +271,41 @@ Phases:
                 wall time, the host's microseconds a launch before and after
                 the arms, and the failover's timings (information). The
                 two replicas share the card and its default stream;
+  (d-xii) disagg — the llama_serve_disagg rung (bench.py:1487-1670 at its
+                defaults): its 3-layer model (7B widths, ff 11264, MHA,
+                bf16, seed 0, rope table 512), one model behind two
+                AsyncLLMServer replicas of the rung's engine (8 slots,
+                chunk 256, block 64, capacity 512, paged, fused, each warmed
+                with one 3-token request, then reset and reset_stats), and
+                the rung's traffic: 4 trickle streams (64-token prompts, 64
+                new tokens each, consumed on their own threads), then a
+                flood of 16 prompts of 249-263 tokens with 2 new tokens
+                each, through ReplicaRouter. Arms: floor (mixed placement,
+                trickle only), mixed (both replicas take everything) and
+                disagg (roles prefill [0], decode [1], a FlightRecorder on
+                each replica: every request a one-token prefill leg whose
+                staged KV ships as PTKV bytes to the decode replica, which
+                restores it and recomputes one position). First a wire
+                check: bf16 and int8 entries of 5 blocks staged on one
+                engine, serialized, deserialized into pinned memory,
+                imported into a second engine and restored there, bit for
+                bit against the source's blocks, serialize and deserialize
+                timed in GB/s. Gates: every request finishes with its
+                tokens; the trickle streams and flood tokens equal across
+                arms up to a reported near-tie, and pass the greedy check;
+                the disagg arm ships all 20 legs with no fallback, its
+                decode replica prefills one stitch token a migration, its
+                phases serialize/transport/import/place sum to 0.5-1.05x of
+                the mean migration latency, 20 migrations are recorded and
+                its merged trace holds one flow and four phase spans a
+                migration; B3 once a layer a mixed step and B2 once a layer
+                a decode iteration, no plain version; the router stops with
+                nothing outstanding; every block free or cached, the swap
+                and export stores empty, the pool invariants. Per arm
+                tokens/s, decode p50/p99, TTFT p99, ship bytes and the
+                migration phases (information; the two replicas share one
+                card and one stream, so the split's p99 is no capacity
+                claim);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
@@ -380,8 +415,11 @@ from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_decode_plain)
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.profiler import FlightRecorder
+from paddle_tpu_torch.profiler.flight_recorder import FLOW_EVENT_NAME
 from paddle_tpu_torch.serving import (AsyncLLMServer, FaultInjector,
-                                      ReplicaRouter, RestartPolicy)
+                                      ReplicaRouter, RestartPolicy,
+                                      deserialize_entry, serialize_entry)
+from paddle_tpu_torch.serving.kv_transport import pool_treedefs
 from paddle_tpu_torch.tools.cuda_timing import cuda_ms, host_us
 from paddle_tpu_torch.tools import paged_sweep
 from paddle_tpu_torch.tools.multi_step_ab import (serve_multi_step_ab,
@@ -4443,6 +4481,389 @@ def run_cluster(dev):
 
 
 # ---------------------------------------------------------------------------
+# (d-xii) disaggregated prefill/decode: the llama_serve_disagg rung
+# ---------------------------------------------------------------------------
+
+#: the rung's traffic and engines (bench.py:1511-1555, its defaults): the
+#: 3-layer model at 7B widths (ff 11264, MHA, bf16, seed 0) with a rope
+#: table of the capacity, one model behind both replicas; 4 trickle
+#: streams of 64-token prompts with 64 new tokens each, then a flood of
+#: 16 prompts of 249-263 tokens with 2 new tokens each; 8 slots, chunk
+#: 256, block 64, capacity 512, paged, fused
+DG_PROMPT, DG_NEW, DG_FLOOD, DG_FLOOD_NEW, DG_TRICKLE = 256, 64, 16, 2, 4
+DG_CAP = -(-(DG_PROMPT + DG_NEW) // DENSE_CHUNK) * DENSE_CHUNK
+DG_ROLES = {"prefill": [0], "decode": [1]}
+#: (arm, roles, flood): the unflooded floor, both replicas taking
+#: everything, and the role split
+DG_ARMS = (("floor", None, False), ("mixed", None, True),
+           ("disagg", DG_ROLES, True))
+#: the wire check: a prompt whose one-token leg stages 5 blocks
+DG_WIRE_PROMPT, DG_WIRE_REPS = 300, 5
+
+
+def disagg_traffic(vocab):
+    """The rung's flood and trickle prompts, then each arm's two 3-token
+    warm prompts, drawn from one generator in the rung's order
+    (bench.py:1530-1546)."""
+    rng = np.random.default_rng(0)
+    flood = [rng.integers(0, vocab, (DG_PROMPT - 7 + int(x),)).astype(
+        np.int32) for x in rng.integers(0, 15, size=DG_FLOOD)]
+    trickle = [rng.integers(0, vocab, (max(DG_PROMPT // 4, 4),)).astype(
+        np.int32) for _ in range(DG_TRICKLE)]
+    warms = [[rng.integers(0, vocab, (3,)).astype(np.int32)
+              for _ in range(2)] for _ in DG_ARMS]
+    return flood, trickle, warms
+
+
+def disagg_engine(model, dev, **over):
+    kw = dict(max_batch=DENSE_SLOTS, max_seq_len=DG_CAP,
+              chunk_size=DENSE_CHUNK, cache_impl="paged", block_size=64,
+              scheduler="fused", device=dev)
+    kw.update(over)
+    return LLMEngine(model, **kw)
+
+
+def pool_drained(eng):
+    """The end state of a paged engine: every block free or cached, no
+    swap or export entry left, and the allocator audit."""
+    saved = eng._debug_pool
+    eng._debug_pool = True
+    try:
+        eng._check_pool_invariants()
+    finally:
+        eng._debug_pool = saved
+    return (len(eng._free_blocks) + len(eng._lru) == eng.n_blocks
+            and not eng._swap_store and not eng._export_store)
+
+
+def disagg_arm(model, dev, flood, trickle, warms, name, roles, with_flood):
+    """One arm of the rung: two warmed replicas behind a ReplicaRouter
+    (``roles`` splits them, each with a FlightRecorder), the trickle
+    streams submitted first and consumed on their own threads with each
+    token's arrival stamped, then the flood. Gates: every request finishes
+    with its tokens, the router stops with nothing outstanding, no plain
+    version runs, and the replicas' B3 launches equal their mixed steps
+    and their B2 launches their decode iterations, once a layer each.
+    Returns the arm's line, the trickle and flood streams, and (split arm)
+    the merged trace's events."""
+    logs = [[], []]
+    servers = []
+    for i in range(2):
+        eng = disagg_engine(model, dev)
+        eng.generate([warms[i]], max_new_tokens=2)
+        torch.cuda.synchronize()
+        eng.reset()
+        eng.reset_stats()
+        begin = eng.step_begin
+
+        def logged_begin(begin=begin, log=logs[i]):
+            pending = begin()
+            if pending is not None and pending.toks is not None:
+                log.append((pending.kind, int(pending.toks.shape[0])))
+            return pending
+
+        eng.step_begin = logged_begin
+        servers.append(AsyncLLMServer(
+            eng, replica=i, max_queue_size=DG_FLOOD + DG_TRICKLE + 1,
+            flight_recorder=FlightRecorder() if roles else None))
+    router = ReplicaRouter(servers, roles=roles)
+    stamps = [[] for _ in trickle]
+    t_sub = [None] * len(trickle)
+
+    def consume(h, out):
+        for tok in h.tokens(timeout=600):
+            out.append((time.perf_counter(), int(tok)))
+
+    events = None
+    reset_kernel_counts()
+    with counting_plain() as plain_calls:
+        router.start()
+        t0 = time.perf_counter()
+        threads = []
+        for i, p in enumerate(trickle):
+            t_sub[i] = time.perf_counter()
+            h = router.submit(p, max_new_tokens=DG_NEW)
+            th = threading.Thread(target=consume, args=(h, stamps[i]),
+                                  daemon=True)
+            th.start()
+            threads.append(th)
+        fh = [router.submit(p, max_new_tokens=DG_FLOOD_NEW)
+              for p in flood] if with_flood else []
+        fres = [h.result(timeout=600) for h in fh]
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        snap = router.snapshot()
+        if roles:
+            with tempfile.TemporaryDirectory() as tmpd:
+                path = router.export_merged_trace(
+                    os.path.join(tmpd, "disagg_trace.json"))
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+        errors = router.stop(timeout=120)
+        torch.cuda.synchronize()
+    outstanding = router.num_outstanding()
+    launches = kernel_counts()
+    L = model.config.num_hidden_layers
+    steps = [{"mixed": sum(k == "mixed" for k, _ in log),
+              "decode_iterations": sum(r for k, r in log if k == "decode")}
+             for log in logs]
+    gaps = [b[0] - a[0] for s in stamps for a, b in zip(s, s[1:])]
+    ttfts = [s[0][0] - t for s, t in zip(stamps, t_sub) if s]
+    trickle_toks = [[t for _, t in s] for s in stamps]
+    flood_toks = [list(r.token_ids) for r in fres]
+    n_tok = sum(map(len, trickle_toks)) + sum(map(len, flood_toks))
+    st = router.stats
+    migrated = st["kv_shipped"] + st["kv_ship_fallback"]
+    dec = servers[1].engine.stats["prefill_tokens"]
+    arm = {"arm": name, "roles": roles, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "decode_p50_ms": float(np.quantile(gaps, 0.5)) * 1e3,
+           "decode_p99_ms": float(np.quantile(gaps, 0.99)) * 1e3,
+           "ttft_p99_ms": float(np.quantile(ttfts, 0.99)) * 1e3,
+           "kv_shipped": st["kv_shipped"],
+           "kv_ship_fallback": st["kv_ship_fallback"],
+           "kv_ship_abandoned": st["kv_ship_abandoned"],
+           "ship_bytes": (snap.get("transport") or {}).get("ship_bytes", 0),
+           "migration_latency": snap["migration_latency"],
+           "migration_phases": snap["migration_phases"],
+           "migrations_recorded": snap["migrations_recorded"],
+           "decode_prefill_tokens": dec,
+           "decode_reprefill_tokens": dec - migrated if roles else None,
+           "placements": list(st["placements"]),
+           "per_replica": [{k: s.engine.stats[k] for k in (
+               "tokens_generated", "prefill_tokens", "kv_ship_out_blocks",
+               "kv_ship_in_blocks", "kv_ship_out_bytes",
+               "kv_ship_in_bytes", "swap_out_time_s", "swap_in_time_s")}
+               for s in servers],
+           "drained": [pool_drained(s.engine) for s in servers],
+           "steps": steps, "launches": launches,
+           "plain_calls": dict(plain_calls), "stop_errors": len(errors),
+           "outstanding_after_stop": outstanding}
+    require(all(len(t) == DG_NEW for t in trickle_toks) and all(
+        r.finish_reason == "length" and len(r.token_ids) == DG_FLOOD_NEW
+        for r in fres),
+        f"disagg {name}: a request did not finish with its tokens: "
+        f"{[len(t) for t in trickle_toks]}, "
+        f"{sorted({r.finish_reason for r in fres})}")
+    require(not errors and outstanding == 0,
+            f"disagg {name}: stop gave {errors}, {outstanding} handles "
+            f"outstanding")
+    require(not plain_calls, f"disagg {name}: plain versions ran on the "
+            f"card: {dict(plain_calls)}")
+    require(launches["b3_append"] == L * sum(s["mixed"] for s in steps)
+            and launches["b2_decode"]
+            == L * sum(s["decode_iterations"] for s in steps)
+            and launches["b3_append"] > 0 and launches["b2_decode"] > 0
+            and all(v == 0 for k, v in launches.items()
+                    if k not in ("b2_decode", "b3_append")),
+            f"disagg {name}: launches {launches} against {steps} x {L}")
+    require(all(arm["drained"]),
+            f"disagg {name}: a pool did not drain (blocks free or cached, "
+            f"swap and export stores empty, invariants): {arm['drained']}")
+    for srv in servers:
+        del srv.engine.step_begin
+    return arm, trickle_toks, flood_toks, events
+
+
+def wire_check(model, dev, quant):
+    """The PTKV wire on the card: a one-token leg of a DG_WIRE_PROMPT-token
+    prompt stages 5 blocks on one engine (``quant`` pool), the entry is
+    serialized, deserialized into pinned memory and imported into a second
+    engine, whose resume restores it; the restored blocks (payload and
+    scales) must equal the source's blocks bit for bit. Serialize and
+    deserialize timed on the host (median of DG_WIRE_REPS after one), in
+    GB/s of wire bytes."""
+    src = disagg_engine(model, dev, kv_cache_dtype=quant)
+    dst = disagg_engine(model, dev, kv_cache_dtype=quant)
+    p = np.random.default_rng(7).integers(
+        0, model.config.vocab_size, (DG_WIRE_PROMPT,)).astype(np.int32)
+    staged, restored = [], []
+    export = src._export_slot_kv
+
+    def watched_export(b, slot):
+        nb = (slot.prefill_pos + len(slot.generated) - 1) \
+            // src.block_size + 1
+        staged.append(list(src._slot_blocks[b][:nb]))
+        export(b, slot)
+
+    src._export_slot_kv = watched_export
+    restore = dst._restore_blocks
+
+    def watched_restore(entry, lo, blocks):
+        restore(entry, lo, blocks)
+        ok = True
+        for a, b in zip(*(e._tier_pools()[0] + (e._tier_pools()[1] or ())
+                          for e in (src, dst))):
+            ok = ok and torch.equal(a[staged[0][lo:lo + len(blocks)]],
+                                    b[blocks])
+        restored.append((lo, len(blocks), ok))
+
+    dst._restore_blocks = watched_restore
+    rid = src.add_request(p, max_new_tokens=1, export_kv=True)
+    while src.has_unfinished():
+        src.step()
+    tok = src.finished_outputs.pop(rid).token_ids[0]
+    t0 = time.perf_counter()
+    entry = src.export_kv(rid)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    defs = pool_treedefs(dst)
+    ser, des = [], []
+    for _ in range(DG_WIRE_REPS + 1):
+        t0 = time.perf_counter()
+        wire = serialize_entry(entry)
+        t1 = time.perf_counter()
+        back = deserialize_entry(wire, defs, pin_memory=True)
+        t2 = time.perf_counter()
+        ser.append(t1 - t0)
+        des.append(t2 - t1)
+    imported = dst.import_kv(back)
+    dst.add_request(p, max_new_tokens=2, request_id=rid,
+                    committed_tokens=[tok])
+    while dst.has_unfinished():
+        dst.step()
+    out = dst.finished_outputs.pop(rid)
+    torch.cuda.synchronize()
+    line = {"kv_cache_dtype": quant or "bf16", "blocks": entry["n_blocks"],
+            "entry_bytes": entry["nbytes"], "wire_bytes": len(wire),
+            "export_wait_ms": export_ms,
+            "serialize_ms": median(ser[1:]) * 1e3,
+            "deserialize_ms": median(des[1:]) * 1e3,
+            "serialize_gb_per_s": len(wire) / median(ser[1:]) / 1e9,
+            "deserialize_gb_per_s": len(wire) / median(des[1:]) / 1e9,
+            "pinned": bool(back["kv"].is_pinned()), "imported": imported,
+            "restores": restored, "stitch_prefill_tokens":
+                dst.stats["prefill_tokens"],
+            "kv_ship_in_blocks": dst.stats["kv_ship_in_blocks"],
+            "finish_reason": out.finish_reason,
+            "drained": [pool_drained(e) for e in (src, dst)]}
+    require(imported and entry["n_blocks"] == 5 and line["pinned"],
+            f"disagg wire {line['kv_cache_dtype']}: not staged as 5 pinned "
+            f"blocks and imported: {line}")
+    require(len(restored) == 1 and restored[0][:2] == (0, 5)
+            and restored[0][2],
+            f"disagg wire {line['kv_cache_dtype']}: the restored blocks "
+            f"differ from the source's: {restored}")
+    # the output carries the committed leg token before the 2 new ones
+    require(line["stitch_prefill_tokens"] == 1 and len(out.token_ids) == 3
+            and all(line["drained"]),
+            f"disagg wire {line['kv_cache_dtype']}: the resume did not "
+            f"stitch one position and drain: {line}")
+    del src, dst, entry, back, wire
+    return line
+
+
+def run_disagg(dev):
+    """The llama_serve_disagg rung's arms (DG_ARMS) over one model behind
+    two replicas, and the card-side wire check (bf16 and int8 entries of
+    5 blocks). Gates: every arm's trickle and flood streams equal the
+    floor's and the mixed arm's up to a reported near-tie, and every token
+    passes the greedy check; the split arm ships all 20 legs with no
+    fallback, its decode replica prefills one stitch token a migration,
+    its migration phases serialize, transport, import and place sum to
+    0.5-1.05x of the mean migration latency (the rung's own check,
+    bench.py:1630-1641), 20 migrations are recorded and its merged trace
+    holds one flow a migration; the wire check restores bit for bit.
+    Returns the phase's paged launches, summed."""
+    t_phase = time.perf_counter()
+    model = build_model(dev, num_hidden_layers=DENSE_LAYERS,
+                        intermediate_size=DENSE_FF,
+                        max_position_embeddings=DG_CAP)
+    flood, trickle, warms = disagg_traffic(model.config.vocab_size)
+    total = collections.Counter()
+    reset_kernel_counts()
+    wire = [wire_check(model, dev, q) for q in (None, "int8")]
+    total.update(kernel_counts())
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms, toks, trace = {}, {}, None
+    for (name, roles, with_flood), w in zip(DG_ARMS, warms):
+        arms[name], tr, fl, ev = disagg_arm(model, dev, flood, trickle, w,
+                                            name, roles, with_flood)
+        toks[name] = (tr, fl)
+        trace = ev if ev is not None else trace
+        total.update(arms[name]["launches"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = collections.namedtuple("Out", "token_ids")
+    greedy = {name: greedy_check(model, dev, trickle + flood[:len(fl)],
+                                 [out(t) for t in tr + fl])
+              for name, (tr, fl) in toks.items()}
+    parts = {"mixed_trickle": first_parting(
+        model, dev, trickle, toks["floor"][0], toks["mixed"][0]),
+        "disagg_trickle": first_parting(
+        model, dev, trickle, toks["floor"][0], toks["disagg"][0]),
+        "disagg_flood": first_parting(
+        model, dev, flood, toks["mixed"][1], toks["disagg"][1])}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dis = arms["disagg"]
+    mp = dis["migration_phases"]
+    phase_sum = sum(mp[p]["mean_s"] for p in ("serialize", "transport",
+                                              "import", "place") if p in mp)
+    mig_mean = dis["migration_latency"]["mean_s"]
+    flows = [e for e in trace if e.get("ph") == "s"
+             and e.get("name") == FLOW_EVENT_NAME]
+    mig_spans = [e for e in trace if e.get("cat") == "migration"]
+    emit({"phase": "disagg", "flood_requests": DG_FLOOD,
+          "trickle_requests": DG_TRICKLE, "new_tokens": DG_NEW,
+          "flood_new_tokens": DG_FLOOD_NEW,
+          "flood_prompt_lens": [len(p) for p in flood],
+          "trickle_prompt_len": len(trickle[0]), "capacity": DG_CAP,
+          "tokens_per_s": {k: a["tokens_per_s"] for k, a in arms.items()},
+          "decode_p99_ms": {k: a["decode_p99_ms"] for k, a in arms.items()},
+          "ttft_p99_ms": {k: a["ttft_p99_ms"] for k, a in arms.items()},
+          # two replicas share one card and one stream here: not a claim
+          # about what disaggregation buys
+          "disagg_p99_vs_mixed": dis["decode_p99_ms"]
+          / arms["mixed"]["decode_p99_ms"],
+          "migration_phase_sum_s": phase_sum,
+          "migration_latency_mean_s": mig_mean,
+          "ship_bytes_per_migration": dis["ship_bytes"]
+          / max(dis["kv_shipped"], 1),
+          "trace_flows": len(flows), "trace_migration_spans": len(mig_spans),
+          "token_exact": {k: not ps for k, ps in parts.items()},
+          "partings": parts,
+          "greedy": {k: dict(zip(("checked", "excused_near_ties",
+                                  "mismatched"), g))
+                     for k, g in greedy.items()},
+          "wire": wire, "arms": arms, "margin": MARGIN,
+          "seconds": time.perf_counter() - t_phase})
+    for name, ps in parts.items():
+        require(all(p["margin"] <= MARGIN for p in ps),
+                f"disagg {name} parts where the margin exceeds {MARGIN}: "
+                f"{ps}")
+    for name, (_, _, mismatched) in greedy.items():
+        require(mismatched == 0, f"disagg {name}: {mismatched} greedy "
+                f"tokens disagree with the no-cache forward beyond {MARGIN}")
+    n_legs = DG_FLOOD + DG_TRICKLE
+    require(dis["kv_shipped"] == n_legs and dis["kv_ship_fallback"] == 0
+            and dis["kv_ship_abandoned"] == 0,
+            f"disagg arm: shipped {dis['kv_shipped']}, fell back "
+            f"{dis['kv_ship_fallback']}, abandoned "
+            f"{dis['kv_ship_abandoned']} of {n_legs} legs")
+    require(dis["decode_reprefill_tokens"] == 0,
+            f"disagg arm: the decode replica prefilled "
+            f"{dis['decode_prefill_tokens']} tokens for "
+            f"{dis['kv_shipped']} migrations")
+    require(0.5 * mig_mean <= phase_sum <= 1.05 * mig_mean,
+            f"disagg arm: migration phases sum to {phase_sum} s against a "
+            f"mean migration of {mig_mean} s: {mp}")
+    require(dis["migrations_recorded"] == n_legs and len(flows) == n_legs
+            and len(mig_spans) == 4 * n_legs,
+            f"disagg arm: {dis['migrations_recorded']} migrations recorded, "
+            f"{len(flows)} flows and {len(mig_spans)} phase spans in the "
+            f"merged trace, for {n_legs} legs")
+    require(all(a["kv_shipped"] == 0 and a["placements"][0] > 0
+                and a["placements"][1] > 0 for n, a in arms.items()
+                if n != "disagg"),
+            f"disagg: a mixed-placement arm shipped or left a replica idle: "
+            f"{[(n, a['kv_shipped'], a['placements']) for n, a in arms.items()]}")
+    return dict(total)
+
+
+# ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
 
@@ -4970,6 +5391,8 @@ def main():
     torch.cuda.empty_cache()
     cluster_launches = run_cluster(dev)
     torch.cuda.empty_cache()
+    disagg_launches = run_disagg(dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -5031,7 +5454,7 @@ def main():
          + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
          + dense_launches["b2_decode"] + rung_launches["b2_decode"]
          + spec_launches["b2_decode"] + tier_launches["b2_decode"]
-         + cluster_launches["b2_decode"],
+         + cluster_launches["b2_decode"] + disagg_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
@@ -5040,7 +5463,7 @@ def main():
          "launches": append_launches + prefix_launches.get("b3_append", 0)
          + dense_launches["b3_append"] + rung_launches["b3_append"]
          + spec_launches["b3_append"] + tier_launches["b3_append"]
-         + cluster_launches["b3_append"],
+         + cluster_launches["b3_append"] + disagg_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -5080,7 +5503,8 @@ def main():
                 {"name": f"paged_attention_{form}_{q}", "route": "cuda",
                  "source": src, "replaces": replaces,
                  "launches": n + prefix_launches.get(f"b4_{form}_{q}", 0)
-                 + tier_launches.get(f"b4_{form}_{q}", 0),
+                 + tier_launches.get(f"b4_{form}_{q}", 0)
+                 + disagg_launches.get(f"b4_{form}_{q}", 0),
                  "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})

@@ -128,10 +128,10 @@ evicts the oldest LRU block before any slot is preempted.
 ``add_request`` takes the reference's keyword arguments: a
 ``readout_stride`` pin (live on a stride engine, inert on a stride-1
 one), ``spec_ewma`` (the acceptance EWMA seed of a speculative engine,
-inert without speculation) and ``trace_ctx``
-(stamped on an attached recorder) are stored on the request; embedding
-requests (ROADMAP A10) and KV export (A8(h)) raise
-``NotImplementedError``.
+inert without speculation), ``export_kv`` (stage the request's
+committed KV for a peer at its finish; inert on a dense engine) and
+``trace_ctx`` (stamped on an attached recorder) are stored on the request;
+embedding requests (ROADMAP A10) raise ``NotImplementedError``.
 
 The host KV tier (paged, fused; reference ``llm_engine.py:2357-2638``):
 ``kv_host_swap=True`` demotes a preempted slot's committed blocks to
@@ -145,6 +145,20 @@ oldest out first, and a probe that misses the device store promotes it
 back. Both copies go on the engine's stream, so a restore is ordered
 after its swap-out without a host wait, and the caching pinned allocator
 keeps a buffer from reuse until the copies that touch it have landed.
+
+Cross-replica KV shipping (paged; reference ``llm_engine.py:2640-2871``):
+an ``export_kv``-flagged request stages its committed blocks at its finish
+(one ``_stage_blocks`` gather, copied down without blocking; a CUDA event
+marks the copy), :meth:`LLMEngine.export_kv` pops the entry from any
+thread and waits on that event alone, and :meth:`LLMEngine.import_kv`
+seeds the swap store with it (fused scheduler), so the re-admitted request
+restores the blocks and recomputes one position, booking ``kv_ship_in_*``
+instead of the swap counters. ``export_prefix_blocks`` serves registered
+prefix blocks (device store, then the spill store) to a peer, and
+``import_prefix_blocks`` queues a peer's for this engine's spill store,
+drained at the top of the next step.
+:mod:`paddle_tpu_torch.serving.kv_transport` carries the entries as PTKV
+bytes.
 
 Not in this port yet (each raises ``NotImplementedError``): verify
 windows over int8/int4 pools (ROADMAP A8(e), second half), LoRA
@@ -615,6 +629,10 @@ class LLMEngine:
         #: reference amortizes multi-row readouts; one-row steps: 0.0)
         self.emit_backdate_s = 0.0
         self.stats = default_engine_stats()
+        #: the stream the engine's steps write on (the card only; updated
+        #: at each step_begin from the stepping thread)
+        self._stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------------
     # device state
@@ -688,6 +706,19 @@ class LLMEngine:
         #: LRU-evicted registered blocks, oldest spilled first out
         self._spill = collections.OrderedDict()
         self._spill_bytes = 0
+        # cross-replica KV shipping (serving/kv_transport)
+        #: rid -> cumulative stitch wall (s) of shipped-entry restores, the
+        #: migration's last phase, which the router reads back
+        self._stitch_s = {}
+        #: rid -> staged EXPORT entry of an export_kv-flagged request,
+        #: written by the engine thread at its finish and popped by
+        #: export_kv() from any thread; the oldest drop past the cap
+        self._export_store = collections.OrderedDict()
+        self._export_cap = 2 * self.B
+        #: shipped prefix-block entries a peer queued (a list append from
+        #: the router's thread), drained into the spill store at the top of
+        #: the next step, before admission probes run
+        self._spill_inbox = []
 
     def reset(self):
         """Tear the engine down to EMPTY and re-arm it: the supervised
@@ -808,9 +839,10 @@ class LLMEngine:
         (a carried draft-acceptance EWMA seeding the request's verify
         windows; None takes the engine's rid-keyed mirror, so a restart or
         a preemption resumes at the learned window; inert without
-        speculation), ``export_kv`` (ROADMAP A8(h)) and
-        ``trace_ctx`` (stamped on an attached flight recorder's
-        timeline). All are stored on the request."""
+        speculation), ``export_kv`` (stage the request's committed KV as
+        a shippable entry at its finish, popped by :meth:`export_kv`;
+        inert on a dense engine) and ``trace_ctx`` (stamped on an attached
+        flight recorder's timeline). All are stored on the request."""
         ids = np.asarray(
             prompt_ids.cpu().numpy() if isinstance(prompt_ids, torch.Tensor)
             else prompt_ids, dtype=np.int32).reshape(-1)
@@ -828,8 +860,6 @@ class LLMEngine:
             raise ValueError(f"unknown request kind {kind!r}")
         if kind == "embed":
             _unported("embedding (prefill-only) requests", "A10")
-        if export_kv:
-            _unported("export_kv (cross-replica KV shipping)", "A8(h)")
         if float(temperature) > 0.0:
             _unported("sampling with temperature > 0 (threefry fold_in keys)",
                       "A7")
@@ -1465,7 +1495,10 @@ class LLMEngine:
         still produces the sampler's logits) and consumes the entry. It is
         dropped when it no longer applies: another tenant or token prefix,
         a ramp that passed it by re-prefilling, or a slot that has
-        generated. Gated on the store, not on ``kv_host_swap``."""
+        generated. Gated on the store, not on ``kv_host_swap``: a peer's
+        shipped entry (:meth:`import_kv`) restores here too, booking
+        ``kv_ship_in_*`` (never the swap counters, the preempt classifier's
+        signal) and its stitch wall in ``_stitch_s``."""
         if not self._paged or not self._swap_store:
             return
         bs = self.block_size
@@ -1521,15 +1554,29 @@ class LLMEngine:
             if stitch >= target:
                 del self._swap_store[rid]
             per = self.kv_bytes_per_block()
-            self.stats["kv_swap_in_blocks"] += got
-            self.stats["kv_swap_in_bytes"] += got * per
+            shipped = bool(entry.get("shipped"))
+            kind = "kv_ship_in" if shipped else "kv_swap_in"
+            self.stats[f"{kind}_blocks"] += got
+            self.stats[f"{kind}_bytes"] += got * per
             self.stats["kv_swap_saved_tokens"] += max(stitch - pos, 0)
-            self.stats["swap_in_time_s"] += time.perf_counter() - t0
+            restore_s = time.perf_counter() - t0
+            self.stats["swap_in_time_s"] += restore_s
+            if shipped:
+                # the migration's stitch phase (allocation, the copy up and
+                # the lens jump), read back by the router per rid
+                self._stitch_s[rid] = self._stitch_s.get(rid, 0.0) + restore_s
             rec = self._rec()
             if rec is not None:
-                rec.req_event(rid, "swapped_in",
+                rec.req_event(rid, "kv_shipped_in" if shipped
+                              else "swapped_in",
                               step_id=rec.next_step_id(),
                               value=max(stitch - pos, 0))
+                if shipped:
+                    # the restore wall as its own span on this replica's
+                    # lane of a merged trace
+                    rec.req_event(rid, "kv_stitch",
+                                  step_id=rec.next_step_id(),
+                                  value=round(restore_s, 6))
 
     def _spill_block(self, phys):
         """Demote an LRU-evicted registered block into the bounded host
@@ -1551,6 +1598,9 @@ class LLMEngine:
         entry.update(parent=self._block_parent[phys],
                      tokens=self._block_tokens[phys], n_blocks=1,
                      nbytes=per)
+        # a peer's export_prefix_blocks reads the host copy from its own
+        # thread, which the stream does not order after the copy down
+        entry["event"] = self._copy_event()
         self._spill[h] = entry
         self._spill_bytes += per
         self.stats["kv_spill_blocks"] += 1
@@ -1585,6 +1635,251 @@ class LLMEngine:
         if not self._paged:
             return ()
         return tuple(self._swap_store)
+
+    # ------------------------------------------------------------------
+    # cross-replica KV shipping (reference ``llm_engine.py:2640-2871``)
+    # ------------------------------------------------------------------
+    def _copy_event(self):
+        """On the card, an event recorded on the current stream after the
+        copies just enqueued (None elsewhere): what a reader on another
+        thread waits on before it touches their host buffers."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _pinned(self, t):
+        """``t`` (a host tensor or None) in pinned memory on the card, so a
+        restore copies it up without blocking the host."""
+        if t is None or self.device.type != "cuda" or t.is_pinned():
+            return t
+        return t.pin_memory()
+
+    def _entry_fits(self, entry):
+        """Whether a shipped entry's host blocks have this pool's geometry:
+        ``kv [n, 2L, Hkv, block_size, Dp]`` in the pool's dtype, and scale
+        rows ``[n, 2L, Hkv]`` (float32) exactly when the pool is
+        quantized."""
+        kv, sc = entry.get("kv"), entry.get("scale")
+        if kv is None:
+            return False
+        want = (2 * self._n_layers, self._kvh, self.block_size,
+                kv_packed_dim(self._head_dim, self.kv_quant))
+        if tuple(kv.shape[1:]) != want or kv.dtype != self._k[0].dtype:
+            return False
+        if not self.kv_quant:
+            return sc is None
+        return sc is not None and tuple(sc.shape) == \
+            (kv.shape[0],) + want[:2] and sc.dtype == torch.float32
+
+    def _export_slot_kv(self, b, slot):
+        """Stage slot ``b``'s committed KV as a shippable export entry, on
+        the engine thread at the finish site of an ``export_kv``-flagged
+        request while its blocks are still allocated: the swap-out's
+        gather and copy down, plus identity (rid, tenant, tokens, the chain
+        hashes of its full blocks) and pool geometry for the destination to
+        validate. A CUDA event marks the copy; :meth:`export_kv` waits on
+        it, never on the stream."""
+        req = slot.req
+        kv_len = slot.prefill_pos + len(slot.generated)
+        if kv_len <= 0 or req.kind == "embed":
+            return
+        nb = (kv_len - 1) // self.block_size + 1
+        blocks = self._slot_blocks[b][:nb]
+        if len(blocks) < nb:
+            return
+        t0 = time.perf_counter()
+        entry = self._stage_blocks(blocks)
+        done = np.concatenate([req.prompt_ids,
+                               np.asarray(slot.generated, np.int32)])
+        entry.update(
+            rid=req.request_id, tokens=done[:kv_len],
+            adapter_id=req.adapter_id, n_blocks=nb,
+            block_size=self.block_size, kv_quant=self.kv_quant,
+            # the destination's content-store identity and the
+            # pull-on-miss address space
+            chain=self.prefix_chain_hashes(done[:kv_len],
+                                           adapter_id=req.adapter_id),
+            ready=False, nbytes=nb * self.kv_bytes_per_block(),
+            event=self._copy_event())
+        self._export_store[req.request_id] = entry
+        while len(self._export_store) > self._export_cap:
+            self._export_store.popitem(last=False)
+        self.stats["kv_ship_out_blocks"] += nb
+        self.stats["kv_ship_out_bytes"] += entry["nbytes"]
+        self.stats["swap_out_time_s"] += time.perf_counter() - t0
+
+    def export_kv(self, request_id):
+        """Pop and materialize the staged export entry of ``request_id``
+        (an ``export_kv``-flagged request that finished here). Callable
+        from any thread: the pop is one dict operation, and materializing
+        waits only on the event recorded after the entry's own copy down.
+        Returns the entry (serializable by
+        :mod:`paddle_tpu_torch.serving.kv_transport`), or None (a dense
+        engine, an unknown rid, or an entry dropped past the cap)."""
+        if not self._paged:
+            return None
+        entry = self._export_store.pop(request_id, None)
+        if entry is None:
+            return None
+        if not entry["ready"]:
+            ev = entry.pop("event", None)
+            if ev is not None:
+                ev.synchronize()
+            entry["ready"] = True
+        return entry
+
+    def import_kv(self, entry):
+        """Stage a SHIPPED entry for restore here: check the pool geometry,
+        then seed the swap store under the entry's rid, so the re-admitted
+        request's next mixed step restores its blocks and recomputes one
+        position (``_try_swap_restores`` validates rid, tenant and token
+        prefix). Callable from any thread (one dict write). Returns True
+        when staged, False when this engine cannot take it (dense or
+        legacy, unmaterialized, another block size, quantization or
+        geometry): the router then falls back to re-prefill."""
+        if not self._paged or self.scheduler != "fused":
+            return False
+        if not entry.get("ready") or entry.get("n_blocks", 0) <= 0:
+            return False
+        if int(entry.get("block_size", -1)) != self.block_size or \
+                entry.get("kv_quant") != self.kv_quant:
+            return False
+        if not self._entry_fits(entry) or \
+                entry["kv"].shape[0] < int(entry["n_blocks"]):
+            return False
+        if int(entry.get("adapter_id", 0)):
+            _unported("shipped KV of an adapter tenant", "A10")
+        nb = int(entry["n_blocks"])
+        self._swap_store[entry["rid"]] = {
+            "tokens": np.asarray(entry["tokens"], np.int32),
+            "adapter_id": 0, "n_blocks": nb,
+            "kv": self._pinned(entry["kv"]),
+            "scale": self._pinned(entry["scale"]),
+            "nbytes": nb * self.kv_bytes_per_block(),
+            # restores book kv_ship_in_*, never the swap counters
+            "shipped": True}
+        return True
+
+    def _peer_gather(self, phys):
+        """One registered block staged for a peer, from the router's
+        thread. The pools are written in place, so on the card the gather
+        is enqueued on the stream the engine's steps write on (after every
+        write dispatched so far) and waited on through its own event."""
+        if self.device.type != "cuda":
+            return self._stage_blocks([phys])
+        with torch.cuda.stream(self._stream):
+            staged = self._stage_blocks([phys])
+            ev = self._copy_event()
+        ev.synchronize()
+        return staged
+
+    def export_prefix_blocks(self, chain_hashes):
+        """Pull-on-miss PEER export: the registered prefix blocks of
+        ``chain_hashes`` (the device content store, else this engine's
+        spill store) as single-block shippable entries, stopping at the
+        first miss. Read-only and callable from the router's thread: a
+        block registers only after the writes that fill it were enqueued,
+        and hash -> phys is re-checked after the gather landed, so a block
+        evicted and reused meanwhile ends the span (one re-registered under
+        the same hash holds the same content)."""
+        out = []
+        if not self._paged or not self.prefix_cache:
+            return out
+        per = self.kv_bytes_per_block()
+        common = {"n_blocks": 1, "block_size": self.block_size,
+                  "kv_quant": self.kv_quant, "ready": True}
+        for h in chain_hashes:
+            phys = self._store.get(h)
+            if phys is None:
+                spilled = self._spill.get(h) \
+                    if self.kv_host_spill_bytes else None
+                if spilled is None:
+                    break
+                ev = spilled.get("event")
+                if ev is not None:
+                    ev.synchronize()
+                out.append({"hash": h, "parent": spilled["parent"],
+                            "tokens": spilled["tokens"],
+                            "kv": spilled["kv"], "scale": spilled["scale"],
+                            "nbytes": spilled["nbytes"], **common})
+                continue
+            parent = self._block_parent.get(phys)
+            tokens = self._block_tokens.get(phys)
+            if parent is None or tokens is None:
+                break
+            staged = self._peer_gather(phys)
+            if self._store.get(h) != phys or \
+                    self._block_hash.get(phys) != h:
+                break       # evicted and reused mid-gather: end the span
+            out.append({"hash": h, "parent": parent, "tokens": tokens,
+                        "kv": staged["kv"], "scale": staged["scale"],
+                        "nbytes": per, **common})
+        if out:
+            self.stats["kv_ship_out_blocks"] += len(out)
+            self.stats["kv_ship_out_bytes"] += sum(e["nbytes"] for e in out)
+        return out
+
+    def import_prefix_blocks(self, entries):
+        """Queue a peer's prefix-block entries (:meth:`export_prefix_blocks`)
+        for this engine's spill store. Callable from any thread: they land
+        in an inbox the engine thread drains at the top of its next step,
+        before admission probes, so a request submitted right after the
+        import hits them. Needs an armed spill store; returns the number
+        queued."""
+        if not self._paged or not self.prefix_cache or \
+                not self.kv_host_spill_bytes:
+            return 0
+        n = 0
+        for e in entries:
+            if not e.get("ready") or \
+                    int(e.get("block_size", -1)) != self.block_size or \
+                    e.get("kv_quant") != self.kv_quant:
+                continue
+            self._spill_inbox.append(e)
+            n += 1
+        return n
+
+    def _drain_spill_inbox(self):
+        """The engine-thread half of pull-on-miss: move shipped prefix
+        blocks from the inbox into the bounded spill store, each chain hash
+        re-derived from parent and tokens (a corrupt or miskeyed entry
+        never registers under a hash it does not hash to); the probe ->
+        promote path then serves them like locally spilled blocks."""
+        if not self._spill_inbox:
+            return
+        inbox, self._spill_inbox = self._spill_inbox, []
+        per = self.kv_bytes_per_block()
+        got = 0
+        for e in inbox:
+            tokens = np.frombuffer(e["tokens"], np.int32) \
+                if isinstance(e["tokens"], bytes) \
+                else np.asarray(e["tokens"], np.int32)
+            h = self._chain_hash(e["parent"], tokens)
+            if e.get("hash") is not None and e["hash"] != h:
+                continue
+            if h in self._store or h in self._spill:
+                continue
+            if not self._entry_fits(e) or e["kv"].shape[0] < 1 or \
+                    per > self.kv_host_spill_bytes:
+                continue
+            while self._spill_bytes + per > self.kv_host_spill_bytes \
+                    and self._spill:
+                _, old = self._spill.popitem(last=False)
+                self._spill_bytes -= old["nbytes"]
+            sc = e["scale"]
+            self._spill[h] = {"kv": self._pinned(e["kv"][:1]),
+                              "scale": self._pinned(
+                                  sc[:1] if sc is not None else None),
+                              "parent": e["parent"],
+                              "tokens": tokens.tobytes(), "n_blocks": 1,
+                              "nbytes": per}
+            self._spill_bytes += per
+            got += 1
+        if got:
+            self.stats["kv_ship_in_blocks"] += got
+            self.stats["kv_ship_in_bytes"] += got * per
 
     # ------------------------------------------------------------------
     # admission
@@ -2105,14 +2400,13 @@ class LLMEngine:
         """Emit this dispatch's StepRecord (recorder attached and armed by
         step_begin) and stamp ``pending`` with its step id (reference
         ``llm_engine.py:3443-3502``). The admit/schedule splits and the
-        swap-byte deltas come from the engine's own stats anchored at
-        step_begin entry. Adapters (A10) and KV shipping (A8(h)) are not
-        ported: their fields carry what a reference engine without them
-        records."""
+        swap- and ship-byte deltas come from the engine's own stats
+        anchored at step_begin entry. Adapters (A10) are not ported: their
+        fields carry what a reference engine without them records."""
         rec, ctx = self._rec(), self._rec_ctx
         if rec is None or ctx is None:
             return
-        t0, admit0, hits0, kvin0, kvout0 = ctx
+        t0, admit0, hits0, kvin0, kvout0, shin0, shout0 = ctx
         wall = time.perf_counter() - t0
         admit_s = self.stats["admit_time_s"] - admit0
         paged = self._paged
@@ -2145,8 +2439,13 @@ class LLMEngine:
             kv_swap_out_bytes=(self.stats["kv_swap_out_bytes"] - kvout0)
             if paged else None,
             kv_host_spill_blocks=len(self._spill) if paged else None,
-            kv_ship_in_bytes=0 if paged else None,
-            kv_ship_out_bytes=0 if paged else None,
+            # the ship traffic THIS step (a shipped restore's stitch grant
+            # rides a mixed step): explain_tail's kv_ship cause, booked
+            # apart from the swap bytes
+            kv_ship_in_bytes=(self.stats["kv_ship_in_bytes"] - shin0)
+            if paged else None,
+            kv_ship_out_bytes=(self.stats["kv_ship_out_bytes"] - shout0)
+            if paged else None,
             adapter_slots=(), adapter_swaps=0)
         self._rec_ctx = None
 
@@ -2223,6 +2522,16 @@ class LLMEngine:
             return self._step_begin()
 
     def _step_begin(self):
+        if self._paged:
+            if self.device.type == "cuda":
+                # the stream this step's writes go on, where a peer's
+                # gather of a registered block is enqueued
+                # (export_prefix_blocks)
+                self._stream = torch.cuda.current_stream(self.device)
+            if self._spill_inbox:
+                # pull-on-miss arrivals land before admission, so a
+                # request submitted right after the import probes them
+                self._drain_spill_inbox()
         if self._rec() is not None:
             # wall-split anchors for this step's record: entry time, the
             # admit-stat baseline (scheduling = wall - admit - dispatch),
@@ -2232,7 +2541,9 @@ class LLMEngine:
                              self.stats["admit_time_s"],
                              self.stats["prefix_hit_tokens"],
                              self.stats["kv_swap_in_bytes"],
-                             self.stats["kv_swap_out_bytes"])
+                             self.stats["kv_swap_out_bytes"],
+                             self.stats["kv_ship_in_bytes"],
+                             self.stats["kv_ship_out_bytes"])
             self._rec_preempted = []
         self._admit_waiting()
         if not any(s is not None for s in self.slots):
@@ -2813,6 +3124,10 @@ class LLMEngine:
                 self._register_upto(b, slot,
                                     slot.prefill_pos + len(slot.generated))
             if finish_reason:
+                if slot.req.export_kv and self._paged:
+                    # stage the committed KV for a peer while the blocks
+                    # are still allocated; export_kv() pops it
+                    self._export_slot_kv(b, slot)
                 out = RequestOutput(
                     slot.req.request_id,
                     self._finish_tokens(slot.req, slot.generated), True,

@@ -9,11 +9,13 @@ and optionally a flight recorder and a metrics store
 (:mod:`paddle_tpu_torch.profiler`). :class:`RestartPolicy` arms supervised
 crash recovery and :class:`FaultInjector` scripts chaos for the tests.
 :class:`ReplicaRouter` (``cluster.py``) places requests over several
-servers by prefix affinity and load, with failover and drain.
+servers by prefix affinity and load, with failover, drain, disaggregated
+prefill/decode roles and prefix pulls; ``kv_transport.py`` carries the
+shipped KV as PTKV bytes (:class:`InProcessTransport`).
 
 Not in this port yet: the tensor-parallel engine (A14), adapters and
-embeddings (A10), KV transport and disaggregated roles (A8(h)) and the
-SLO, pathology-detector and black-box layer (A11).
+embeddings (A10) and the SLO, pathology-detector and black-box layer
+(A11).
 """
 from .types import (RequestHandle, RequestState, ServeRequest, ServeResult,
                     ServerClosed, ServerQueueFull, TraceContext)
@@ -21,9 +23,12 @@ from .scheduler import AdmissionQueue
 from .faults import FaultInjector, InjectedFault, RestartPolicy
 from .server import AsyncLLMServer
 from .cluster import ReplicaRouter, RouterHandle
+from .kv_transport import (InProcessTransport, KVTransport, TransportError,
+                           deserialize_entry, serialize_entry)
 
 __all__ = ["AsyncLLMServer", "AdmissionQueue", "RequestHandle",
            "RequestState", "ServeRequest", "ServeResult", "ServerClosed",
            "ServerQueueFull", "TraceContext", "FaultInjector",
            "InjectedFault", "RestartPolicy", "ReplicaRouter",
-           "RouterHandle"]
+           "RouterHandle", "KVTransport", "InProcessTransport",
+           "TransportError", "serialize_entry", "deserialize_entry"]

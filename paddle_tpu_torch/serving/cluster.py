@@ -25,6 +25,17 @@ Scoring formula (the reference's documented contract)::
 
 highest score wins; ties break toward the lower replica index.
 
+Disaggregated prefill/decode (``roles={"prefill": [...], "decode":
+[...]}``): a new prompt places on a prefill replica as a one-token leg
+with ``export_kv`` staging; when the leg finishes the router ships the
+staged KV over its ``transport``
+(:class:`~paddle_tpu_torch.serving.kv_transport.InProcessTransport` by
+default: real PTKV bytes) to a decode replica, which restores it and
+recomputes one position, and the stream continues there under the same
+rid. Any ship failure falls back to re-prefill on the decode side.
+``pull_on_miss=True`` lets a replica whose prefix probe missed fetch the
+cached span from the peer that holds it.
+
 Replicas in one process on one card share its default stream: each
 server's loop issues its steps on the current stream of its own thread,
 which is the device's default stream, so one replica's readout also waits
@@ -33,16 +44,13 @@ replicas' step times couple.
 
 Not in this port yet: level 1, the tensor-parallel engine
 (``tp_serving_mesh``, ``shard_model_tp``, ``tp_engine``; ROADMAP A14);
-disaggregated prefill/decode (``roles=``), the KV transport
-(``transport=``) and prefix pulls (``pull_on_miss=True``), which raise
-naming ROADMAP A8(h), so the ``kv_shipped``, ``kv_ship_fallback`` and
-``pull_on_miss_blocks`` counters stay 0 and no migration is recorded;
 adapter placement (A10: a nonzero ``adapter_id`` is forwarded and the
 replicas reject it, so ``adapter_routed`` stays 0); :meth:`slo_report`
 and :meth:`dump_debug_bundle` (A11), which raise.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
@@ -53,6 +61,7 @@ import numpy as np
 from ..analysis import lock_watchdog as _lockwatch
 from ..inference.llm_engine import _unported
 from ..profiler.serving_telemetry import LatencyHistogram
+from .kv_transport import MIGRATION_PHASES, InProcessTransport
 from .types import (ServeResult, ServerClosed, ServerQueueFull,
                     TraceContext)
 
@@ -60,10 +69,10 @@ __all__ = ["ReplicaRouter", "RouterHandle", "FLEET_TAIL_CAUSES"]
 
 #: every cause :meth:`ReplicaRouter.explain_tail` can name BEYOND the
 #: per-replica :data:`~paddle_tpu_torch.profiler.flight_recorder
-#: .TAIL_CAUSES` taxonomy: a cross-replica boundary gap is either a KV
-#: migration (``kv_ship:{phase}``, one per migration phase; recorded once
-#: A8(h) ports them) or a failover resubmission's re-prefill window.
-#: STRICT registry, as the reference's.
+#: .TAIL_CAUSES` taxonomy: a cross-replica boundary gap is either the
+#: migration itself (``kv_ship:{phase}``, phase the dominant entry of
+#: ``kv_transport.MIGRATION_PHASES``) or a failover resubmission's
+#: re-prefill window. STRICT registry, as the reference's.
 FLEET_TAIL_CAUSES = ("failover_resubmit", "kv_ship:serialize",
                      "kv_ship:transport", "kv_ship:import",
                      "kv_ship:place", "kv_ship:stitch")
@@ -93,6 +102,15 @@ class RouterHandle:
         self._replica = None
         self._final: ServeResult | None = None
         self._streamed = []          # tokens handed to the caller
+        #: disaggregated serving state: {"budget": the original
+        #: max_new_tokens, ...} on a request the router split into a
+        #: prefill leg and a decode leg; None otherwise
+        self._disagg = None
+        #: tokens of a finished prefill leg the caller had NOT consumed
+        #: when the ship migrated the stream: the decode replica takes them
+        #: as its resume prefix and never re-emits them, so the router
+        #: delivers them from here first
+        self._carry = collections.deque()
         self._migrating = False      # drain: a cancel that must resubmit
         self.resubmits = 0
         #: failover-retry pacing: when every survivor's queue is full, a
@@ -140,7 +158,16 @@ class RouterHandle:
         """Pop one streamed token AND record it in ``_streamed`` under
         the inner handle's lock: _resolve snapshots (pending deque,
         streamed list) under that lock too, so a crash result can never
-        count a token in both."""
+        count a token in both. A migrated leg's carried tokens come
+        first."""
+        if self._carry:
+            try:
+                tok = self._carry.popleft()
+            except IndexError:
+                tok = None
+            if tok is not None:
+                self._streamed.append(tok)
+                return tok
         inner = self._inner
         if inner is None:
             return None
@@ -258,9 +285,11 @@ class ReplicaRouter:
     keeps its residents: the resumption is about to happen locally.
     Nothing is silently dropped.
 
-    ``roles``, ``transport`` and ``pull_on_miss=True`` (disaggregated
-    serving and KV shipping) raise ``NotImplementedError`` naming ROADMAP
-    A8(h)."""
+    ``roles``: disaggregated prefill/decode over those replica indices
+    (module docstring); ``transport``: the KV mover (default: an
+    :class:`~paddle_tpu_torch.serving.kv_transport.InProcessTransport`
+    when ``roles`` or ``pull_on_miss`` is given); ``pull_on_miss``: fetch
+    a missed prefix span from the peer that can serve it."""
 
     def __init__(self, replicas, affinity_weight=2.0, load_weight=1.0,
                  policy="affinity", poll_interval_s=0.01,
@@ -273,14 +302,45 @@ class ReplicaRouter:
             raise ValueError("ReplicaRouter needs at least one replica")
         if policy not in ("affinity", "least_loaded", "random"):
             raise ValueError(f"unknown routing policy {policy!r}")
-        if roles is not None:
-            _unported("disaggregated prefill/decode serving (roles)",
-                      "A8(h)")
-        if transport is not None:
-            _unported("the KV transport (transport)", "A8(h)")
-        if pull_on_miss:
-            _unported("prefix pulls from peers (pull_on_miss)", "A8(h)")
         self.replicas = list(replicas)
+        if roles is not None:
+            n = len(self.replicas)
+            roles = {k: sorted(int(i) for i in v)
+                     for k, v in roles.items()}
+            for k in ("prefill", "decode"):
+                if not roles.get(k):
+                    raise ValueError(f"roles needs a non-empty {k!r} "
+                                     f"replica list")
+                if any(i < 0 or i >= n for i in roles[k]):
+                    raise ValueError(f"roles[{k!r}] has an out-of-range "
+                                     f"replica index (have {n})")
+            # a migrated request keeps its rid across replicas (the
+            # restore validates by it): each replica gets a disjoint id
+            # base, 2**26 apart so rids stay int32 for up to 31 replicas
+            if n > 31:
+                raise ValueError("disaggregated roles support at most "
+                                 "31 replicas (int32 rid bases)")
+            for i, srv in enumerate(self.replicas):
+                srv._next_id = max(srv._next_id, i * (1 << 26))
+        self.roles = roles
+        #: the staged-entry mover: the in-process loopback (real PTKV
+        #: bytes) unless one is given
+        if transport is None and (roles is not None or pull_on_miss):
+            transport = InProcessTransport()
+        self.transport = transport
+        self.pull_on_miss = bool(pull_on_miss)
+        #: end-to-end migration latency (leg finish -> decode-side
+        #: placement), observed per successful ship
+        self.migration_latency = LatencyHistogram()
+        #: the same latency per kv_transport.MIGRATION_PHASES name:
+        #: serialize/transport/import timed inside the transport's ship(),
+        #: place around the decode-side placement, stitch read back from
+        #: the destination engine's restore
+        self.migration_phases = {}
+        #: per-migration records (trace_id, rid, src -> dst, perf_counter
+        #: t0/t1, phase seconds, wire bytes), bounded: the merged trace's
+        #: router lane and explain_tail's boundary-gap attribution
+        self._migrations = collections.deque(maxlen=256)
         self.affinity_weight = float(affinity_weight)
         #: adapter-affinity bonus (multi-tenant serving): kept for the
         #: reference's signature; inert until A10 ports the adapter cache
@@ -339,10 +399,11 @@ class ReplicaRouter:
                       #: so resumption is exact and the host copy is
                       #: abandoned with the replica
                       "swap_resident_failover": 0,
-                      #: KV shipping (A8(h)): legs shipped and fallen back
-                      #: (0 here), host-resident KV abandoned by a hung-
-                      #: replica failover (the swap-resident copies above),
-                      #: prefix blocks pulled from peers (0 here)
+                      #: disaggregated serving: prefill legs whose KV
+                      #: shipped to a decode replica, legs that fell back to
+                      #: re-prefill, host-resident KV abandoned by a lost
+                      #: replica (swap-resident or mid-ship), and prefix
+                      #: blocks fetched from peers on a probe miss
                       "kv_shipped": 0, "kv_ship_fallback": 0,
                       "kv_ship_abandoned": 0, "pull_on_miss_blocks": 0,
                       "placements": [0] * len(self.replicas)}
@@ -434,8 +495,22 @@ class ReplicaRouter:
             - self.load_weight * (load + pool)
         return score, aff
 
-    def _rank(self, ids, pin=None, adapter_id=0):
-        """Candidate replicas best-first as (idx, score, aff_tokens)."""
+    def _role_for(self, handle):
+        """Which role set a submission places into, or None (no
+        disaggregation): a split request's decode leg (its ship has begun)
+        goes to decode replicas; everything else (fresh prompts, prefill
+        legs retried after a lost replica) to prefill replicas."""
+        if self.roles is None:
+            return None
+        d = handle._disagg
+        return "decode" if (d is not None and d.get("shipping")) \
+            else "prefill"
+
+    def _rank(self, ids, pin=None, adapter_id=0, role=None):
+        """Candidate replicas best-first as (idx, score, aff_tokens).
+        ``role``: only that role set's replicas, or every healthy replica
+        when the whole set is down (losing the last prefill replica turns
+        prompts into mixed placement instead of lost requests)."""
         #: prompt hash chain per (block_size, tenant): computed at most
         #: once per submission, shared by same-geometry replicas' probes
         hash_cache = {}
@@ -456,6 +531,8 @@ class ReplicaRouter:
                                          adapter_id)]
         cand = [i for i in range(len(self.replicas))
                 if self.healthy(i) and i not in self._draining]
+        if role is not None and self.roles is not None:
+            cand = [i for i in cand if i in self.roles[role]] or cand
         if not cand:
             return []
         if self.policy == "random":
@@ -495,6 +572,14 @@ class ReplicaRouter:
                       # hop-bump sites replace it with child contexts
                       trace_ctx=TraceContext.mint("router"))
         handle = RouterHandle(self, ids, kwargs, routing_key)
+        if self.roles is not None and kind == "generate" and \
+                int(max_new_tokens) > 1:
+            # the disaggregated split: a ONE-token prefill leg with export
+            # staging; its finish ships the KV and resubmits the rest of
+            # the budget on a decode replica (a budget of 1 is all prefill)
+            handle._disagg = {"budget": int(max_new_tokens)}
+            kwargs["max_new_tokens"] = 1
+            kwargs["export_kv"] = True
         deadline = None if timeout is None else time.monotonic() + timeout
         delay = self.poll_interval_s
         while True:
@@ -518,7 +603,13 @@ class ReplicaRouter:
         are an advisory heuristic over point-in-time reads); the lock
         guards only the placement bookkeeping."""
         adapter_id = int(handle._kwargs.get("adapter_id") or 0)
-        ranked = self._rank(ids, pin=pin, adapter_id=adapter_id)
+        ranked = self._rank(ids, pin=pin, adapter_id=adapter_id,
+                            role=self._role_for(handle))
+        if self.pull_on_miss and ranked and \
+                handle._kwargs.get("kind", "generate") == "generate":
+            # BEFORE the submit: the fetched span must be in the target's
+            # spill inbox before its engine thread admits this request
+            self._pull_prefix(ranked[0], ids, adapter_id)
         with self._lock:
             last_err = None
             for idx, score, aff in ranked:
@@ -557,6 +648,58 @@ class ReplicaRouter:
                 return None
             return last_err or ServerClosed("no replica alive")
 
+    def _pull_prefix(self, top, ids, adapter_id):
+        """Pull-on-miss: when the chosen replica's prefix probe (device
+        store and its own spill store) covers less of this prompt than a
+        peer could serve, fetch the missing span's blocks from that peer
+        over the transport instead of recomputing them. Best-effort and
+        read-only on the peer; the target re-derives every chain hash
+        before registering. Needs the target's spill store armed
+        (``kv_host_spill_bytes > 0``): the blocks land there and its probe
+        promotes them."""
+        idx, _, aff = top
+        eng = self.replicas[idx].engine
+        if self.transport is None or \
+                not getattr(eng, "prefix_cache", False) or \
+                not getattr(eng, "kv_host_spill_bytes", 0):
+            return
+        bs = eng.block_size
+        try:
+            hashes = eng.prefix_chain_hashes(ids, adapter_id=adapter_id)
+        except Exception:
+            return
+        have = int(aff) // bs
+        if have >= len(hashes):
+            return
+        want = hashes[have:]
+        best_peer, best_len = None, 0
+        for j, srv in enumerate(self.replicas):
+            if j == idx or not self.healthy(j):
+                continue
+            peng = srv.engine
+            if getattr(peng, "block_size", None) != bs or \
+                    getattr(peng, "kv_quant", None) != eng.kv_quant:
+                continue
+            try:
+                plen = int(peng.probe_prefix_len(
+                    ids, chain_hashes=hashes, adapter_id=adapter_id))
+            except Exception:
+                continue
+            if plen // bs > have and plen > best_len:
+                best_peer, best_len = peng, plen
+        if best_peer is None:
+            return
+        try:
+            entries = best_peer.export_prefix_blocks(want)
+            if not entries:
+                return
+            n, _ = self.transport.ship_prefix_blocks(entries, eng)
+        except Exception:
+            return
+        if n:
+            with self._lock:
+                self.stats["pull_on_miss_blocks"] += n
+
     def num_outstanding(self):
         with self._lock:
             return len(self._outstanding)
@@ -565,8 +708,8 @@ class ReplicaRouter:
     def _bump_trace(self, handle, via):
         """Advance the handle's trace context one hop: same trace_id,
         hop+1, parented on the previous hop's span. Called once per
-        resubmission EPISODE (failover, first queue-full park), never per
-        retry tick."""
+        resubmission EPISODE (ship, failover, first queue-full park), never
+        per retry tick."""
         tc = TraceContext.coerce(handle._kwargs.get("trace_ctx"))
         if tc is not None:
             handle._kwargs["trace_ctx"] = tc.child(via)
@@ -668,6 +811,21 @@ class ReplicaRouter:
             reason == "replica_lost"
         migrating = handle._migrating and reason == "cancelled"
         streamed = inner.first_token_at is not None
+        d = handle._disagg
+        if d is not None and not lost and not migrating and \
+                reason == "length" and not d.get("placed"):
+            # the PREFILL-COMPLETE hook: the leg spent its one-token budget
+            # with the real budget left: ship the staged KV and continue
+            # on a decode replica
+            self._ship_and_resubmit(handle, inner, res)
+            return
+        if d is not None and lost and not d.get("placed") and \
+                not d.get("abandoned"):
+            # the prefill leg's replica died with the staged KV on it: the
+            # transfer work is lost; the plain failover path re-prefills
+            d["abandoned"] = True
+            with self._lock:
+                self.stats["kv_ship_abandoned"] += 1
         # in-flight resumption (opt-in): resubmit with resume_tokens =
         # everything the caller consumed
         resume_stream = lost and streamed and self.resume_inflight
@@ -763,6 +921,177 @@ class ReplicaRouter:
             "replica_lost", True, routing=inner.request.routing,
             trace_ctx=res.trace_ctx or inner.request.trace_ctx))
 
+    def _ship_and_resubmit(self, handle, inner, res):
+        """The prefill-complete hook (disaggregated serving): export the
+        finished leg's staged KV, ship it over the transport to the best
+        decode replica, and resubmit the rest of the budget there under the
+        SAME rid with the leg's tokens as resume prefix: the decode
+        engine's restore re-admits with the one-token stitch (a
+        front-of-queue grant, like a failover resume), so the migrated
+        request re-prefills nothing. ANY failure (the export was dropped,
+        a transport or geometry reject, a full queue on the shipped-to
+        replica) falls back to plain resume resubmission (re-prefill on
+        the decode side, the same stream). Re-entrant: a queue-full park
+        retries from the monitor with the staged entry kept on the handle,
+        paced by the failover backoff."""
+        now = time.monotonic()
+        if handle._last_try is not None and \
+                now - handle._last_try < handle._retry_delay:
+            return                   # parked: wait out the backoff
+        with self._lock:
+            if handle not in self._outstanding:
+                return               # another caller won the resolve
+            self._done_with(handle)
+            handle._replica = None
+        t0 = time.perf_counter()
+        d = handle._disagg
+        if not d.get("shipping"):
+            # the first ship attempt of this migration: the decode leg is
+            # hop + 1 (parked retries keep the bumped context)
+            self._bump_trace(handle, "kv_ship")
+        d["shipping"] = True         # the role flips to "decode" here
+        src = inner._server
+        src_idx = next((i for i, s in enumerate(self.replicas)
+                        if s is src), None)
+        rid = inner.request_id
+        # freeze the leg's stream: undelivered tokens move to the carry
+        # (the decode replica takes the whole leg stream as its resume
+        # prefix and never re-emits it)
+        with inner._cond:
+            pending = list(inner._tokens)
+            inner._tokens.clear()
+        handle._carry.extend(pending)
+        leg_tokens = [int(t) for t in res.token_ids]
+        handle._resume_tokens = leg_tokens
+        handle._kwargs["max_new_tokens"] = d["budget"]
+        handle._kwargs["export_kv"] = False
+        # the rid is the migration's identity: the decode engine's
+        # restore validates by it
+        handle._kwargs["request_id"] = rid
+        if "entry" not in d:
+            try:
+                te0 = time.perf_counter()
+                d["entry"] = src.engine.export_kv(rid)
+                # the source-side export (waiting for the staged copy) is
+                # part of the serialize phase
+                d["export_s"] = time.perf_counter() - te0
+            except Exception:
+                d["entry"] = None
+        entry = d["entry"]
+        full_ids = np.concatenate(
+            [np.asarray(handle.prompt_ids, np.int32),
+             np.asarray(leg_tokens, np.int32)])
+        adapter_id = int(handle._kwargs.get("adapter_id") or 0)
+        ranked = self._rank(full_ids, adapter_id=adapter_id, role="decode")
+        shipped = False
+        err = ServerClosed("no replica alive")
+        phases, nbytes, dst_idx = {}, 0, None
+        for idx, _score, _aff in ranked:
+            dst = self.replicas[idx]
+            shipped = False
+            phases, nbytes, dst_idx = {}, 0, idx
+            if entry is not None and self.transport is not None:
+                try:
+                    # the transport times its own phases and returns them
+                    # per call, so concurrent ships cannot clobber them
+                    nbytes, tphases = self.transport.ship(entry, dst.engine)
+                    shipped = True
+                    phases = dict(tphases or {})
+                    if "serialize" in phases:
+                        phases["serialize"] += d.get("export_s", 0.0)
+                except Exception:
+                    shipped = False
+            tp0 = time.perf_counter()
+            err = self._try_place(handle, handle.prompt_ids, pin=idx,
+                                  resubmit=True)
+            if err is None:
+                if shipped:
+                    phases["place"] = time.perf_counter() - tp0
+                break
+            if shipped:
+                # the placement failed after the import landed: pop the
+                # orphaned entry so it cannot linger under a rid this
+                # replica never admits
+                try:
+                    dst.engine._swap_store.pop(rid, None)
+                except Exception:
+                    pass
+                shipped = False
+        if err is None:
+            d["placed"] = True
+            handle.resubmits += 1
+            handle._retry_since = None
+            handle._retry_delay = self.poll_interval_s
+            handle._last_try = None
+            t1 = time.perf_counter()
+            self.migration_latency.observe(t1 - t0)
+            if shipped:
+                for p, v in phases.items():
+                    self._observe_phase(p, v)
+                tc = TraceContext.coerce(handle._kwargs.get("trace_ctx"))
+                with self._lock:
+                    # stitch is timed on the destination (its restore, after
+                    # this returns): _finalize_migrations reads it back
+                    self._migrations.append({
+                        "trace_id": tc.trace_id if tc else None,
+                        "rid": rid, "src": src_idx, "dst": dst_idx,
+                        "t0": t0, "t1": t1, "phases": phases,
+                        "bytes": int(nbytes)})
+            with self._lock:
+                self.stats["resubmitted"] += 1
+                if shipped:
+                    self.stats["kv_shipped"] += 1
+                else:
+                    self.stats["kv_ship_fallback"] += 1
+            return
+        if isinstance(err, ServerQueueFull) and \
+                not self._stop_evt.is_set():
+            # transient decode-side backpressure: park and retry from the
+            # monitor, exactly like a failover resubmission
+            if handle._retry_since is None:
+                handle._retry_since = now
+                self._bump_trace(handle, "queue_retry")
+            if now - handle._retry_since < self.failover_retry_s:
+                handle._last_try = now
+                handle._retry_delay = min(handle._retry_delay * 2.0,
+                                          self.max_retry_backoff_s)
+                with self._lock:
+                    self._outstanding.add(handle)
+                return
+        # terminal: the retry window closed or no replica can take it
+        with self._lock:
+            self.stats["replica_lost"] += 1
+            self.stats["kv_ship_fallback"] += 1
+        handle._finish(ServeResult(
+            res.request_id, list(res.token_ids), "replica_lost", True,
+            routing=inner.request.routing,
+            trace_ctx=res.trace_ctx or inner.request.trace_ctx))
+
+    # -- migration phase bookkeeping -------------------------------------
+    def _observe_phase(self, phase, seconds):
+        """Book one migration phase observation (a histogram a
+        MIGRATION_PHASES name, made at first use)."""
+        h = self.migration_phases.get(phase)
+        if h is None:
+            h = self.migration_phases[phase] = LatencyHistogram()
+        h.observe(seconds)
+
+    def _finalize_migrations(self):
+        """Fill in each migration record's ``stitch`` wall (timed by the
+        decode engine's restore after the ship returned, so read back
+        here) and book it once into the phase histograms. Returns the
+        records, oldest first."""
+        with self._lock:
+            migs = list(self._migrations)
+        for m in migs:
+            if "stitch" not in m["phases"] and m["dst"] is not None:
+                eng = self.replicas[m["dst"]].engine
+                s = getattr(eng, "_stitch_s", {}).get(m["rid"])
+                if s is not None:
+                    m["phases"]["stitch"] = s
+                    self._observe_phase("stitch", s)
+        return migs
+
     # -- drain -----------------------------------------------------------
     def drain(self, idx, timeout=30.0):
         """Gracefully remove replica ``idx``: stop placing new work on
@@ -793,19 +1122,28 @@ class ReplicaRouter:
 
     # -- observability ---------------------------------------------------
     def snapshot(self):
-        """JSON-ready cluster view: router stats + each replica's
-        telemetry snapshot (keyed by replica index), with the
-        reference's keys (the migration entries stay empty until
-        A8(h))."""
+        """JSON-ready cluster view: router stats, roles, the migration
+        latency and its phases, the transport's counters, and each
+        replica's telemetry snapshot (keyed by replica index), with the
+        reference's keys."""
         with self._lock:
             out = {"policy": self.policy,
                    "stats": {k: (list(v) if isinstance(v, list) else v)
                              for k, v in self.stats.items()},
                    "draining": sorted(self._draining)}
-        # no KV migration is recorded before A8(h): its views stay empty
-        out["migration_latency"] = LatencyHistogram().snapshot()
-        out["migration_phases"] = {}
-        out["migrations_recorded"] = 0
+        if self.roles is not None:
+            out["roles"] = {k: list(v) for k, v in self.roles.items()}
+        migs = self._finalize_migrations()
+        out["migration_latency"] = self.migration_latency.snapshot()
+        out["migration_phases"] = {
+            p: h.snapshot()
+            for p, h in sorted(self.migration_phases.items())}
+        out["migrations_recorded"] = len(migs)
+        if self.transport is not None:
+            out["transport"] = {
+                "ship_count": getattr(self.transport, "ship_count", 0),
+                "ship_bytes": getattr(self.transport, "ship_bytes", 0),
+                "fail_count": getattr(self.transport, "fail_count", 0)}
         out["replicas"] = {}
         for i, srv in enumerate(self.replicas):
             eng = srv.engine
@@ -869,13 +1207,16 @@ class ReplicaRouter:
         Perfetto-loadable timeline, one process lane group per replica
         (:func:`paddle_tpu_torch.profiler.merge_profile`), then STITCH it:
         every request whose spans landed on more than one (pid, tid) lane
-        (a failover resubmission) gets Perfetto FLOW events (``"ph":"s"``
-        → ``"ph":"f"``, matched on name+cat+id under
+        (a shipped decode leg, a failover resubmission) gets Perfetto FLOW
+        events (``"ph":"s"`` → ``"ph":"f"``, matched on name+cat+id under
         :data:`~paddle_tpu_torch.profiler.flight_recorder
-        .FLOW_EVENT_NAME`) chaining its lanes in time order. All replicas
-        share this process's perf_counter clock, so no alignment is
-        applied. (The reference's ``router:migrations`` lane of KV-ship
-        phase spans comes with A8(h).)"""
+        .FLOW_EVENT_NAME`) chaining its lanes in time order; each recorded
+        migration renders its router-side phase spans
+        (``kv_ship:serialize/transport/import/place``) on a
+        ``router:migrations`` process lane (the destination's
+        ``kv_stitch`` span completes it on the decode replica's lane). All
+        replicas share this process's perf_counter clock, so no alignment
+        is applied."""
         import tempfile
 
         from ..profiler import merge_profile
@@ -931,6 +1272,34 @@ class ReplicaRouter:
                                "ts": min(hi_a, lo_b), **common})
                 events.append({"ph": "f", "bp": "e", "pid": kb[0],
                                "tid": kb[1], "ts": lo_b, **common})
+        # -- the router's migration phase lane --------------------------
+        migs = self._finalize_migrations()
+        if migs:
+            rpid = len(files)       # one past the last replica rank
+            events.append({"ph": "M", "pid": rpid, "tid": 0,
+                           "name": "process_name",
+                           "args": {"name": "router:migrations"}})
+            for m in migs:
+                tid = 100 + int(m["rid"] or 0)
+                events.append({"ph": "M", "pid": rpid, "tid": tid,
+                               "name": "thread_name",
+                               "args": {"name": f"migration rid "
+                                                f"{m['rid']}"}})
+                ts = m["t0"] * 1e6
+                for p in MIGRATION_PHASES:
+                    v = m["phases"].get(p)
+                    if v is None or p == "stitch":
+                        continue    # stitch renders on the decode lane
+                    dur = max(v * 1e6, 1.0)
+                    events.append({
+                        "ph": "X", "cat": "migration", "pid": rpid,
+                        "tid": tid, "name": f"kv_ship:{p}", "ts": ts,
+                        "dur": dur,
+                        "args": {"trace_id": m["trace_id"],
+                                 "request_id": m["rid"],
+                                 "src": m["src"], "dst": m["dst"],
+                                 "bytes": m["bytes"]}})
+                    ts += dur
         with open(path, "w") as f:
             json.dump(doc, f)
         return path
@@ -938,14 +1307,21 @@ class ReplicaRouter:
     def explain_tail(self, quantile=0.99, top=None):
         """The FLEET-level slow-token explainer: join every replica
         recorder's request timelines by ``trace_id`` into one END-TO-END
-        token stream per request (across failovers and restarts) and
-        classify the worst inter-token gaps. A gap that stayed inside one
-        replica gets that replica recorder's own verdict (via
-        ``classify_token_gap``); a gap spanning a replica boundary is a
-        failover resubmission's re-prefill window
-        (``failover_resubmit``: no KV migration is recorded before
-        A8(h)). Entries carry ``trace_id``, ``request_id``/``replica`` of
-        the LATER token, ``gap_s``, ``step_id`` and ``cause``."""
+        token stream per request (across KV ships, failovers and restarts)
+        and classify the worst inter-token gaps. A gap that stayed inside
+        one replica gets that replica recorder's own verdict (via
+        ``classify_token_gap``); a gap spanning a replica boundary is the
+        migration itself (``kv_ship:{phase}``, the recorded migration's
+        dominant phase) when one covers it, else a failover
+        resubmission's re-prefill window (``failover_resubmit``). Entries
+        carry ``trace_id``, ``request_id``/``replica`` of the LATER token,
+        ``gap_s``, ``step_id``, ``cause``, and the migration's phase
+        seconds when the cause is a ship phase."""
+        migs = self._finalize_migrations()
+        by_trace = {}
+        for m in migs:
+            if m["trace_id"] is not None:
+                by_trace.setdefault(m["trace_id"], []).append(m)
         streams = {}
         for i, srv in enumerate(self.replicas):
             rec = srv.flight_recorder
@@ -985,7 +1361,22 @@ class ReplicaRouter:
             if st["trace_id"] is not None:
                 entry["trace_id"] = st["trace_id"]
             if i0 != i1:
-                entry["cause"] = "failover_resubmit"
+                # the stream moved replicas inside this gap: the recorded
+                # migration explains it phase by phase, or it was a
+                # failover's re-prefill window
+                mig = next((m for m in by_trace.get(st["trace_id"], ())
+                            if t0 <= m["t1"] and m["t0"] <= t1), None)
+                if mig is not None and mig["phases"]:
+                    phases = mig["phases"]
+                    dom = max(phases, key=phases.get)
+                    entry["cause"] = f"kv_ship:{dom}"
+                    entry["migration"] = {
+                        "src": mig["src"], "dst": mig["dst"],
+                        "bytes": mig["bytes"],
+                        "phases": {p: round(v, 6)
+                                   for p, v in sorted(phases.items())}}
+                else:
+                    entry["cause"] = "failover_resubmit"
             elif any(t0 < ct <= t1 for ct in st["crashes"]):
                 entry["cause"] = "restart_recovery"
             else:

@@ -198,6 +198,11 @@ class AsyncLLMServer:
         self._hlock = _lockwatch.tracked(threading.Lock(),
                                          "AsyncLLMServer._hlock")
         self._next_id = 0
+        #: last engine-stat values the kv_ship telemetry counters have
+        #: absorbed: ship bookings come from two threads (the engine's and
+        #: the router's pull-on-miss export), so they delta-sync in the
+        #: gauge update, outside any step window
+        self._ship_seen: dict[str, int] = {}
         self._work_evt = threading.Event()
         self._thread = None
         self._accepting = False
@@ -376,9 +381,10 @@ class AsyncLLMServer:
         stride). ``spec_ewma``: a carried draft-acceptance EWMA seeding a
         speculative engine's verify windows for this request (a failover
         forwards ``LLMEngine.spec_ewma_for``); None lets the engine learn,
-        inert without speculation. ``kind="embed"`` (A10), ``export_kv``
-        (A8(h)) and a nonzero ``adapter_id`` (A10) are not in this port
-        and raise."""
+        inert without speculation. ``export_kv``: stage this request's
+        committed KV as a shippable entry when it finishes (the router's
+        prefill leg; see ``LLMEngine.export_kv``). ``kind="embed"`` and a
+        nonzero ``adapter_id`` (A10) are not in this port and raise."""
         if self._crashed is not None:
             raise ServerClosed(
                 f"serving loop crashed: {self._crashed}") from self._crashed
@@ -402,9 +408,6 @@ class AsyncLLMServer:
         if kind == "embed":
             raise NotImplementedError(
                 "embedding requests are not ported yet: ROADMAP A10")
-        if export_kv:
-            raise NotImplementedError(
-                "export_kv is not ported yet: ROADMAP A8(h)")
         if readout_stride is not None and int(readout_stride) < 1:
             raise ValueError(f"readout_stride must be >= 1, got "
                              f"{readout_stride}")
@@ -444,7 +447,7 @@ class AsyncLLMServer:
                             if readout_stride is not None else None),
             spec_ewma=(float(spec_ewma) if spec_ewma is not None
                        else None),
-            trace_ctx=tc)
+            export_kv=bool(export_kv), trace_ctx=tc)
         handle = RequestHandle(self, req)
         rec = self.flight_recorder
         if self.shed_deadlines and deadline_s is not None:
@@ -666,6 +669,7 @@ class AsyncLLMServer:
                 committed_tokens=committed or None,
                 readout_stride=req.readout_stride,
                 spec_ewma=req.spec_ewma,
+                export_kv=req.export_kv,
                 trace_ctx=req.trace_ctx)
         except ValueError as e:
             self.telemetry.inc("requests_rejected_validation")
@@ -824,6 +828,13 @@ class AsyncLLMServer:
                           len(getattr(eng, "_spill", ())))
             tel.set_gauge("kv_host_spill_bytes",
                           getattr(eng, "_spill_bytes", 0))
+            for key in ("kv_ship_out_blocks", "kv_ship_in_blocks",
+                        "kv_ship_out_bytes", "kv_ship_in_bytes"):
+                cur = eng.stats.get(key, 0)
+                d = cur - self._ship_seen.get(key, 0)
+                if d > 0:
+                    tel.inc(key, d)
+                    self._ship_seen[key] = cur
             if getattr(eng, "prefix_cache", False):
                 tel.set_gauge("prefix_cached_blocks", len(eng._lru))
                 hit = eng.stats["prefix_hit_tokens"]

@@ -147,6 +147,11 @@ class ServeRequest:
     #: low-acceptance stream does not restart at the full window. None =
     #: let the engine learn
     spec_ewma: float | None = None
+    #: disaggregated serving: stage this request's committed KV as a
+    #: shippable export entry at its finish (the router sets it on the
+    #: PREFILL leg, so the decode replica imports instead of
+    #: re-prefilling). Inert on a dense engine.
+    export_kv: bool = False
     #: the request's distributed trace identity (minted at submit when
     #: absent) — preserved verbatim across restart re-admission and
     #: carried (hop-incremented) across ship/failover/retry

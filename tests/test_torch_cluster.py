@@ -689,23 +689,46 @@ def test_signatures_equal_the_reference(pair):
     assert sig(port) == sig(ref)
 
 
-@pytest.mark.parametrize("case", ["roles", "transport", "pull_on_miss",
-                                  "slo_report", "dump_debug_bundle"])
+@pytest.mark.parametrize("case", ["roles", "transport", "pull_on_miss"])
+def test_disaggregation_arguments_construct_as_the_reference(models, case):
+    """``roles``, ``transport`` and ``pull_on_miss`` construct as the
+    reference's do (tests/test_torch_kv_ship.py serves through them): the
+    same roles, transport and flag on both routers, one replica in both
+    role sets allowed; a role set that is empty or out of range raises
+    ValueError in both."""
+    jm, tm = models
+    kw = {"roles": {"roles": {"prefill": [0], "decode": [0]}},
+          "transport": {"transport": object()},
+          "pull_on_miss": {"pull_on_miss": True}}[case]
+    port = ReplicaRouter([AsyncLLMServer(
+        LLMEngine(tm, device="cpu", **_engine_kw()))], **kw)
+    ref = JRouter([JServer(JEngine(jm, **_engine_kw()))], **kw)
+    assert port.roles == ref.roles
+    assert port.pull_on_miss == ref.pull_on_miss
+    assert (port.transport is None) == (ref.transport is None)
+    if case == "transport":
+        assert port.transport is ref.transport is kw["transport"]
+    elif port.transport is not None:
+        assert type(port.transport).__name__ == \
+            type(ref.transport).__name__ == "InProcessTransport"
+    if case == "roles":
+        for bad in ({"prefill": [0], "decode": []},
+                    {"prefill": [1], "decode": [0]}):
+            for router, srv in ((ReplicaRouter, AsyncLLMServer(LLMEngine(
+                    tm, device="cpu", **_engine_kw()))),
+                    (JRouter, JServer(JEngine(jm, **_engine_kw())))):
+                with pytest.raises(ValueError, match="roles"):
+                    router([srv], roles=bad)
+
+
+@pytest.mark.parametrize("case", ["slo_report", "dump_debug_bundle"])
 def test_unported_parts_raise_naming_their_item(tm, tmp_path, case):
-    """Disaggregation and KV shipping raise naming ROADMAP A8(h), the
-    fleet SLO report and debug bundle naming A11; the module names no TP
-    engine builder (A14)."""
+    """The fleet SLO report and debug bundle raise naming A11; the module
+    names no TP engine factory (A14)."""
     import paddle_tpu_torch.serving.cluster as cluster
     assert not any(hasattr(cluster, n) for n in
                    ("tp_serving_mesh", "shard_model_tp", "tp_engine"))
     srv = AsyncLLMServer(LLMEngine(tm, device="cpu", **_engine_kw()))
-    kw = {"roles": {"roles": {"prefill": [0], "decode": [0]}},
-          "transport": {"transport": object()},
-          "pull_on_miss": {"pull_on_miss": True}}
-    if case in kw:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A8\(h\)"):
-            ReplicaRouter([srv], **kw[case])
-        return
     router = ReplicaRouter([srv])
     call = {"slo_report": router.slo_report,
             "dump_debug_bundle": lambda: router.dump_debug_bundle(

@@ -1726,3 +1726,104 @@ def test_router_on_card(cuda, monkeypatch):
     L = model.config.num_hidden_layers
     assert (n1[0] - n0[0], n1[1] - n0[1]) == (decode * L, mixed * L)
     assert not plain, plain
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_kv_ship_on_card(cuda, monkeypatch, quant):
+    """Cross-replica KV shipping on the card: a one-token leg's staged
+    blocks (copied down into pinned memory, materialized by waiting on
+    their own event) cross the PTKV wire into a second engine, whose
+    restore puts back the source's blocks bit for bit and recomputes one
+    position; then a disaggregated router over two replicas ships every
+    leg, the decode replica prefills one stitch token a migration, every
+    stream equals one engine's ``generate`` up to a near-tie, the paged
+    kernels take every step and no plain version runs."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    from paddle_tpu_torch.serving import (AsyncLLMServer, ReplicaRouter,
+                                          deserialize_entry, serialize_entry)
+    from paddle_tpu_torch.serving.kv_transport import pool_treedefs
+    model = _bf16_d128(cuda, kvh=2)
+    kw = dict(device=cuda, cache_impl="paged", scheduler="fused",
+              max_batch=2, max_seq_len=256, chunk_size=64, block_size=64,
+              kv_cache_dtype=quant)
+    rng = np.random.default_rng(19)
+    p = rng.integers(0, 512, 150).tolist()
+    src, dst = LLMEngine(model, **kw), LLMEngine(model, **kw)
+    rid = src.add_request(p, max_new_tokens=1, export_kv=True)
+    while src.has_unfinished():
+        src.step()
+    tok = src.finished_outputs.pop(rid).token_ids[0]
+    entry = src.export_kv(rid)
+    assert entry["ready"] and entry["n_blocks"] == 3
+    assert entry["kv"].is_pinned() and "event" not in entry
+    back = deserialize_entry(serialize_entry(entry), pool_treedefs(dst),
+                             pin_memory=True)
+    assert back["kv"].is_pinned()
+    seen = []
+    restore = dst._restore_blocks
+
+    def watched(e, lo, blocks):
+        restore(e, lo, blocks)
+        pairs = zip(*(eng._tier_pools()[0] + (eng._tier_pools()[1] or ())
+                      for eng in (src, dst)))
+        src_blocks = list(range(3))       # the leg's blocks, smallest first
+        seen.append(all(torch.equal(a[src_blocks[lo:lo + len(blocks)]],
+                                    b[blocks]) for a, b in pairs))
+
+    dst._restore_blocks = watched
+    assert dst.import_kv(back)
+    dst.add_request(p, max_new_tokens=8, request_id=rid,
+                    committed_tokens=[tok])
+    while dst.has_unfinished():
+        dst.step()
+    got = list(dst.finished_outputs.pop(rid).token_ids)
+    assert seen == [True] and dst.stats["prefill_tokens"] == 1
+    want = list(LLMEngine(model, **kw).generate(
+        [p], max_new_tokens=9)[0].token_ids)
+    assert got == want or all(m <= 0.05 for m in _first_parting_margin(
+        model, [p], [want], [got]))
+    # the disaggregated router on the card
+    prompts = [rng.integers(0, 512, 40 + 30 * i).tolist() for i in range(4)]
+    want = [list(o.token_ids) for o in LLMEngine(model, **kw).generate(
+        prompts, max_new_tokens=12)]
+    plain = []
+    for mod in (pa_mod, IF):
+        for name in ("paged_attention_decode_plain",
+                     "paged_attention_append_plain"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    replicas = [AsyncLLMServer(LLMEngine(model, **kw), replica=i)
+                for i in range(2)]
+    n0 = _paged_launches()
+    router = ReplicaRouter(replicas, roles={"prefill": [0], "decode": [1]})
+    router.start()
+    try:
+        outs = [h.result(timeout=300) for h in
+                [router.submit(q, max_new_tokens=12) for q in prompts]]
+        snap = router.snapshot()
+    finally:
+        errors = router.stop()
+    torch.cuda.synchronize()
+    n1 = _paged_launches()
+    assert errors == [] and router.num_outstanding() == 0
+    got = [list(o.token_ids) for o in outs]
+    assert all(len(g) == 12 for g in got)
+    assert got == want or all(m <= 0.05 for m in _first_parting_margin(
+        model, prompts, want, got))
+    assert router.stats["kv_shipped"] == 4
+    assert router.stats["kv_ship_fallback"] == 0
+    assert replicas[1].engine.stats["prefill_tokens"] == 4
+    assert snap["migrations_recorded"] == 4
+    mixed = sum(s.engine.stats["fused_steps"] for s in replicas)
+    decode = sum(s.engine.stats["steps"] for s in replicas) - mixed
+    L = model.config.num_hidden_layers
+    if quant is None:
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (decode * L, mixed * L)
+    else:
+        assert (n1[2][quant] - n0[2][quant], n1[3][quant] - n0[3][quant]) \
+            == (decode * L, mixed * L)
+    assert not plain, plain
+    for s in replicas:
+        assert not s.engine._swap_store and not s.engine._export_store

@@ -474,11 +474,10 @@ def test_c3_inert_values_are_accepted_and_stored(mha):
     (dict(readout_stride=0), ValueError, "readout_stride must be >= 1"),
     (dict(adapter_id=2), ValueError, "without an adapter_store"),
     (dict(kind="bogus"), ValueError, "unknown request kind"),
-    (dict(kind="embed"), NotImplementedError, r"ROADMAP A10"),
-    (dict(export_kv=True), NotImplementedError, r"ROADMAP A8\(h\)")])
+    (dict(kind="embed"), NotImplementedError, r"ROADMAP A10")])
 def test_c3_rejections(mha, kw, exc, match):
-    """The reference's validation errors, and the two values this port
-    cannot serve yet naming their ROADMAP items."""
+    """The reference's validation errors, and the value this port cannot
+    serve yet naming its ROADMAP item."""
     (p,) = _prompts(23, (5,))
     for scheduler in SCHEDULERS:
         eng = LLMEngine(mha[1], device="cpu", **_kw(scheduler=scheduler))
@@ -488,6 +487,29 @@ def test_c3_rejections(mha, kw, exc, match):
     if exc is ValueError:
         with pytest.raises(ValueError, match=match):
             _ref_engine(mha[0], **_kw()).add_request(p, **kw)
+
+
+@pytest.mark.parametrize("scheduler", SCHEDULERS)
+def test_export_kv_is_inert_on_a_dense_engine(mha, scheduler):
+    """``export_kv=True`` is accepted and stored, the stream is the plain
+    one, and ``export_kv()`` returns None (no pool to stage from), as on
+    the reference's dense engine; ``import_kv`` refuses."""
+    (p,) = _prompts(23, (5,))
+    eng = LLMEngine(mha[1], device="cpu", **_kw(scheduler=scheduler))
+    rid = eng.add_request(p, max_new_tokens=5, export_kv=True)
+    assert eng.waiting[0].export_kv is True
+    while eng.has_unfinished():
+        eng.step()
+    got = eng.finished_outputs.pop(rid)
+    ref = _ref_engine(mha[0], **_kw(scheduler=scheduler))
+    jrid = ref.add_request(p, max_new_tokens=5, export_kv=True)
+    while ref.has_unfinished():
+        ref.step()
+    assert list(got.token_ids) == list(
+        ref.finished_outputs.pop(jrid).token_ids)
+    assert eng.export_kv(rid) is None and ref.export_kv(jrid) is None
+    assert eng.stats["kv_ship_out_blocks"] == 0
+    assert eng.import_kv({"ready": True, "n_blocks": 1}) is False
 
 
 def test_throughput(mha):

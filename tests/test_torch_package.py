@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
 
 torch.set_num_threads(1)
 
@@ -69,9 +69,11 @@ def test_package_imports_without_nvcc(tmp_path):
         ".".join(f.relative_to(ROOT).with_suffix("").parts).replace(
             ".__init__", "")
         for f in (ROOT / "paddle_tpu_torch").rglob("*.py"))
+    assert "paddle_tpu_torch.serving.kv_transport" in mods
     code = "import importlib, sys\n" \
         f"for m in {mods!r}: importlib.import_module(m)\n" \
         "assert 'jax' not in sys.modules, 'jax imported'\n" \
+        "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'\n" \
         "ref = sorted(n for n in sys.modules if n == 'paddle_tpu' or " \
         "n.startswith('paddle_tpu.'))\n" \
         "assert not ref, f'reference modules imported: {ref}'\n" \

@@ -229,8 +229,13 @@ def test_submit_validation_is_synchronous(models):
         server.submit(np.ones((30,), np.int32))  # 4 blocks > pool of 2
     with pytest.raises(NotImplementedError, match="A10"):
         server.submit(np.ones((5,), np.int32), kind="embed")
-    with pytest.raises(NotImplementedError, match="A8\\(h\\)"):
-        server.submit(np.ones((5,), np.int32), export_kv=True)
+    # the KV-export flag is accepted and rides the request record (the
+    # router's prefill leg; tests/test_torch_kv_ship.py ships it)
+    h = server.submit(np.ones((5,), np.int32), max_new_tokens=2,
+                      export_kv=True)
+    assert h.request.export_kv is True
+    assert server.submit(np.ones((5,), np.int32),
+                         max_new_tokens=2).request.export_kv is False
     with pytest.raises(ValueError, match="readout_stride"):
         server.submit(np.ones((5,), np.int32), readout_stride=0)
     # a stride pin and a speculation EWMA seed are accepted (inert on
