@@ -306,6 +306,40 @@ Phases:
                 migration phases (information; the two replicas share one
                 card and one stream, so the split's p99 is no capacity
                 claim);
+  (d-xiii) sampling — on the 32-layer model: the threefry PRNG on the card
+                (known answers read off JAX on the CPU: threefry2x32,
+                PRNGKey, fold_in, split, bits and uniforms; random bits
+                and uniforms over [8, 32000] and [8, 6, 32000], one key
+                and a key a row, bit for bit the same functions on CPU
+                tensors); 20,000 draws of the engine's sampler from one
+                fixed row at top_k 50, top_p 0.9, temperature 0.8 under
+                distinct fold_in positions, none outside the keep set and
+                a chi-square against the filtered softmax at p > 1e-3;
+                sampled generate (B 8, prompt 512, 64 new tokens, 0.8 /
+                top_k 50 / 0.9) over the static and the paged cache: B1
+                once a layer in the prefill, B2 once a layer a step on the
+                paged arm, no plain version, no synchronizing call, and a
+                teacher-forced check (the no-cache forward over prompt +
+                output, each position re-sampled on the CPU under the same
+                keys: a token may differ only at a near-tie, the parted
+                pair's perturbed gap or the nearer token's distance to the
+                filter's edge under 0.05, and such near-ties are at most 5%
+                of the tokens); sampled serving through AsyncLLMServer with
+                sampling_seed 7, the (d) prompts every other one sampled
+                (0.8 / 0.9) and the rest greedy: the fused paged arm on 32
+                layers (the same stream check, with the engine's
+                per-(rid, position) keys), then on a 3-layer model at the
+                same widths a fused base and the arms legacy,
+                readout_stride 8, speculative_k 6 (fused grants over a
+                bf16 pool), the legacy dense scan (speculative_k 6), an
+                80-block pool with kv_host_swap (preempts, swaps and
+                restores) and an int8 pool: every arm's streams equal the
+                base's up to a first parting at a near-tie (the int8 arm's
+                drift reported, not gated), no synchronizing call in any
+                step_begin, kernels on every step; then (information) the
+                decode step's ms and tokens/s greedy against sampled in
+                one run, the device events and busy ms the sampler adds a
+                step, and the sampler alone (device ms, host us, events);
   (e) timing  — each kernel's time, its plain version's, a PyTorch library
                 call's where one computes the same function, and the
                 card's bound for the same work (B1's and B5's host µs per
@@ -385,8 +419,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.inference import LLMEngine
+from paddle_tpu_torch.inference import llm_engine as tle
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.kernels import _build
@@ -399,6 +436,7 @@ from paddle_tpu_torch.ops.kernels.fused_adamw import (
     fused_adamw_sr_update, fused_adamw_sr_update_plain, fused_adamw_update,
     fused_adamw_update_plain, sr_seed, tile_plan)
 from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.models.llama import GEN_WINDOW
 from paddle_tpu_torch.nn import quant as quant_mod
 from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
@@ -2045,7 +2083,7 @@ def drift(ref_toks, arm_toks):
             "token_parity": first_div is None}
 
 
-def serve_engine(eng, prompts, name, n_new=64, burst=False):
+def serve_engine(eng, prompts, name, n_new=64, burst=False, sampling=None):
     """The requests through AsyncLLMServer (default depth) over ``eng``
     with ``n_new`` new tokens each, every step_begin under the sync watch
     on the engine thread; B8's launches are counted per step by kind.
@@ -2054,6 +2092,8 @@ def serve_engine(eng, prompts, name, n_new=64, burst=False):
     arrived at one instant; thread timing otherwise decides how many ramps
     share the first steps, and so how much of a shared prompt head each
     misses, and with it whether a pressured pool preempts at all.
+    ``sampling``: per prompt, the submit's sampling arguments (None: every
+    request greedy).
     Gates: every request finishes with its tokens, no synchronizing call,
     no plain version, the server healthy at the end. Returns the arm's
     line (without the pool's fields) and its outputs."""
@@ -2098,7 +2138,9 @@ def serve_engine(eng, prompts, name, n_new=64, burst=False):
     with counting_plain() as plain_calls:
         server.start()
         t0 = clock["prev"] = time.perf_counter()
-        handles = [server.submit(p, max_new_tokens=n_new) for p in prompts]
+        handles = [server.submit(p, max_new_tokens=n_new,
+                                 **(sampling[i] if sampling else {}))
+                   for i, p in enumerate(prompts)]
         submitted.set()
         outs, resident = [], []
         for h in handles:
@@ -2166,7 +2208,8 @@ def serve_engine(eng, prompts, name, n_new=64, burst=False):
 
 
 def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
-              warm=None, tier=False, burst=False, **engine_kw):
+              warm=None, tier=False, burst=False, sampling=None,
+              **engine_kw):
     """One paged arm: the fused engine (or another, by ``engine_kw``) over
     ``n_blocks`` pool blocks of dtype ``quant`` through
     :func:`serve_engine`; the pool invariants hold at the end, and the arm
@@ -2174,8 +2217,8 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
     kind). ``warm``: a prompt the engine first generates 2 tokens for,
     then ``reset()`` and ``reset_stats()``, as the rungs warm. ``tier``:
     the line carries the host KV tier's counters and end state (every
-    block free or cached, the swap store empty). ``burst``: as in
-    :func:`serve_engine`."""
+    block free or cached, the swap store empty). ``burst`` and
+    ``sampling``: as in :func:`serve_engine`."""
     name = name or quant or "bf16"
     eng = make_fused_engine(model, dev, kv_pool_blocks=n_blocks,
                             kv_cache_dtype=quant, **engine_kw)
@@ -2184,7 +2227,7 @@ def serve_arm(model, dev, prompts, quant, n_blocks, name=None, n_new=64,
         torch.cuda.synchronize()
         eng.reset()
         eng.reset_stats()
-    arm, outs = serve_engine(eng, prompts, name, n_new, burst)
+    arm, outs = serve_engine(eng, prompts, name, n_new, burst, sampling)
     if tier:
         arm["tier"] = tier_report(eng, arm["wall_s"])
     launches = arm["launches"]
@@ -4864,6 +4907,548 @@ def run_disagg(dev):
 
 
 # ---------------------------------------------------------------------------
+# (d-xiii) sampling: threefry keys, the filtered categorical, sampled
+# generate and sampled serving
+# ---------------------------------------------------------------------------
+
+#: known answers read off jax 0.9.0 on the CPU (x64 on, as the reference
+#: runs it; the partitionable threefry mode): Random123's threefry2x32
+#: vectors, raw keys, folds, a split, and PRNGKey(0)'s first bits and
+#: float32 uniforms
+PRNG_KAT = {
+    "threefry": [((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                  (0xC4923A9C, 0x483DF7A0)),
+                 ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                 ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                  (0x1CB996FC, 0xBB002BE7))],
+    "prng_key": {0: [0, 0], 7: [0, 7], 2 ** 31 - 1: [0, 2 ** 31 - 1],
+                 2 ** 32 + 5: [1, 5]},
+    "fold_in_7_3": [276534068, 1641862660],
+    "fold_in_7_11_523": [1591046783, 308682254],
+    "split_42_3": [[1832780943, 270669613], [64467757, 2916123636],
+                   [2465931498, 255383827]],
+    "bits_0_4": [4070199207, 4202968722, 1427181096, 2012915765],
+    "uniform_0_3": [float.fromhex("0x1.e5349cp-1"),
+                    float.fromhex("0x1.f5086cp-1"),
+                    float.fromhex("0x1.544438p-2")],
+}
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+SAMPLE_TOP_K = 50          # generate's and the distribution check's top-k
+SAMPLE_SEED = 7            # the serving engines' sampling_seed
+SAMPLE_NEW = 64
+SAMPLE_DRAWS = 20000
+SAMPLE_CHI2_P = 1e-3
+SAMPLE_NEAR_TIE_SHARE = 0.05
+SAMPLE_SWAP_BLOCKS = 80    # about half of eight resident requests' demand
+SAMPLE_LAYERS = 3          # the serving arms' cut (step 4, but the fused)
+
+
+def _bits_equal(a, b):
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def prng_on_card(dev):
+    """Step 1: the known answers computed on the card, then random bits
+    and uniforms over [8, 32000] and [8, 6, 32000] (one key, and a key a
+    row over [32000]) on the card against the same functions on CPU
+    tensors, bit for bit; the Gumbel noise's largest ulp apart is
+    reported."""
+    kat = PRNG_KAT
+    ok = {}
+    ok["threefry"] = all(
+        [int(w) for w in prng.threefry_2x32(
+            torch.tensor(k[0], device=dev), torch.tensor(k[1], device=dev),
+            torch.tensor([x[0]], device=dev),
+            torch.tensor([x[1]], device=dev))] == list(y)
+        for k, x, y in kat["threefry"])
+    ok["prng_key"] = all(prng.PRNGKey(s, dev).tolist() == w
+                         for s, w in kat["prng_key"].items())
+    k7 = prng.PRNGKey(7, dev)
+    ok["fold_in"] = prng.fold_in(k7, 3).tolist() == kat["fold_in_7_3"] and \
+        prng.fold_in(prng.fold_in(k7, 11), 523).tolist() == \
+        kat["fold_in_7_11_523"]
+    ok["split"] = prng.split(prng.PRNGKey(42, dev), 3).tolist() == \
+        kat["split_42_3"]
+    k0 = prng.PRNGKey(0, dev)
+    ok["bits"] = prng.random_bits(k0, (4,)).tolist() == kat["bits_0_4"]
+    ok["uniform"] = prng.uniform(k0, (3,)).tolist() == kat["uniform_0_3"]
+    same, gumbel_ulps = {}, {}
+    key_c = prng.fold_in(prng.PRNGKey(SAMPLE_SEED), 1)
+    rows_c = prng.fold_in(prng.split(key_c, 8)[:, None],
+                          torch.arange(6)[None])           # [8, 6, 2]
+    for name, kc, shape in (("one_key_8x32000", key_c, (8, 32000)),
+                            ("one_key_8x6x32000", key_c, (8, 6, 32000)),
+                            ("row_keys_8x32000", prng.split(key_c, 8),
+                             (32000,)),
+                            ("row_keys_8x6x32000", rows_c, (32000,))):
+        kg = kc.to(dev)
+        same[name] = _bits_equal(prng.random_bits(kg, shape),
+                                 prng.random_bits(kc, shape)) and \
+            _bits_equal(prng.uniform(kg, shape).view(torch.int32),
+                        prng.uniform(kc, shape).view(torch.int32))
+        g_gpu = prng.gumbel(kg, shape).cpu().view(torch.int32).long()
+        g_cpu = prng.gumbel(kc, shape).view(torch.int32).long()
+        gumbel_ulps[name] = int((g_gpu - g_cpu).abs().max())
+    line = {"known_answers": ok, "card_equals_cpu": same,
+            "gumbel_max_ulps_card_vs_cpu": gumbel_ulps}
+    require(all(ok.values()), f"sampling: PRNG known answers on the card: "
+            f"{ok}")
+    require(all(same.values()), f"sampling: bits/uniforms on the card "
+            f"differ from the CPU's: {same}")
+    return line
+
+
+def sample_distribution(dev):
+    """Step 2: one fixed logits row (seeded, V 32000), top_k 50, top_p
+    0.9, temperature 0.8: SAMPLE_DRAWS draws through the engine's
+    ``_sample_next`` on the card under distinct ``fold_in`` positions of
+    one rid; no draw outside the keep set, and a chi-square against the
+    filtered softmax (expected counts under 5 pooled) at p >
+    SAMPLE_CHI2_P."""
+    from scipy import stats
+    V = 32000
+    rng = np.random.default_rng(13)
+    row = torch.from_numpy((rng.standard_normal(V) * 2).astype(np.float32)) \
+        .to(dev)
+    t = torch.tensor(SAMPLED["temperature"], device=dev)
+    p = torch.tensor(SAMPLED["top_p"], device=dev)
+    filtered = tllama._filter_logits(row[None], t, SAMPLE_TOP_K, p, True)[0]
+    keep = torch.isfinite(filtered).cpu()
+    probs = torch.softmax(filtered.double(), dim=-1).cpu()
+    base = prng.PRNGKey(SAMPLE_SEED, dev)
+    counts = torch.zeros(V, dtype=torch.int64, device=dev)
+    chunk = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, SAMPLE_DRAWS, chunk):
+        n = min(chunk, SAMPLE_DRAWS - lo)
+        samp = tle._Sampling(base, torch.full((n,), SAMPLED["temperature"],
+                                              device=dev),
+                             torch.full((n,), SAMPLED["top_p"], device=dev),
+                             torch.full((n,), 3, dtype=torch.int64,
+                                        device=dev), SAMPLE_TOP_K)
+        toks = tle._sample_next(row.expand(n, V), samp,
+                                torch.arange(lo, lo + n, device=dev))
+        counts += torch.bincount(toks.long(), minlength=V)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    counts = counts.cpu()
+    outside = int(counts[~keep].sum())
+    obs = counts[keep].double().numpy()
+    exp = probs[keep].numpy() * SAMPLE_DRAWS
+    small = exp < 5
+    if small.any():
+        obs = np.append(obs[~small], obs[small].sum())
+        exp = np.append(exp[~small], exp[small].sum())
+    exp *= obs.sum() / exp.sum()
+    chi2, pval = stats.chisquare(obs, exp)
+    line = {"draws": SAMPLE_DRAWS, "keep_set": int(keep.sum()),
+            "bins": len(obs), "outside_keep_set": outside,
+            "chi2": float(chi2), "p_value": float(pval),
+            "draw_s": draw_s}
+    require(outside == 0, f"sampling: {outside} draws outside the keep set")
+    require(pval > SAMPLE_CHI2_P, f"sampling: chi-square p {pval} <= "
+            f"{SAMPLE_CHI2_P}: {line}")
+    return line
+
+
+def _scores(rows, key, shape, temp, top_k, top_p):
+    """Re-sample ``rows [R, V]`` (no-cache logits, float32, on the CPU)
+    under ``key`` (one key over the block, or ``[R, 2]`` a key a row with
+    ``shape`` (V,)) as the sampler does. Returns the tokens, the
+    unfiltered perturbed scores (scaled logits plus the Gumbel noise),
+    the scaled logits and each row's filter edge (its smallest kept
+    scaled logit)."""
+    t = torch.tensor(temp)
+    f = tllama._filter_logits(rows, t, top_k, torch.tensor(top_p), True)
+    noise = prng.gumbel(key, shape)
+    scaled = rows.float() / t
+    cut = f.masked_fill(~torch.isfinite(f), float("inf")).amin(dim=-1)
+    return torch.argmax(f + noise, dim=-1), scaled + noise, scaled, cut
+
+
+def _explain(raw, scaled, cut, a, b):
+    """Why tokens ``a`` and ``b`` (a token a row) may part: their
+    perturbed scores' gap, and the nearer one's distance to the filter's
+    edge, where a bf16 rounding moves a token in or out of the top-k or
+    the nucleus. Either under MARGIN is a near-tie; inf where a == b."""
+    pick = lambda x, tok: x.gather(1, tok[:, None])[:, 0]   # noqa: E731
+    gap = (pick(raw, a) - pick(raw, b)).abs()
+    edge = torch.minimum((pick(scaled, a) - cut).abs(),
+                         (pick(scaled, b) - cut).abs())
+    inf = torch.full_like(gap, float("inf"))
+    return torch.where(a == b, inf, gap), torch.where(a == b, inf, edge)
+
+
+def _tally(got, want, gap, edge, margin=MARGIN):
+    """Counts of a checked block of tokens: every token, those that differ
+    at a near-tie (a perturbed gap or an edge distance under ``margin``)
+    and those that differ otherwise (unexplained)."""
+    diff = got != want
+    near = (gap < margin) | (edge < margin)
+    return {"checked": int(got.numel()), "near_ties": int((diff & near).sum()),
+            "unexplained": int((diff & ~near).sum()),
+            "parted": [[round(float(g), 5), round(float(e), 5)]
+                       for g, e in zip(gap[diff], edge[diff])]}
+
+
+def _add_tally(a, b):
+    """Sum two tallies (the ``parted`` lists, (gap, edge) of each token
+    that differs, joined up to 16)."""
+    out = {k: a.get(k, 0) + b[k] for k in b if k != "parted"}
+    out["parted"] = (a.get("parted", []) + b["parted"])[:16]
+    return out
+
+
+def sampled_generate(model, dev):
+    """Step 3: sampled ``generate`` at B 8, prompt 512, SAMPLE_NEW new
+    tokens, temperature 0.8, top_k 50, top_p 0.9, over the static and the
+    paged cache of the 32-layer model (after a short warm call), the
+    generator at (SAMPLE_SEED, 0) before each. Gates: B1 once a layer in
+    the prefill, B2 once a layer a step on the paged arm (none on the
+    static), no plain version, no synchronizing call; then the
+    teacher-forced check: the no-cache forward over prompt + output on
+    the card, each position re-sampled on the CPU under the same key
+    chain (``fold_in(PRNGKey(7), 1)``, split once a step); a token may
+    differ only at a near-tie (:func:`_explain`), and those near-ties are
+    at most SAMPLE_NEAR_TIE_SHARE of the tokens."""
+    ids = gen_ids(model.config.vocab_size).to(dev)
+    L = model.config.num_hidden_layers
+    kw = dict(temperature=SAMPLED["temperature"], top_k=SAMPLE_TOP_K,
+              top_p=SAMPLED["top_p"])
+    arms, launches = {}, collections.Counter()
+    for cache_impl in ("static", "paged"):
+        model.generate(ids, max_new_tokens=GEN_SHORT, cache_impl=cache_impl,
+                       **kw)
+        torch.cuda.synchronize()
+        trandom.default_generator.set_state((SAMPLE_SEED, 0))
+        reset_kernel_counts()
+        flash_attention_fwd.launches = 0
+        syncs = []
+        with counting_plain() as plain:
+            t0 = time.perf_counter()
+            with sync_watch(syncs):
+                out = model.generate(ids, max_new_tokens=SAMPLE_NEW,
+                                     cache_impl=cache_impl, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {"b1_flash": flash_attention_fwd.launches,
+                  **kernel_counts(), "b8_int4": int4_matmul.launches}
+        launches.update({"b1": counts["b1_flash"],
+                         "b2_decode": counts["b2_decode"]})
+        toks = out.cpu()
+        # teacher-forced: the no-cache forward's rows for every token
+        with torch.no_grad():
+            seq = torch.cat([ids, out[:, :-1]], dim=1)
+            rows = model(seq)[:, GEN_PROMPT - 1:].float().cpu()
+        rkey = prng.fold_in(prng.PRNGKey(SAMPLE_SEED), 1)
+        tally = {}
+        for i in range(SAMPLE_NEW):
+            rkey, sub = prng.split(rkey)
+            want, raw, scaled, cut = _scores(
+                rows[:, i], sub, rows[:, i].shape, kw["temperature"],
+                SAMPLE_TOP_K, kw["top_p"])
+            got = toks[:, i]
+            tally = _add_tally(tally, _tally(
+                got, want, *_explain(raw, scaled, cut, got, want)))
+        arm = {"cache_impl": cache_impl, "wall_s": wall,
+               "tokens_per_s": GEN_B * SAMPLE_NEW / wall,
+               "launches": counts, "plain_calls": dict(plain),
+               "syncs": len(syncs), "sync_messages": sorted(set(syncs))[:5],
+               "near_tie_share": tally["near_ties"] / tally["checked"],
+               **tally}
+        arms[cache_impl] = arm
+        b2 = L * (SAMPLE_NEW - 1) if cache_impl == "paged" else 0
+        require(tuple(toks.shape) == (GEN_B, SAMPLE_NEW),
+                f"sampled generate {cache_impl}: shape {tuple(toks.shape)}")
+        require(counts["b1_flash"] == L and counts["b2_decode"] == b2 and
+                not plain and not syncs and all(
+                    n == 0 for k, n in counts.items()
+                    if k not in ("b1_flash", "b2_decode")),
+                f"sampled generate {cache_impl}: {arm}")
+        require(arm["unexplained"] == 0 and
+                arm["near_tie_share"] <= SAMPLE_NEAR_TIE_SHARE,
+                f"sampled generate {cache_impl}: teacher-forced check "
+                f"{tally}")
+    return arms, launches
+
+
+def _stream_check(model, dev, prompts, streams, sampling, top_k):
+    """Each request's tokens against a no-cache forward over its prefix:
+    greedy requests by the argmax's margin, sampled ones re-sampled on the
+    CPU under the serving engines' per-(rid, position) keys
+    ``fold_in(fold_in(PRNGKey(SAMPLE_SEED), rid), position)`` (rid = the
+    request's index, as a fresh server numbers them). Returns the tallies
+    of the greedy and the sampled half."""
+    base = prng.PRNGKey(SAMPLE_SEED)
+    tallies = {"greedy": {}, "sampled": {}}
+    with torch.no_grad():
+        for rid, (p, toks, smp) in enumerate(zip(prompts, streams,
+                                                 sampling)):
+            seq = np.concatenate([p, np.asarray(toks[:-1], np.int32)])
+            rows = model(torch.from_numpy(seq[None]).to(dev))[0, len(p) - 1:]
+            rows = rows.float().cpu()
+            got = torch.tensor(toks)
+            if not smp:
+                top2 = torch.topk(rows, 2, dim=-1)
+                margin = top2.values[:, 0] - top2.values[:, 1]
+                t = _tally(got, top2.indices[:, 0], margin,
+                           torch.full_like(margin, float("inf")))
+                tallies["greedy"] = _add_tally(tallies["greedy"], t)
+                continue
+            pos = torch.arange(len(p), len(p) + len(toks))
+            keys = prng.fold_in(prng.fold_in(base, rid), pos)
+            want, raw, scaled, cut = _scores(
+                rows, keys, (rows.shape[-1],), smp["temperature"], top_k,
+                smp["top_p"])
+            tallies["sampled"] = _add_tally(tallies["sampled"], _tally(
+                got, want, *_explain(raw, scaled, cut, got, want)))
+    return tallies
+
+
+def _sampled_parting(model, dev, prompts, want, got, sampling, top_k):
+    """Where two arms' streams part: per request that differs, the first
+    step and, on the no-cache forward over the prompt and the common
+    prefix, the logits' top-1/top-2 margin (greedy) or the two tokens'
+    :func:`_explain` (sampled). Under MARGIN is a near-tie: the arms'
+    bf16 products round apart."""
+    base = prng.PRNGKey(SAMPLE_SEED)
+    parts = []
+    with torch.no_grad():
+        for rid, (p, a, b, smp) in enumerate(zip(prompts, want, got,
+                                                 sampling)):
+            if a == b:
+                continue
+            n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            seq = np.concatenate([p, np.asarray(a[:n], np.int32)])
+            row = model(torch.from_numpy(seq[None]).to(dev))[0, -1].float()
+            row = row.cpu()[None]
+            part = {"request": rid, "step": n, "sampled": bool(smp)}
+            if n >= min(len(a), len(b)):
+                part.update(gap=float("inf"), edge=float("inf"))
+            elif not smp:
+                top2 = torch.topk(row[0], 2).values
+                part.update(gap=float(top2[0] - top2[1]), edge=float("inf"))
+            else:
+                key = prng.fold_in(prng.fold_in(base, rid), len(p) + n)
+                _, raw, scaled, cut = _scores(
+                    row, key[None], (row.shape[-1],), smp["temperature"],
+                    top_k, smp["top_p"])
+                gap, edge = _explain(raw, scaled, cut, torch.tensor([a[n]]),
+                                     torch.tensor([b[n]]))
+                part.update(gap=float(gap[0]), edge=float(edge[0]))
+            part["near_tie"] = part["gap"] < MARGIN or part["edge"] < MARGIN
+            parts.append(part)
+    return parts
+
+
+def sampling_arm_model(dev):
+    return build_model(dev, num_hidden_layers=SAMPLE_LAYERS)
+
+
+def sampled_serving(model, dev):
+    """Step 4: the (d) serving prompts through AsyncLLMServer, every other
+    one sampled (0.8 / 0.9, the engine's top_k 0: the full-sort nucleus),
+    the rest greedy, every engine at ``sampling_seed=SAMPLE_SEED``. The
+    fused paged arm on the 32-layer model passes the stream check (greedy
+    margin, sampled teacher-forced, near-tie share at most
+    SAMPLE_NEAR_TIE_SHARE). On a 3-layer model at the same widths the
+    arms fused (the base), legacy, ``readout_stride=8``,
+    ``speculative_k=6`` (fused grants over a bf16 paged pool), the legacy
+    dense scan (``speculative_k=6``), a SAMPLE_SWAP_BLOCKS-block pool
+    with ``kv_host_swap=True`` and an int8 pool: each arm's streams equal
+    the base's up to a first parting at a near-tie (the int8 arm's drift
+    is reported, not gated, as (d'')'s). serve_engine gates every arm on
+    its tokens, no synchronizing call in ``step_begin``, no plain version
+    and a healthy server; the paged arms also on their launches."""
+    prompts = serving_prompts(model.config.vocab_size)
+    sampling = [SAMPLED if i % 2 else {} for i in range(len(prompts))]
+    total = collections.Counter()
+    full = 8 * 2048 // 64
+    arm32, toks32 = serve_arm(model, dev, prompts, None, full,
+                              name="fused_32", sampling=sampling,
+                              sampling_seed=SAMPLE_SEED)
+    total.update(arm32["launches"])
+    check32 = _stream_check(model, dev, prompts, toks32, sampling, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m3 = sampling_arm_model(dev)
+    arms, toks = {}, {}
+    paged = dict(base=dict(), legacy=dict(scheduler="legacy"),
+                 swap=dict(kv_host_swap=True),
+                 int8=dict(kv_cache_dtype="int8"))
+    blocks = dict(swap=SAMPLE_SWAP_BLOCKS)
+    for name, kw in paged.items():
+        q = kw.pop("kv_cache_dtype", None)
+        arms[name], toks[name] = serve_arm(
+            m3, dev, prompts, q, blocks.get(name, full), name=name,
+            burst=name == "swap", sampling=sampling, tier=name == "swap",
+            sampling_seed=SAMPLE_SEED, **kw)
+        total.update(arms[name]["launches"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    L3 = SAMPLE_LAYERS
+    for name, kw in (("stride8", dict(readout_stride=8)),
+                     ("spec6", dict(speculative_k=6))):
+        eng = make_fused_engine(m3, dev, sampling_seed=SAMPLE_SEED, **kw)
+        arms[name], outs = serve_engine(eng, prompts, name,
+                                        sampling=sampling)
+        toks[name] = [list(o.token_ids) for o in outs]
+        c = arms[name]["launches"]
+        total.update(c)
+        if name == "stride8":
+            ok = c["b2_decode"] % L3 == 0 and c["b2_decode"] > 0 and \
+                c["b3_append"] == arms[name]["mixed_steps"] * L3
+        else:
+            ok = c["b2_decode"] == 0 and c["b3_append"] > 0 and \
+                c["b3_append"] % L3 == 0 and \
+                eng.stats["spec_proposed_tokens"] > 0
+        require(ok and all(n == 0 for k, n in c.items()
+                           if k not in ("b2_decode", "b3_append")),
+                f"sampled serving {name}: launches {c}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng = LLMEngine(m3, max_batch=8, chunk_size=256, max_seq_len=2048,
+                    speculative_k=6, sampling_seed=SAMPLE_SEED, device=dev)
+    arms["legacy_scan"], outs = serve_engine(eng, prompts, "legacy_scan",
+                                             sampling=sampling)
+    toks["legacy_scan"] = [list(o.token_ids) for o in outs]
+    require(all(n == 0 for n in arms["legacy_scan"]["launches"].values())
+            and eng.stats["spec_proposed_tokens"] > 0,
+            f"sampled serving legacy_scan: {arms['legacy_scan']['launches']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    sw = arms["swap"]
+    require(sw["preemptions"] >= 1 and sw["tier"]["kv_swap_in_blocks"] >= 1
+            and sw["tier"]["swap_store_empty"]
+            and sw["tier"]["blocks_free_or_cached"],
+            f"sampled serving swap: {sw['preemptions']} preemptions, tier "
+            f"{sw['tier']}")
+    parts = {name: _sampled_parting(m3, dev, prompts, toks["base"],
+                                    toks[name], sampling, 0)
+             for name in toks if name not in ("base", "int8")}
+    base_check = _stream_check(m3, dev, prompts, toks["base"], sampling, 0)
+    del m3
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in arms:
+        arms[name].pop("stage_shares", None)
+    line = {"fused_32": {**arm32, "check": check32},
+            "arms_3_layers": arms, "base_check": base_check,
+            "partings": parts,
+            "int8_drift_vs_base": drift(toks["base"], toks["int8"]),
+            "token_exact": {k: not p for k, p in parts.items()}}
+    for name, chk in (("fused_32", check32), ("base", base_check)):
+        n = chk["sampled"]
+        require(chk["greedy"]["unexplained"] == 0 and n["unexplained"] == 0
+                and n["near_ties"] <= SAMPLE_NEAR_TIE_SHARE * n["checked"],
+                f"sampled serving {name}: stream check {chk}")
+    for name, ps in parts.items():
+        require(all(p["near_tie"] for p in ps),
+                f"sampled serving {name} parts from the base beyond a "
+                f"near-tie: {ps}")
+    return line, dict(total)
+
+
+def sampler_cost(model, dev):
+    """Step 5 (information): decode-step ms and tokens/s of a fused paged
+    engine on the 32-layer model, 8 requests of the generate prompts past
+    their ramp, greedy and then sampled, in one run; one step of each
+    traced (device busy ms and device events a step); and the sampler
+    alone at B 8 (``_sample_next`` with the engine's top_k 0 and with
+    top_k 50): its device ms (CUDA events) and its launches (traced)."""
+    ids = gen_ids(model.config.vocab_size)
+    out = {}
+    for mode, smp in (("greedy", {}), ("sampled", SAMPLED)):
+        eng = make_fused_engine(model, dev, sampling_seed=SAMPLE_SEED)
+        for r in ids.numpy():
+            eng.add_request(r.astype(np.int32), max_new_tokens=64, **smp)
+        while any(s is None or s.ramping for s in eng.slots):
+            eng.step()
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        win = device_breakdown(prof, wall, 1)
+        ms = float(np.median(walls)) * 1e3
+        out[mode] = {"decode_step_ms_median": ms,
+                     "tokens_per_s": GEN_B / ms * 1e3,
+                     "traced_step": win}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    logits = torch.randn((GEN_B, model.config.vocab_size), device=dev)
+    lens = torch.full((GEN_B,), 600, dtype=torch.int32, device=dev)
+    alone = {}
+    for top_k in (0, SAMPLE_TOP_K):
+        samp = tle._Sampling(prng.PRNGKey(SAMPLE_SEED, dev),
+                             torch.full((GEN_B,), 0.8, device=dev),
+                             torch.full((GEN_B,), 0.9, device=dev),
+                             torch.arange(GEN_B, device=dev), top_k)
+
+        def fn():
+            tle._sample_next(logits, samp, lens)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        win = device_breakdown(prof, 1.0, 1)
+        # a call enqueues ~580 launches (~13 ms of host): over 5 reps the
+        # spin still holds the card while the host enqueues, and one call's
+        # launches fit CUDA's launch queue, so the host never waits
+        alone[f"top_k_{top_k}"] = {
+            "device_ms": cuda_ms(fn, 5), "host_us": host_us(fn, 1),
+            "device_events": win["events_per_step"] if win else None}
+    g, s = out["greedy"]["traced_step"], out["sampled"]["traced_step"]
+    return {"engine": out, "sampler_alone": alone,
+            "events_added_per_step": (s["events_per_step"]
+                                      - g["events_per_step"])
+            if g and s else None,
+            "device_ms_added_per_step": (s["device_busy_ms_per_step"]
+                                         - g["device_busy_ms_per_step"])
+            if g and s else None,
+            "sampled_vs_greedy_step_ms":
+                out["sampled"]["decode_step_ms_median"]
+                / out["greedy"]["decode_step_ms_median"]}
+
+
+def run_sampling(model, dev):
+    """Phase (d-xiii) on the smoke's 32-layer model: steps 1-5 (see each).
+    Returns the phase's launches of B1, B2, B3 and B4 (int8) for the
+    kernels line."""
+    t_phase = time.perf_counter()
+    line = {"phase": "sampling", "card": card_line()}
+    line["prng"] = prng_on_card(dev)
+    line["distribution"] = sample_distribution(dev)
+    torch.cuda.empty_cache()
+    line["generate"], gen_launches = sampled_generate(model, dev)
+    torch.cuda.empty_cache()
+    line["serving"], serve_launches = sampled_serving(model, dev)
+    torch.cuda.empty_cache()
+    line["cost"] = sampler_cost(model, dev)
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    total = collections.Counter(serve_launches)
+    total["b2_decode"] += gen_launches["b2_decode"]
+    return {"b1": gen_launches["b1"], **total}
+
+
+# ---------------------------------------------------------------------------
 # (f) training
 # ---------------------------------------------------------------------------
 
@@ -5393,6 +5978,8 @@ def main():
     torch.cuda.empty_cache()
     disagg_launches = run_disagg(dev)
     torch.cuda.empty_cache()
+    sampling_launches = run_sampling(model, dev)
+    torch.cuda.empty_cache()
 
     ft, pt, at = time_flash(dev), time_paged(dev), time_append(dev)
     qt = {q: (time_paged_quant(dev, q), time_append_quant(dev, q))
@@ -5444,7 +6031,8 @@ def main():
         {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_REPLACES,
          "launches": flash_launches + train_launches["flash_attention_fwd"]
-         + gen_launches["b1"] + gen_int4_launches["b1"],
+         + gen_launches["b1"] + gen_int4_launches["b1"]
+         + sampling_launches["b1"],
          "max_abs_err": flash_err, "ms": ft["ms"], "plain_ms": ft["plain_ms"],
          "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
          "library_ms": ft["library_ms"]},
@@ -5454,7 +6042,8 @@ def main():
          + gen_launches["b2"] + prefix_launches.get("b2_decode", 0)
          + dense_launches["b2_decode"] + rung_launches["b2_decode"]
          + spec_launches["b2_decode"] + tier_launches["b2_decode"]
-         + cluster_launches["b2_decode"] + disagg_launches["b2_decode"],
+         + cluster_launches["b2_decode"] + disagg_launches["b2_decode"]
+         + sampling_launches["b2_decode"],
          "max_abs_err": paged_err, "ms": pt["ms"],
          "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
          "bound_by": pt["bound_by"], "library_ms": pt["library_ms"]},
@@ -5463,7 +6052,8 @@ def main():
          "launches": append_launches + prefix_launches.get("b3_append", 0)
          + dense_launches["b3_append"] + rung_launches["b3_append"]
          + spec_launches["b3_append"] + tier_launches["b3_append"]
-         + cluster_launches["b3_append"] + disagg_launches["b3_append"],
+         + cluster_launches["b3_append"] + disagg_launches["b3_append"]
+         + sampling_launches["b3_append"],
          "max_abs_err": append_err,
          "ms": at["ms"], "plain_ms": at["plain_ms"],
          "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -5504,7 +6094,8 @@ def main():
                  "source": src, "replaces": replaces,
                  "launches": n + prefix_launches.get(f"b4_{form}_{q}", 0)
                  + tier_launches.get(f"b4_{form}_{q}", 0)
-                 + disagg_launches.get(f"b4_{form}_{q}", 0),
+                 + disagg_launches.get(f"b4_{form}_{q}", 0)
+                 + sampling_launches.get(f"b4_{form}_{q}", 0),
                  "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})

@@ -14,6 +14,14 @@ recompute segment enters a scope with a seed drawn before the segment, so
 its replay draws the same seeds again, as the reference's segment folds
 the same key (``distributed/fleet/recompute.py:84-86``); ``TrainStep``
 enters one per step.
+
+:class:`Generator` and ``default_generator`` are the reference's host-side
+(seed, counter) pair (``:36-121``): ``next_seed`` counts a draw and
+returns the pair, which ``LlamaForCausalLM.generate`` and an
+``LLMEngine`` without ``sampling_seed`` fold into their threefry base key
+(:mod:`paddle_tpu_torch.core.prng`). :func:`seed` reseeds it, as
+``paddle.seed`` does; tests hold the two packages in step by setting
+both generators' states alike.
 """
 from __future__ import annotations
 
@@ -30,6 +38,49 @@ def _scopes() -> list:
     if not hasattr(_local, "scopes"):
         _local.scopes = []
     return _local.scopes
+
+
+class Generator:
+    """A seed and a count of draws, on the host (reference
+    ``core/random.py:36-90``): every ``next_seed`` advances the count."""
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed: int):
+        with self._lock:
+            self._seed = int(seed)
+            self._counter = 0
+        return self
+
+    def initial_seed(self) -> int:
+        return self._seed
+
+    def next_seed(self):
+        """Count a draw; returns the fresh ``(seed, counter)`` pair."""
+        with self._lock:
+            self._counter += 1
+            return (self._seed, self._counter)
+
+    def get_state(self):
+        with self._lock:
+            return (self._seed, self._counter)
+
+    def set_state(self, state):
+        seed, counter = state
+        with self._lock:
+            self._seed = int(seed)
+            self._counter = int(counter)
+
+
+default_generator = Generator(0)
+
+
+def seed(value: int):
+    """Reseed the global generator (``paddle.seed``); returns it."""
+    default_generator.manual_seed(value)
+    return default_generator
 
 
 def make_generator(seed: int, device) -> torch.Generator:

@@ -45,21 +45,32 @@ kernel and blocks allocate chunk by chunk inside the scheduler, exactly
 (not chunk-rounded). The block allocator lives on the host (min-heap of
 free blocks, one reference per block); when the pool runs dry the newest
 slot is PREEMPTED back to the waiting queue and re-prefills on
-re-admission, so greedy output is unchanged.
+re-admission, so greedy and sampled output is unchanged.
 
-Both are greedy (``temperature <= 0``) from the carried logits; eos,
-budget and capacity deactivate a slot on the device, and the host retires
-it at readout.
+Both sample each slot's next token from its carried logits
+(:func:`_sample_next`, reference ``sample_next``): the argmax when the
+request is greedy (``temperature <= 0``), else the temperature / top-k /
+top-p filtered categorical (the engine's static ``top_k``, the request's
+``top_p``) under the threefry key ``fold_in(fold_in(base, rid),
+position)``. The base key (``sampling_seed``, else one
+``default_generator`` draw) is made once at the first step and never
+advances, so a sampled stream is a function of (base, rid, positions):
+preemption replay, the host tier's restores, a supervised restart and a
+migration to a replica with the same ``sampling_seed`` all continue it
+token for token. A dispatch whose resident slots are all greedy skips
+the sampler. Eos, budget and capacity deactivate a slot on the device,
+and the host retires it at readout.
 
 ``speculative_k=k > 1`` serves speculative VERIFY windows (reference
 ``llm_engine.py:1156-1371``, ``:3905-4149``): each window commits the
 token sampled from the carried logits plus up to ``k - 1`` prompt-lookup
 drafts read on the device from a ``[B, capacity]`` token history
 (``_lookup_draft``), all verified by ONE model call over the window.
-Acceptance is the coupled greedy rule (``_verify_window``): draft j
-survives iff it equals the argmax at its position and every earlier
-draft did, so the stream is the plain engine's token for token; rejected
-tails roll back through the lens. Two schedulers carry it:
+Acceptance is the coupled rule (``_verify_window``): draft j survives
+iff it equals the token the plain engine would commit at its position
+(the argmax, or the sample under that position's key) and every earlier
+draft did, so greedy and sampled streams are the plain engine's token for
+token; rejected tails roll back through the lens. Two schedulers carry it:
 
 * legacy, dense only (the reference's default speculation, ``spec_step``,
   ``llm_engine.py:1212-1268``): every all-decode step runs ``horizon``
@@ -162,9 +173,7 @@ bytes.
 
 Not in this port yet (each raises ``NotImplementedError``): verify
 windows over int8/int4 pools (ROADMAP A8(e), second half), LoRA
-adapters and meshes;
-sampling with ``temperature > 0`` waits for the threefry port (ROADMAP
-A7). The reference's
+adapters and meshes. The reference's
 ``PADDLE_TPU_TRANSFER_CHECKS=1`` stride guard (a thread-local
 ``jax.transfer_guard``) has no thread-local torch form and is not ported
 (ROADMAP A11).
@@ -177,15 +186,18 @@ import hashlib
 import heapq
 import os
 import time
+import typing
 import warnings
 
 import numpy as np
 import torch
 
+from ..core import prng
+from ..core import random as _random
 from ..core.device import resolve_device
 from ..incubate.nn.functional import _kv_quant_gather
 from ..models.llama import (ChunkKVCache, PagedKVCache, SlotKVCache,
-                            StaticKVCache)
+                            StaticKVCache, _sample_logits_device)
 from ..ops.kernels.paged_attention import (kv_block_scale, kv_packed_dim,
                                            kv_quantize)
 
@@ -294,18 +306,69 @@ def _write_window(tokens_buf, window, lens, mask=None):
     tokens_buf.scatter_(1, cols, new)
 
 
-def _verify_window(logits_win, draft, q_eff, active):
-    """The coupled greedy acceptance rule over ONE verify window (reference
+class _Sampling(typing.NamedTuple):
+    """One dispatch's sampling inputs on the device: the engine's base key
+    ``[2]``, per-slot ``temps``/``top_ps`` float32 ``[B]`` and ``rids``
+    ``[B]``, and the engine's static ``top_k``. A dispatch whose resident
+    slots are all greedy carries None instead and never runs the
+    sampler."""
+    key: torch.Tensor
+    temps: torch.Tensor
+    top_ps: torch.Tensor
+    rids: torch.Tensor
+    top_k: int
+
+
+def _row_sample(logits_rows, samp, poss):
+    """The token the engine commits at each row's position (reference
+    ``row_sample`` and ``sample_next``, ``llm_engine.py:1015-1041``,
+    ``:1159-1181``): ``logits_rows [B, R, V]`` at positions ``poss [B,
+    R]``; the argmax on greedy rows (every row when ``samp`` is None),
+    else the filtered categorical under ``fold_in(fold_in(key, rid),
+    position)`` at the slot's temperature (floored at 1e-6), its
+    ``top_p`` (the nucleus always on) and the engine's ``top_k``. So the
+    token at position ``p`` of request ``r`` is a function of (base key,
+    ``r``, ``p``) alone: batch composition, preemption replay, a restart,
+    a migration and a verify window cannot change a sampled stream, and
+    the base key never advances. int32 ``[B, R]``."""
+    greedy = torch.argmax(logits_rows, dim=-1).to(torch.int32)
+    if samp is None:
+        return greedy
+    k_rids = prng.fold_in(samp.key, samp.rids)               # [B, 2]
+    keys = prng.fold_in(k_rids[:, None], poss)                # [B, R, 2]
+    temps = torch.clamp(samp.temps, min=1e-6)[:, None, None]
+    sampled = _sample_logits_device(
+        logits_rows, keys, temps, samp.top_k, samp.top_ps[:, None, None],
+        False, True).to(torch.int32)
+    return torch.where((samp.temps <= 0.0)[:, None], greedy, sampled)
+
+
+def _sample_next(logits, samp, lens):
+    """The next committed token of every slot from its carried logits
+    ``[B, V]`` at its length ``lens`` (the row sample of one row). int32
+    ``[B]``."""
+    return _row_sample(logits[:, None], samp, lens[:, None])[:, 0]
+
+
+def _verify_window(logits_win, draft, q_eff, active, samp=None, lens=None):
+    """The COUPLED acceptance rule over ONE verify window (reference
     ``verify_window``, ``llm_engine.py:1183-1210``): ``logits_win [B, Kw,
     V]`` are the window rows' logits, ``draft [B, Kw - 1]`` the proposals,
     ``q_eff [B]`` the granted widths (rows past one never accept). Draft j
-    survives iff it equals the argmax at its position, every earlier draft
-    did, and ``j < q_eff - 1``. Returns ``(counts, next_logits)``:
-    committed tokens per slot (1 + accepted drafts, 0 when inactive) and
-    the logits at the row after the last accepted draft, the plain
-    engine's carried state after those tokens."""
+    survives iff it equals the token :func:`_row_sample` commits at its
+    position ``lens + 1 + j`` (the argmax on a greedy row), every earlier
+    draft did, and ``j < q_eff - 1``; so greedy and sampled speculative
+    streams are the plain engine's token for token. ``samp`` None: every
+    row greedy. Returns ``(counts, next_logits)``: committed tokens per
+    slot (1 + accepted drafts, 0 when inactive) and the logits at the row
+    after the last accepted draft, the plain engine's carried state after
+    those tokens."""
     Kd = draft.shape[1]
-    targets = torch.argmax(logits_win[:, :Kd], dim=-1).to(torch.int32)
+    poss = None
+    if samp is not None:
+        poss = lens.to(torch.long)[:, None] + 1 + \
+            torch.arange(Kd, device=draft.device)[None]
+    targets = _row_sample(logits_win[:, :Kd], samp, poss)
     acc = (targets == draft) & (
         torch.arange(Kd, device=draft.device)[None] <
         (q_eff.to(torch.long) - 1)[:, None])
@@ -549,6 +612,16 @@ class LLMEngine:
                     "content store there is no eviction to spill")
         if mesh is not None:
             _unported("mesh (multi-process / tensor-parallel serving)", "A14")
+        #: the sampler's static top-k width (0: off)
+        self.top_k = int(top_k)
+        #: the replica-independent seed of the sampling base key (None:
+        #: pull one from default_generator at the first step); it and the
+        #: key survive reset()
+        self._sampling_seed = (int(sampling_seed)
+                               if sampling_seed is not None else None)
+        #: the base key ``[2]`` on the device, made lazily at the first
+        #: step (reference ``llm_engine.py:3642-3665``)
+        self._rng_key = None
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
@@ -728,8 +801,11 @@ class LLMEngine:
         zeros (the token history too), and the prefix store and the host
         tier's swap and spill stores empty (their entries describe pools
         that no longer exist, so re-admission re-prefills). The
-        request-id counter, the cumulative ``stats`` and the rid-keyed
-        acceptance EWMA mirror survive."""
+        request-id counter, the cumulative ``stats``, the rid-keyed
+        acceptance EWMA mirror and the sampling base key survive: token
+        ``p`` of request ``r`` samples under ``fold_in(fold_in(key, r),
+        p)``, so a re-admitted sampled stream continues where the crash
+        cut it."""
         self.slots = [None] * self.B
         self.waiting.clear()
         self.finished_outputs.clear()
@@ -860,9 +936,6 @@ class LLMEngine:
             raise ValueError(f"unknown request kind {kind!r}")
         if kind == "embed":
             _unported("embedding (prefill-only) requests", "A10")
-        if float(temperature) > 0.0:
-            _unported("sampling with temperature > 0 (threefry fold_in keys)",
-                      "A7")
         committed = [int(t) for t in committed_tokens] \
             if committed_tokens else []
         if committed:
@@ -2172,9 +2245,10 @@ class LLMEngine:
                                         self._v_scale)]
 
     def _decode(self, active, eos_ids, budgets, n_iter):
-        """``n_iter`` greedy decode iterations for every slot, all on the
-        device (``horizon`` on the scan path, the trimmed stride on a
-        multi-step dispatch): sample from the carried logits, one-token
+        """``n_iter`` decode iterations for every slot, all on the device
+        (``horizon`` on the scan path, the trimmed stride on a multi-step
+        dispatch): sample from the carried logits (:func:`_sample_next`
+        under the dispatch's :meth:`_sampling`), one-token
         model step through the slot buffers or the paged pools, carry
         logits and lens. Inactive slots decode token 0 and keep their
         carried logits (a slot deactivated by the pool budget clamp
@@ -2184,12 +2258,13 @@ class LLMEngine:
         act = self._upload(active)
         eos = self._upload(eos_ids)
         buds = self._upload(budgets)
+        samp = self._sampling()
         logits, lens = self._logits, self._lens
         emitted = torch.zeros_like(lens)
         toks, was_active = [], []
         model = self.model
         for _ in range(n_iter):
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = _sample_next(logits, samp, lens)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
             caches = self._caches(tables, lens)
             hidden, _ = model.llama(nxt[:, None], kv_caches=caches,
@@ -2210,8 +2285,8 @@ class LLMEngine:
         """The legacy scheduler's speculative scan (reference ``spec_step``,
         ``llm_engine.py:1212-1268``): ``n_win`` full-width verify windows
         for every slot over the dense slot buffers. Each window drafts
-        ``k - 1`` tokens from the history, commits the argmax of the
-        carried logits (0 where inactive), runs ONE model call over
+        ``k - 1`` tokens from the history, commits the token sampled from
+        the carried logits (0 where inactive), runs ONE model call over
         ``[committed, drafts]`` through :class:`SlotKVCache` at the slots'
         lengths, accepts by the coupled rule at width ``k`` where active,
         carries the logits of the last accepted row, grows the lengths by
@@ -2229,6 +2304,7 @@ class LLMEngine:
         act = self._upload(active)
         eos = self._upload(eos_ids)
         buds = self._upload(budgets)
+        samp = self._sampling()
         logits, lens, tbuf = self._logits, self._lens, self._tokens
         emitted = torch.zeros_like(lens)
         kidx = torch.arange(Kw, device=self.device)[None]
@@ -2237,14 +2313,15 @@ class LLMEngine:
         toks, cnts, was_active = [], [], []
         for _ in range(n_win):
             draft = _lookup_draft(tbuf, lens, Kw - 1, self.lookup_ngram)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = _sample_next(logits, samp, lens)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
             window = torch.cat([nxt[:, None], draft], dim=1)   # [B, Kw]
             hidden, _ = model.llama(window, kv_caches=self._caches(None, lens),
                                     position_offset=lens)
             logits_win = model._logits(hidden).float()         # [B, Kw, V]
             counts, new_logits = _verify_window(
-                logits_win, draft, torch.where(act, full, 0), act)
+                logits_win, draft, torch.where(act, full, 0), act, samp,
+                lens)
             logits = torch.where(act[:, None], new_logits, logits)
             new_lens = lens + counts
             _write_window(tbuf, window, lens)
@@ -2283,8 +2360,9 @@ class LLMEngine:
         ql = self._upload(q_lens)
         is_dec = self._upload(is_decode)
         act = self._upload(active)
+        samp = self._sampling()
         logits, lens = self._logits, self._lens
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = _sample_next(logits, samp, lens)
         # capacity guard for pipelined over-dispatch: a window that would
         # cross the buffer end deactivates on the device
         act = act & (lens + ql <= self.capacity)
@@ -2318,7 +2396,8 @@ class LLMEngine:
         # verify slots need every window row's logits: the head over [B,
         # Kw, H], bounded by the window, never the whole chunk
         logits_win = self.model._logits(hidden[:, :Kw]).float()
-        counts, spec_logits = _verify_window(logits_win, draft, q_eff, dec)
+        counts, spec_logits = _verify_window(logits_win, draft, q_eff, dec,
+                                             samp, lens)
         new_logits = torch.where(dec[:, None], spec_logits, new_logits)
         self._logits = torch.where(act[:, None], new_logits, logits)
         # rejected drafts roll back here: a verify slot grows by its
@@ -2347,6 +2426,7 @@ class LLMEngine:
         buds = self._upload(budgets)
         qs = self._upload(spec_qs)
         caps = self._upload(row_caps).clamp(max=cap)
+        samp = self._sampling()
         logits, lens, tbuf = self._logits, self._lens, self._tokens
         emitted = torch.zeros_like(lens)
         kidx = torch.arange(Kw, device=self.device)[None]
@@ -2358,7 +2438,7 @@ class LLMEngine:
             # cross the buffer (or the token history's end)
             act = act & (lens + Kw <= cap)
             draft = _lookup_draft(tbuf, lens, Kw - 1, self.lookup_ngram)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = _sample_next(logits, samp, lens)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
             window = torch.cat([nxt[:, None], draft], dim=1)
             # the granted 1 + k drafts, shrunk to the covered-block and
@@ -2372,7 +2452,7 @@ class LLMEngine:
                                     position_offset=lens)
             logits_win = model._logits(hidden).float()         # [B, Kw, V]
             counts, new_logits = _verify_window(logits_win, draft, q_eff,
-                                                act)
+                                                act, samp, lens)
             logits = torch.where(act[:, None], new_logits, logits)
             _write_window(tbuf, window, lens, act)
             new_lens = lens + counts
@@ -2448,6 +2528,41 @@ class LLMEngine:
             if paged else None,
             adapter_slots=(), adapter_swaps=0)
         self._rec_ctx = None
+
+    def _base_key(self):
+        """Make the sampling base key once, at the first step (reference
+        ``llm_engine.py:3642-3665``): ``PRNGKey(sampling_seed)``, so every
+        engine built with one seed derives the same per-(rid, position)
+        keys and a migrated stream continues token for token; without a
+        seed, ``fold_in(PRNGKey(seed), counter)`` of one
+        ``default_generator.next_seed()`` draw. Made on the host and
+        uploaded without a wait."""
+        if self._rng_key is None:
+            if self._sampling_seed is not None:
+                key = prng.PRNGKey(self._sampling_seed)
+            else:
+                seed, counter = _random.default_generator.next_seed()
+                key = prng.fold_in(prng.PRNGKey(seed), counter)
+            self._rng_key = self._upload(key.numpy())
+
+    def _sampling(self):
+        """The dispatch's :class:`_Sampling` inputs (each dispatch function
+        builds its own from the slots it serves), or None when every
+        resident slot is greedy, which the host knows from the requests:
+        greedy rows never consult the key, so skipping the sampler leaves
+        every token as it was. ``temps`` and ``top_ps`` go up as one
+        array, ``rids`` as another, as the eos ids do."""
+        temps = np.array([s.req.temperature if s else 0.0
+                          for s in self.slots], np.float32)
+        if not (temps > 0.0).any():
+            return None
+        top_ps = np.array([s.req.top_p if s else 1.0 for s in self.slots],
+                          np.float32)
+        rids = np.array([s.req.request_id if s else 0 for s in self.slots],
+                        np.int64) & prng.M32
+        tp = self._upload(np.stack([temps, top_ps]))
+        return _Sampling(self._rng_key, tp[0], tp[1], self._upload(rids),
+                         self.top_k)
 
     def _slot_sampling_arrays(self):
         """Per-slot eos ids (-1: none) and remaining token budgets of an
@@ -2558,6 +2673,7 @@ class LLMEngine:
                         f"pool has {self.n_blocks} total (kv_pool_blocks "
                         f"too small)")
             return None
+        self._base_key()
         pool_done = []
         fused = self.scheduler == "fused"
         if fused and any(s is not None and s.ramping for s in self.slots):

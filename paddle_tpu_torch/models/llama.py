@@ -31,11 +31,14 @@ buffers), write the slot buffers in place and attend with
 ``F.scaled_dot_product_attention`` takes its plain math and no flash or
 paged kernel runs.
 
-``LlamaForCausalLM.generate`` is the reference's greedy decode over the
-static or the paged cache, run eagerly in windows of ``GEN_WINDOW`` steps.
+``LlamaForCausalLM.generate`` is the reference's decode over the static
+or the paged cache, run eagerly in windows of ``GEN_WINDOW`` steps:
+greedy, or sampled through the reference's sampling head
+(:func:`_filter_logits`, :func:`_sample_logits_device`) under threefry
+keys from :mod:`paddle_tpu_torch.core.prng`. The engine samples through
+the same head.
 
-Not in this port yet, each raising where reached: LoRA scopes and
-sampling in ``generate`` (``temperature > 0``).
+Not in this port yet, raising where reached: LoRA scopes.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
+from ..core import prng
+from ..core import random as _random
 from ..core.random import make_generator
 from ..distributed.fleet.recompute import recompute
 from ..incubate.nn import functional as IF
@@ -231,6 +236,75 @@ def _chunk_write(buf, new, lens, q_lens):
                      .expand(new.shape))
     buf[bidx, tgt] = torch.where(fresh[:, :, None, None],
                                  src.to(buf.dtype), buf[bidx, tgt])
+
+
+def _to_device(t, dev):
+    """CPU tensor ``t`` on ``dev`` without blocking the host: on the card
+    it goes up from a pinned copy."""
+    if torch.device(dev).type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _softmax(x):
+    """``exp(x - max) / sum`` along the last axis, the reference's
+    ``jax.nn.softmax`` operation for operation (torch's fused softmax
+    multiplies by the reciprocal of the sum instead)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _nucleus_cutoff(sorted_desc, top_p_val):
+    """The smallest logit of the minimal prefix of ``sorted_desc`` (each
+    row sorted descending) whose mass reaches ``top_p_val``: a position
+    survives while the mass BEFORE it is still below ``top_p_val``."""
+    probs = _softmax(sorted_desc)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_p_val
+    return torch.where(keep, sorted_desc, float("inf")).amin(
+        dim=-1, keepdim=True)
+
+
+def _filter_logits(logits, temp_val, top_k, top_p_val, use_top_p=True):
+    """The temperature / top-k / top-p filter (reference ``llama.py:
+    243-286``): scale by ``temp_val`` in float32, mask below the k-th
+    largest logit, then mask below the nucleus cutoff of the surviving
+    distribution. ``temp_val`` and ``top_p_val`` are float32 tensors that
+    broadcast against the logits' leading dimensions (``[B, 1]`` per row,
+    or 0-d); ``top_k`` and ``use_top_p`` are static.
+
+    With ``0 < top_k < V`` one ``torch.topk`` serves both cuts: the
+    nucleus is computed over the k-slice. As in the reference, with EXACT
+    ties at the k-th value the ``< kth`` mask keeps every tied entry while
+    the slice normalizes over exactly k (a measure-zero divergence for
+    real logits). Without top-k the nucleus runs over a full descending
+    sort."""
+    logits = logits.float() / temp_val
+    V = logits.shape[-1]
+    if top_k and 0 < int(top_k) < V:
+        vals = torch.topk(logits, int(top_k), dim=-1).values
+        logits = logits.masked_fill(logits < vals[..., -1:], float("-inf"))
+        if use_top_p:
+            logits = logits.masked_fill(
+                logits < _nucleus_cutoff(vals, top_p_val), float("-inf"))
+        return logits
+    if use_top_p:
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        logits = logits.masked_fill(
+            logits < _nucleus_cutoff(sorted_desc, top_p_val), float("-inf"))
+    return logits
+
+
+def _sample_logits_device(logits, key, temp_val, top_k, top_p_val, greedy,
+                          use_top_p):
+    """The sampling head (reference ``llama.py:288-300``): the argmax when
+    ``greedy``, else a categorical draw under ``key`` from the filtered
+    logits. ``key [*K, 2]`` covers ``logits [*K, *S, V]`` (one key for a
+    whole ``[B, V]`` batch in ``generate``, one per row in the engine).
+    Returns int64 token ids ``[*K, *S]``; nothing here reads the device."""
+    if greedy:
+        return torch.argmax(logits.float(), dim=-1)
+    filtered = _filter_logits(logits, temp_val, top_k, top_p_val, use_top_p)
+    return prng.categorical(key, filtered)
 
 
 class LlamaAttention(nn.Module):
@@ -521,18 +595,21 @@ class LlamaForCausalLM(nn.Module):
           ``b * mb + i`` (``mb = ceil(total / block_size)``; the trailing
           block is the paged kernels' scratch target, which no table
           entry names);
-        - ``decode(k_bufs, v_bufs, logits)`` -> ``(buf [B, limit] int64,
-          n)``: the greedy loop over the caches it is given (updated in
-          place), ``buf[:, :n]`` the tokens.
+        - ``decode(k_bufs, v_bufs, logits, rng_key, temp_val,
+          top_p_val)`` -> ``(buf [B, limit] int64, n)``: the decode loop
+          over the caches it is given (updated in place), ``buf[:, :n]``
+          the tokens. Each step samples from the carried logits: the
+          argmax when greedy, else ``rng_key, sub = split(rng_key)`` and
+          one categorical draw over the whole ``[B, V]`` batch under
+          ``sub`` from the filtered logits (reference ``:739-745``).
 
-        Both run eagerly on the model's device under ``no_grad``.
-        ``temperature > 0`` raises until the sampler is ported."""
-        if float(temperature) > 0.0:
-            raise NotImplementedError(
-                "generate with temperature > 0 is not ported yet: ROADMAP "
-                "A7 (sampling, the threefry fold_in keys)")
+        Both run eagerly on the model's device under ``no_grad``. The
+        program structure (greedy or not, ``top_k``, the nucleus on or
+        off) keys the cache; the temperature and ``top_p`` values are
+        decode arguments."""
+        greedy = float(temperature) <= 0.0
         use_top_p = bool(top_p) and float(top_p) < 1.0
-        key = (B, prompt_len, limit, total, True, int(top_k), use_top_p,
+        key = (B, prompt_len, limit, total, greedy, int(top_k), use_top_p,
                eos_token_id, cache_impl, int(block_size))
         cache = getattr(self, "_gen_cache", None)
         if cache is None:
@@ -596,7 +673,8 @@ class LlamaForCausalLM(nn.Module):
         eos = eos_token_id
 
         @torch.no_grad()
-        def decode(k_bufs, v_bufs, logits):
+        def decode(k_bufs, v_bufs, logits, rng_key=None, temp_val=None,
+                   top_p_val=None):
             # The reference's while_loop runs body i (sample, latch, write
             # buf[:, i], one step) while i < limit and, with eos, not every
             # row has finished: it returns n = the first i + 1 after which
@@ -614,7 +692,13 @@ class LlamaForCausalLM(nn.Module):
                 end = min(i + GEN_WINDOW, limit)
                 all_done = []
                 for j in range(i, end):
-                    nxt = torch.argmax(logits.float(), dim=-1)
+                    if greedy:
+                        nxt = torch.argmax(logits.float(), dim=-1)
+                    else:
+                        rng_key, sub = prng.split(rng_key)
+                        nxt = _sample_logits_device(
+                            logits, sub, temp_val, int(top_k), top_p_val,
+                            False, use_top_p)
                     if eos is not None:
                         nxt = nxt.masked_fill(finished, eos)
                         finished = finished | (nxt == eos)
@@ -637,7 +721,7 @@ class LlamaForCausalLM(nn.Module):
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=0, top_p=1.0, eos_token_id=None, cache_impl="static",
                  block_size=64):
-        """Greedy autoregressive decoding (reference ``llama.py:778-846``):
+        """Autoregressive decoding (reference ``llama.py:778-846``):
         one prefill over the prompt, then one token a step through
         :class:`StaticKVCache` buffers (``cache_impl="static"``: masked
         plain attention, as the reference) or paged pools of
@@ -648,8 +732,11 @@ class LlamaForCausalLM(nn.Module):
         fewer when every row has emitted ``eos_token_id``, after which a
         row emits only ``eos_token_id``. The decode reads the device once
         every ``GEN_WINDOW`` steps with ``eos_token_id``, and never
-        without it. ``temperature > 0`` (sampling) raises
-        ``NotImplementedError`` until the sampler is ported."""
+        without it. ``temperature <= 0`` is greedy; otherwise each step
+        draws from the temperature / ``top_k`` / ``top_p`` filtered logits
+        under threefry keys split from ``fold_in(PRNGKey(seed), counter)``
+        of ``default_generator.next_seed()``, which every call that
+        decodes advances, greedy or not, as the reference's does."""
         c = self.config
         dev = self.device
         ids = input_ids if isinstance(input_ids, torch.Tensor) \
@@ -671,6 +758,16 @@ class LlamaForCausalLM(nn.Module):
                 stacklevel=2)
         if limit <= 0:
             return torch.zeros((B, 0), dtype=torch.int64, device=dev)
+        seed, counter = _random.default_generator.next_seed()
+        sample = ()
+        if float(temperature) > 0.0:
+            # the key and the two values go up once, from pinned copies
+            sample = (
+                _to_device(prng.fold_in(prng.PRNGKey(seed), counter), dev),
+                _to_device(torch.tensor(max(float(temperature), 1e-6),
+                                        dtype=torch.float32), dev),
+                _to_device(torch.tensor(float(top_p), dtype=torch.float32),
+                           dev))
         was_training = self.training
         self.eval()
         try:
@@ -678,7 +775,7 @@ class LlamaForCausalLM(nn.Module):
                 B, prompt_len, limit, prompt_len + limit, temperature,
                 top_k, top_p, eos_token_id, cache_impl, block_size)
             logits, k_bufs, v_bufs = prefill(ids)
-            buf, n = decode(k_bufs, v_bufs, logits)
+            buf, n = decode(k_bufs, v_bufs, logits, *sample)
         finally:
             if was_training:
                 self.train()

@@ -1827,3 +1827,120 @@ def test_kv_ship_on_card(cuda, monkeypatch, quant):
     assert not plain, plain
     for s in replicas:
         assert not s.engine._swap_store and not s.engine._export_store
+
+
+def test_prng_on_card_equals_cpu(cuda):
+    """``core/prng.py`` on CUDA tensors: keys, folds, splits, random bits
+    and uniforms bit for bit the CPU's, one key over a block and a key a
+    row."""
+    from paddle_tpu_torch.core import prng
+    key = prng.fold_in(prng.PRNGKey(7), 1)
+    rows = prng.fold_in(prng.split(key, 8)[:, None], torch.arange(6)[None])
+    for k, shape in ((key, (8, 32000)), (prng.split(key, 8), (32000,)),
+                     (rows, (32000,))):
+        assert torch.equal(prng.random_bits(k.to(cuda), shape).cpu(),
+                           prng.random_bits(k, shape))
+        assert torch.equal(prng.uniform(k.to(cuda), shape).cpu()
+                           .view(torch.int32),
+                           prng.uniform(k, shape).view(torch.int32))
+    assert torch.equal(prng.split(key.to(cuda), 5).cpu(),
+                       prng.split(key, 5))
+
+
+def _sampled_partings(model, prompts, want, got, sampling, seed):
+    """Per stream pair that differs, at the first differing step over the
+    prompt and the common prefix: for a greedy request the no-cache
+    forward's top-1/top-2 margin, for a sampled one the gap between the
+    two tokens' perturbed scores (logits over the temperature plus the
+    Gumbel noise of ``fold_in(fold_in(PRNGKey(seed), rid), position)``)
+    and how far the lower token's mass-before sits from ``top_p``."""
+    from paddle_tpu_torch.core import prng
+    out = []
+    with torch.no_grad():
+        for rid, (p, a, b, smp) in enumerate(zip(prompts, want, got,
+                                                 sampling)):
+            if a == b:
+                continue
+            n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            if n >= min(len(a), len(b)):
+                out.append((float("inf"), float("inf")))
+                continue
+            seq = torch.tensor([list(p) + list(a[:n])], device=model.device)
+            row = model(seq)[0, -1].float().cpu()
+            if not smp:
+                top2 = torch.topk(row, 2).values
+                out.append((float(top2[0] - top2[1]), float("inf")))
+                continue
+            key = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), rid),
+                               len(p) + n)
+            scaled = row / smp["temperature"]
+            score = scaled + prng.gumbel(key, (row.shape[-1],))
+            order = torch.argsort(scaled, descending=True).tolist()
+            probs = torch.softmax(scaled[order].double(), dim=-1)
+            before = torch.cumsum(probs, 0) - probs
+            lower = max(order.index(a[n]), order.index(b[n]))
+            out.append((abs(float(score[a[n]] - score[b[n]])),
+                        abs(float(before[lower]) - smp["top_p"])))
+    return out
+
+
+def test_sampled_engine_on_card(cuda, monkeypatch):
+    """Sampling on the card: with ``sampling_seed`` every other request
+    samples (0.8 / 0.9) beside greedy ones, and the streams are equal
+    across the legacy and the fused scheduler and with speculation on and
+    off (fused verify grants, ``speculative_k=4``), up to a first parting
+    at a near-tie (a margin or perturbed gap at most 0.05, or a token on
+    the nucleus edge within 0.02); the paged kernels take every step, no
+    plain version runs and no ``step_begin`` synchronizes."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa_mod
+    monkeypatch.setenv("PADDLE_TPU_POOL_CHECKS", "1")
+    model = _bf16_d128(cuda, kvh=2)
+    rng = np.random.default_rng(12)
+    base = rng.integers(0, 512, 7).tolist()
+    prompts = [(base * 6)[:37], rng.integers(0, 512, 20).tolist(),
+               rng.integers(0, 512, 50).tolist(), (base * 4)[:25]]
+    sampling = [dict(temperature=0.8, top_p=0.9) if i % 2 else {}
+                for i in range(len(prompts))]
+    plain = []
+    for mod in (pa_mod, IF):
+        for name in ("paged_attention_decode_plain",
+                     "paged_attention_append_plain"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                plain.append(_n))
+    kw = dict(device=cuda, cache_impl="paged", max_batch=2,
+              max_seq_len=128, chunk_size=32, block_size=16,
+              sampling_seed=5)
+    streams = {}
+    for name, over in (("legacy", dict(scheduler="legacy")),
+                       ("fused", dict(scheduler="fused")),
+                       ("fused_spec", dict(scheduler="fused",
+                                           speculative_k=4))):
+        eng = LLMEngine(model, **kw, **over)
+        begin = eng.step_begin
+
+        def strict_begin(_begin=begin):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _begin()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        eng.step_begin = strict_begin
+        rids = [eng.add_request(np.asarray(p, np.int32), max_new_tokens=12,
+                                **s) for p, s in zip(prompts, sampling)]
+        while eng.has_unfinished():
+            eng.step()
+        streams[name] = [list(eng.finished_outputs[r].token_ids)
+                         for r in rids]
+        assert all(len(s) == 12 for s in streams[name])
+        eng._check_pool_invariants()
+        if name == "fused_spec":
+            assert eng.stats["spec_proposed_tokens"] > 0
+    torch.cuda.synchronize()
+    assert not plain, plain
+    for name in ("legacy", "fused_spec"):
+        for gap, edge in _sampled_partings(model, prompts, streams["fused"],
+                                           streams[name], sampling, 5):
+            assert gap <= 0.05 or edge <= 0.02, (name, gap, edge)

@@ -1,19 +1,25 @@
 """paddle_tpu_torch LLMEngine(cache_impl="paged", scheduler="legacy")
 against paddle_tpu's engine with the same arguments, on bridged weights:
-greedy streams must be TOKEN-EXACT, with the same finish reasons. CPU,
-float32, the models of tests/test_llm_engine.py (2 layers, hidden 64,
-vocab 96) in GQA (4 heads over 2 kv heads) and MHA form."""
+greedy and sampled streams must be TOKEN-EXACT, with the same finish
+reasons. Sampled cases set both packages' ``default_generator`` to one
+state first, so an engine without ``sampling_seed`` derives the same base
+key in both. CPU, float32, the models of tests/test_llm_engine.py (2
+layers, hidden 64, vocab 96) in GQA (4 heads over 2 kv heads) and MHA
+form."""
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.inference.llm_engine import (
     LLMEngine as JEngine, PoolCapacityError as JPoolCapacityError)
 from paddle_tpu.models.llama import (LlamaConfig as JConfig,
                                      LlamaForCausalLM as JLlama)
 
 from paddle_tpu_torch.bridge import load_reference_params
+from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.inference import LLMEngine, PoolCapacityError
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -66,6 +72,12 @@ def _both(models, requests, **engine_kw):
     ref = _serve(ref_eng, requests)
     out = _serve(eng, requests)
     return ref, out, ref_eng, eng
+
+
+def _seed_both(state):
+    """Both packages' global generators at one (seed, counter) state."""
+    jrandom.default_generator.set_state(state)
+    trandom.default_generator.set_state(state)
 
 
 def _prompts(seed, lens):
@@ -150,7 +162,7 @@ def test_pool_capacity_error_and_pool_edge(gqa):
 
 
 def test_unported_options_raise(gqa):
-    _, tm = gqa
+    jm, tm = gqa
     for scheduler in ("legacy", "fused"):
         for kw in (dict(adapter_store=object()), dict(mesh=object())):
             with pytest.raises(NotImplementedError):
@@ -203,6 +215,83 @@ def test_unported_options_raise(gqa):
     assert dense.cache_impl == "dense"
     (out,) = dense.generate(_prompts(5, (9,)), max_new_tokens=4)
     assert out.finish_reason == "length" and len(out.token_ids) == 4
+    # sampling is ported: a temperature > 0 request is served, token for
+    # token the reference engine's from one generator state
+    req = [(np.array([1, 2, 3]), dict(max_new_tokens=6, temperature=0.7))]
+    _seed_both((9, 0))
+    ref, out, _, _ = _both(gqa, req)
+    assert out == ref and len(out[0][0]) == 6
+
+
+@pytest.mark.parametrize("cache_impl", ["dense", "paged"])
+def test_mixed_sampling_isolation(gqa, cache_impl):
+    """A sampling slot does not perturb a greedy slot's stream (reference
+    tests/test_llm_engine.py:94), and both are the reference's token for
+    token under the engine's static ``top_k``; the first step draws once
+    from the global generator in both packages."""
+    rng = np.random.default_rng(5)
+    pg = rng.integers(1, 96, size=(7,)).astype(np.int32)
+    ps = rng.integers(1, 96, size=(6,)).astype(np.int32)
+    greedy = _both(gqa, [(pg, dict(max_new_tokens=8))],
+                   cache_impl=cache_impl)[1]
+    _seed_both((123, 0))
+    ref, out, _, _ = _both(
+        gqa, [(pg, dict(max_new_tokens=8, temperature=0.0)),
+              (ps, dict(max_new_tokens=8, temperature=1.3, top_p=0.9))],
+        cache_impl=cache_impl, top_k=8)
+    assert out == ref
+    assert out[0] == greedy[0]
+    assert len(out[1][0]) == 8 and all(0 <= t < 96 for t in out[1][0])
+    assert trandom.default_generator.get_state() == \
+        jrandom.default_generator.get_state() == (123, 1)
+
+
+@pytest.mark.parametrize("scheduler", ["legacy", "fused"])
+def test_sampling_seed_is_honoured(gqa, scheduler):
+    """``sampling_seed=s`` makes the base key ``PRNGKey(s)`` (reference
+    ``llm_engine.py:3643-3648``): the streams are the reference's at the
+    same seed whatever the global generators hold, neither generator
+    advances, another engine with the seed repeats them and another seed
+    changes them."""
+    _, tm = gqa
+    reqs = [(q, dict(max_new_tokens=6, temperature=0.8, top_p=0.9))
+            for q in _prompts(4, (7, 9))]
+    _seed_both((1, 0))
+    ref, out, _, eng = _both(gqa, reqs, scheduler=scheduler,
+                             sampling_seed=7)
+    assert out == ref
+    assert trandom.default_generator.get_state() == \
+        jrandom.default_generator.get_state() == (1, 0)
+    assert torch.equal(eng._rng_key, prng.PRNGKey(7))
+    _seed_both((2, 5))
+    again = _serve(LLMEngine(tm, device="cpu", **_kw(
+        scheduler=scheduler, sampling_seed=7)), reqs)
+    other = _serve(LLMEngine(tm, device="cpu", **_kw(
+        scheduler=scheduler, sampling_seed=8)), reqs)
+    assert again == out and other != out
+
+
+def test_unseeded_engine_draws_once_at_first_step(gqa):
+    """Without ``sampling_seed`` the base key is ``fold_in(PRNGKey(seed),
+    counter)`` of ONE ``default_generator`` draw, made at the first step
+    that runs (a step with nothing to do draws nothing), and it survives
+    ``reset()``: after a reset the streams (later rids) are still the
+    reference's and no second draw happens."""
+    jm, tm = gqa
+    _seed_both((5, 3))
+    jeng = JEngine(jm, **_kw())
     eng = LLMEngine(tm, device="cpu", **_kw())
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.add_request(np.array([1, 2, 3]), temperature=0.7)
+    assert eng.step() == [] and jeng.step() == []
+    assert trandom.default_generator.get_state() == (5, 3)
+    reqs = [(q, dict(max_new_tokens=5, temperature=0.9))
+            for q in _prompts(8, (6, 10, 4))]
+    assert _serve(eng, reqs) == _serve(jeng, reqs)
+    assert trandom.default_generator.get_state() == \
+        jrandom.default_generator.get_state() == (5, 4)
+    key = prng.fold_in(prng.PRNGKey(5), 4)
+    assert torch.equal(eng._rng_key, key)
+    eng.reset()
+    jeng.reset()
+    assert _serve(eng, reqs) == _serve(jeng, reqs)
+    assert torch.equal(eng._rng_key, key)
+    assert trandom.default_generator.get_state() == (5, 4)

@@ -13,8 +13,10 @@ the acceptance-adaptive window, its mirror, its drop at finish and its
 survival across ``reset``; ``speculative_k=1`` as the plain fused engine;
 ``submit(spec_ewma=)``, the server's spec counters and gauge against the
 reference server's; a crash mid verify window under ``RestartPolicy``;
-the validation errors and the forms not ported yet. The cases mirror
-tests/test_fused_spec.py. CPU, float32, 2 layers, hidden 64, vocab 96."""
+sampled streams (the coupled acceptance rule) against the reference's
+non-speculative engine, also across a crash; the validation errors and
+the forms not ported yet. The cases mirror tests/test_fused_spec.py.
+CPU, float32, 2 layers, hidden 64, vocab 96."""
 import collections
 import functools
 
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.inference import llm_engine as jle
 from paddle_tpu.inference.llm_engine import LLMEngine as JEngine
 from paddle_tpu.models.llama import (LlamaConfig as JConfig,
@@ -32,6 +35,7 @@ from paddle_tpu.profiler import flight_recorder as jfr
 from paddle_tpu.serving import AsyncLLMServer as JServer
 
 from paddle_tpu_torch.bridge import load_reference_params
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.inference import llm_engine as tle
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -108,6 +112,12 @@ def _shared_head(seed=6):
 
 def _tokens(outs):
     return [list(o.token_ids) for o in outs]
+
+
+def _seed_both(state):
+    """Both packages' global generators at one (seed, counter) state."""
+    jrandom.default_generator.set_state(state)
+    trandom.default_generator.set_state(state)
 
 
 @functools.lru_cache(maxsize=None)
@@ -559,10 +569,88 @@ def test_second_half_raises(models, kw):
 
 
 def test_sampling_raises_naming_a7(models):
-    _, tm = models
+    """Sampling (A7) is ported and no longer raises: a temperature > 0
+    request on the speculative engine is the reference speculative
+    engine's stream token for token, from one generator state."""
+    jm, tm = models
     eng = _engine(tm)
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.add_request(np.array([1, 2, 3]), temperature=0.8)
+    p = np.array([1, 2, 3], np.int32)
+    _seed_both((8, 0))
+    want = _tokens(JEngine(jm, **_kw()).generate(
+        [p], max_new_tokens=8, temperature=0.8))
+    assert _tokens(eng.generate([p], max_new_tokens=8,
+                                temperature=0.8)) == want
     assert eng.lookup_ngram == 3 and eng._tokens.shape == (2, 96)
     with pytest.raises(ValueError, match="no room"):
         eng.add_request(np.ones((92,), np.int32))
+
+
+# ---------------------------------------------------------------------------
+# sampled streams: the coupled acceptance rule
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+
+
+@pytest.mark.parametrize("cache_impl", ["dense", "paged"])
+def test_sampled_token_exact(models, cache_impl):
+    """SAMPLED streams of the speculative engine equal the reference's
+    NON-speculative fused engine's token for token (reference
+    tests/test_fused_spec.py:149): a draft is accepted iff it equals the
+    token sampled under its own position's key, so speculation changes
+    how tokens are produced, never which. The port's plain fused engine
+    gives them too."""
+    jm, tm = models
+    prompts = _prompts(5)
+    _seed_both((123, 0))
+    want = _tokens(JEngine(jm, **_kw(cache_impl, 1)).generate(
+        prompts, max_new_tokens=10, **SAMPLED))
+    _seed_both((123, 0))
+    spec = _engine(tm, cache_impl)
+    assert _tokens(spec.generate(prompts, max_new_tokens=10,
+                                 **SAMPLED)) == want
+    assert spec.stats["spec_proposed_tokens"] > 0
+    _seed_both((123, 0))
+    assert _tokens(_engine(tm, cache_impl, 1).generate(
+        prompts, max_new_tokens=10, **SAMPLED)) == want
+
+
+def test_chaos_crash_mid_verify_window_sampled(models, pool_checks):
+    """A crash between verify dispatches under ``RestartPolicy``: the
+    supervised restart re-admits every request and the SAMPLED streams
+    continue token-exactly (reference tests/test_fused_spec.py:295; the
+    coupled rule has no acceptance randomness to replay and the base key
+    survives ``reset``), equal to the reference server's uninterrupted
+    run; the pool audit holds after recovery."""
+    jm, tm = models
+    prompts = _prompts(17)
+
+    def run(server_cls, eng, fi):
+        server = server_cls(
+            eng, max_queue_size=8, fault_injector=fi,
+            supervise=RestartPolicy(max_restarts=2, backoff_s=0.01))
+        with server:
+            hs = [server.submit(p, max_new_tokens=10, **SAMPLED)
+                  for p in prompts]
+            return [list(h.result(timeout=240).token_ids) for h in hs]
+
+    _seed_both((17, 0))
+    eng = _engine(tm, "paged")
+    want = run(AsyncLLMServer, eng, FaultInjector())
+    fi = FaultInjector().crash_at_step(3)
+    got = run(AsyncLLMServer, eng, fi)
+    assert fi.fired and fi.fired[0][0] == "raise"
+    _seed_both((17, 0))
+    from paddle_tpu.serving import FaultInjector as JFaultInjector
+    from paddle_tpu.serving import RestartPolicy as JRestartPolicy
+
+    jserver = JServer(JEngine(jm, **_kw("paged")), max_queue_size=8,
+                      fault_injector=JFaultInjector(),
+                      supervise=JRestartPolicy(max_restarts=2,
+                                               backoff_s=0.01))
+    with jserver:
+        hs = [jserver.submit(p, max_new_tokens=10, **SAMPLED)
+              for p in prompts]
+        jwant = [list(h.result(timeout=240).token_ids) for h in hs]
+    assert got == want == jwant
+    _pool_drained(eng)

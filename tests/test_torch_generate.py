@@ -1,11 +1,14 @@
-"""paddle_tpu_torch LlamaForCausalLM.generate (greedy), held TOKEN-EXACT
-against the reference's compiled generate on bridged weights: the static
-and the paged cache, GQA with a block size that divides neither the
-prompt nor the total, batch 1 and 3, eos with rows finishing at different
-steps (the same n as the reference's while_loop), the rope-table cap,
-the argument edges, and int8/int4 weight-only models quantized in both
-packages. The windowed decode reads the device once a window with an eos
-id and never without one. Ports tests/test_jit_amp_io.py:744,801,
+"""paddle_tpu_torch LlamaForCausalLM.generate, greedy and sampled, held
+TOKEN-EXACT against the reference's compiled generate on bridged weights:
+the static and the paged cache, GQA with a block size that divides
+neither the prompt nor the total, batch 1 and 3, eos with rows finishing
+at different steps (the same n as the reference's while_loop), the
+rope-table cap, the argument edges, and int8/int4 weight-only models
+quantized in both packages. Sampled cases (temperature, top-k, top-p)
+set both packages' ``default_generator`` to one state first; every
+decoding call advances it once, greedy or not, in both. The windowed
+decode reads the device once a window with an eos id and never without
+one, sampled too. Ports tests/test_jit_amp_io.py:744,801,
 tests/test_paged_attention.py:336 and tests/test_quantization.py:242,283.
 CPU, float32, 2 layers, hidden 64, vocab 96."""
 import copy
@@ -16,11 +19,14 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.models.llama import (LlamaConfig as JConfig,
                                      LlamaForCausalLM as JLlama)
 from paddle_tpu.nn import quant as JQ
 
 from paddle_tpu_torch.bridge import load_reference_params
+from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import quant as TQ
@@ -60,6 +66,12 @@ def _ids(seed, B, P):
 
 def _ref(jm, ids, **kw):
     return np.asarray(jm.generate(paddle.to_tensor(ids), **kw).numpy())
+
+
+def _seed_both(state):
+    """Both packages' global generators at one (seed, counter) state."""
+    jrandom.default_generator.set_state(state)
+    trandom.default_generator.set_state(state)
 
 
 def _port(tm, ids, **kw):
@@ -174,8 +186,13 @@ def test_argument_edges(mha):
         tm.generate(torch.from_numpy(_ids(7, 1, 4)), cache_impl="dense")
     empty = tm.generate(torch.from_numpy(_ids(7, 2, 4)), max_new_tokens=0)
     assert empty.shape == (2, 0) and empty.dtype == torch.int64
-    with pytest.raises(NotImplementedError, match="A7"):
-        tm.generate(torch.from_numpy(_ids(7, 1, 4)), temperature=0.8)
+    # sampling is ported: temperature > 0 is the reference's draw
+    jm, _ = mha
+    ids = _ids(7, 1, 4)
+    _seed_both((3, 0))
+    np.testing.assert_array_equal(
+        _port(tm, ids, max_new_tokens=5, temperature=0.8),
+        _ref(jm, ids, max_new_tokens=5, temperature=0.8))
     # numpy ids, and the model is back in training mode after
     tm.train()
     out = tm.generate(_ids(7, 1, 4), max_new_tokens=2)
@@ -253,3 +270,97 @@ def test_decode_reads_the_device_once_a_window(mha, monkeypatch,
             reads = counts["n"]
         assert n == limit and reads == want, (eos, n, reads)
         np.testing.assert_array_equal(buf.numpy(), free)
+
+
+#: (temperature, top_k, top_p): the nucleus alone, top-k alone, both, and
+#: a hot unfiltered draw
+SAMPLINGS = [(0.8, 0, 0.9), (1.3, 8, 1.0), (0.5, 8, 0.9), (1.0, 0, 1.0)]
+
+
+@pytest.mark.parametrize("cache_impl,block_size", [("static", 64),
+                                                   ("paged", 4)])
+@pytest.mark.parametrize("temperature,top_k,top_p", SAMPLINGS)
+def test_sampled_token_exact_against_reference(mha, cache_impl, block_size,
+                                               temperature, top_k, top_p):
+    """Sampled generate at batch 3: one ``fold_in(PRNGKey(seed),
+    counter)`` key, split once a step, one categorical draw over the whole
+    batch from the filtered logits, token for token the reference's; both
+    generators advance by one."""
+    jm, tm = mha
+    ids = _ids(3, 3, 7)
+    kw = dict(max_new_tokens=12, temperature=temperature, top_k=top_k,
+              top_p=top_p, cache_impl=cache_impl, block_size=block_size)
+    _seed_both((5, 2))
+    want = _ref(jm, ids, **kw)
+    got = _port(tm, ids, **kw)
+    np.testing.assert_array_equal(got, want)
+    assert trandom.default_generator.get_state() == \
+        jrandom.default_generator.get_state() == (5, 3)
+
+
+def test_sampled_eos_same_n_as_reference(mha):
+    """Two sampled rows finish at an eos at different steps: the same tokens
+    and the same n as the reference's while_loop."""
+    jm, tm = mha
+    ids = _ids(4, 2, 5)
+    kw = dict(max_new_tokens=20, temperature=1.0, cache_impl="paged",
+              block_size=4)
+    _seed_both((6, 0))
+    free = _ref(jm, ids, **kw)
+    # a token every row emits, the one whose last first-occurrence comes
+    # soonest, so every row finishes and the loop ends early
+    common = set.intersection(*(set(r.tolist()) for r in free))
+    eos = min(common, key=lambda t: max(list(r).index(t) for r in free))
+    _seed_both((6, 0))
+    want = _ref(jm, ids, eos_token_id=eos, **kw)
+    _seed_both((6, 0))
+    np.testing.assert_array_equal(_port(tm, ids, eos_token_id=eos, **kw),
+                                  want)
+    assert want.shape[1] < 20
+
+
+def test_generate_advances_default_generator(mha):
+    """Every decoding ``generate`` call draws once from
+    ``default_generator``, greedy or sampled, as the reference's does
+    (``llama.py:824``); a call with nothing to decode draws nothing. So
+    an engine made after a ``generate`` derives the reference's base
+    key."""
+    jm, tm = mha
+    ids = _ids(2, 1, 4)
+    _seed_both((11, 7))
+    for kw in (dict(), dict(temperature=0.7), dict(max_new_tokens=0)):
+        _port(tm, ids, **{"max_new_tokens": 3, **kw})
+        _ref(jm, ids, **{"max_new_tokens": 3, **kw})
+        assert trandom.default_generator.get_state() == \
+            jrandom.default_generator.get_state()
+    assert trandom.default_generator.get_state() == (11, 9)
+    assert trandom.seed(4) is trandom.default_generator
+    assert trandom.default_generator.get_state() == (4, 0)
+    assert trandom.default_generator.initial_seed() == 4
+
+
+@pytest.mark.parametrize("cache_impl", ["static", "paged"])
+def test_sampled_decode_reads_nothing_without_eos(mha, monkeypatch,
+                                                  cache_impl):
+    """The sampled decode (the key splits and the draws) reads nothing
+    back to the host: no host-blocking tensor read through a whole
+    decode without an eos id."""
+    _, tm = mha
+    ids = torch.from_numpy(_ids(9, 2, 6))
+    prefill, decode = tm._gen_programs(2, 6, 10, 16, 0.8, 8, 0.9, None,
+                                       cache_impl, 4)
+    logits, kb, vb = prefill(ids)
+    key = prng.fold_in(prng.PRNGKey(1), 1)
+    temp, top_p = torch.tensor(0.8), torch.tensor(0.9)
+    reads = {"n": 0}
+    with monkeypatch.context() as m:
+        for name in READS:
+            orig = getattr(torch.Tensor, name)
+
+            def wrapped(self, *a, _orig=orig, **k):
+                reads["n"] += 1
+                return _orig(self, *a, **k)
+            m.setattr(torch.Tensor, name, wrapped)
+        buf, n = decode(kb, vb, logits, key, temp, top_p)
+    assert n == 10 and reads["n"] == 0
+    assert buf.shape == (2, 10) and int(buf.max()) < 96

@@ -12,10 +12,12 @@ layout (bf16, int8 and int4 pools, and prefix blocks) the two
 reads the other's. A stream the reference exports continues on the port
 token for token against the reference's uninterrupted greedy stream, and
 the other way round; the restored blocks are the shipped bytes, bit for
-bit. The router cases take their expected streams from the REFERENCE's
-``generate`` and its counters from the reference's router run beside the
-port's. Sampled ships wait for A7, adapters in entries for A10, the TP
-export for A14 and a port bench script for A15.
+bit. Sampled legs continue too: every engine shares ``sampling_seed``
+and a migration keeps its rid, so the per-(rid, position) keys continue
+the reference's uninterrupted sampled stream. The router cases take their
+expected streams from the REFERENCE's ``generate`` and its counters from
+the reference's router run beside the port's. Adapters in entries wait
+for A10, the TP export for A14 and a port bench script for A15.
 
 Timing: the router cases run threads; every ``result()`` has a generous
 timeout (the reference's end-to-end case is timing-dependent, ROADMAP
@@ -116,6 +118,30 @@ def greedy_ref(models, prompt):
     """The reference's uninterrupted greedy 10-token stream."""
     eng = JEngine(models[0], **_kw())
     return list(eng.generate([prompt], max_new_tokens=10)[0].token_ids)
+
+
+#: the reference file's sampled legs
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+
+
+@pytest.fixture(scope="module")
+def sampled_ref(models, prompt):
+    """The reference's uninterrupted SAMPLED 10-token stream per rid: under
+    ``sampling_seed`` the stream is a function of the rid, which is why a
+    migration keeps it."""
+    eng = JEngine(models[0], **_kw())
+    cache = {}
+
+    def get(rid):
+        if rid not in cache:
+            eng.add_request(prompt, max_new_tokens=10, request_id=rid,
+                            **SAMPLED)
+            while eng.has_unfinished():
+                eng.step()
+            cache[rid] = list(eng.finished_outputs.pop(rid).token_ids)
+        return cache[rid]
+
+    return get
 
 
 def _leg(eng, prompt, rid, **sampling):
@@ -389,6 +415,41 @@ def test_port_ship_token_exact(models, models_bf16, prompt, greedy_ref,
         e._check_pool_invariants()
 
 
+def test_ship_token_exact_greedy_and_sampled(models, prompt, greedy_ref,
+                                             sampled_ref):
+    """The migration acceptance (reference tests/test_kv_ship.py:191): a
+    one-token prefill leg's export rides the wire into a fresh engine and
+    the stitched resume continues token for token, greedy AND sampled
+    (same rid, same ``sampling_seed``), with one stitch token of prefill
+    a leg and the traffic on ``kv_ship_*``; a reference sampled leg
+    continues on the port the same way."""
+    jm, tm = models
+    src, dst = _port(tm), _port(tm)
+    tok, entry = _leg(src, prompt, rid=100)
+    assert [tok] == greedy_ref[:1]
+    assert dst.import_kv(deserialize_entry(serialize_entry(entry),
+                                           tkv.pool_treedefs(dst)))
+    assert _resume(dst, prompt, 100, tok) == greedy_ref
+    assert dst.stats["prefill_tokens"] == 1
+    tok_s, entry_s = _leg(src, prompt, rid=200, **SAMPLED)
+    assert [tok_s] == sampled_ref(200)[:1]
+    assert dst.import_kv(deserialize_entry(serialize_entry(entry_s),
+                                           tkv.pool_treedefs(dst)))
+    assert _resume(dst, prompt, 200, tok_s, **SAMPLED) == sampled_ref(200)
+    assert dst.stats["prefill_tokens"] == 2
+    assert dst.stats["kv_ship_in_bytes"] == \
+        entry["nbytes"] + entry_s["nbytes"]
+    assert dst.stats["kv_swap_in_bytes"] == 0
+    jtok, jentry = _leg(JEngine(jm, **_kw()), prompt, rid=201, **SAMPLED)
+    dst2 = _port(tm)
+    assert dst2.import_kv(deserialize_entry(jkv.serialize_entry(jentry),
+                                            tkv.pool_treedefs(dst2)))
+    assert _resume(dst2, prompt, 201, jtok, **SAMPLED) == sampled_ref(201)
+    for e in (src, dst, dst2):
+        assert not e._swap_store
+        e._check_pool_invariants()
+
+
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
 def test_quantized_ship_bit_exact(models, prompt, dtype):
     """Quantized pools ship token-exactly in both directions: the
@@ -530,7 +591,8 @@ def test_disagg_router_end_to_end(models, prompt, greedy_ref):
     (the iterator sees every token once), the decode replica prefills one
     stitch token a migration, and the counters, snapshot, transport,
     telemetry and StepRecord surfaces carry the migration as the
-    reference's do. Sampled ships wait for A7."""
+    reference's do. The sampled legs are
+    ``test_disagg_router_sampled_legs``."""
     jm, tm = models
     p2 = np.random.default_rng(3).integers(1, V, size=(19,)).astype(np.int32)
     want = [list(o.token_ids) for o in JEngine(jm, **_kw()).generate(
@@ -585,6 +647,35 @@ def test_disagg_router_end_to_end(models, prompt, greedy_ref):
     assert kinds.count("kv_shipped_in") == kinds.count("kv_stitch") == 2
     for srv in servers:
         srv.engine._check_pool_invariants()
+
+
+def test_disagg_router_sampled_legs(models, prompt, greedy_ref,
+                                    sampled_ref):
+    """The sampled legs of the reference's end-to-end case
+    (tests/test_kv_ship.py:283): the second submit lands rid 1 on the
+    prefill replica, the migration carries that rid to the decode
+    replica, whose engine shares ``sampling_seed``, so the caller's
+    stream (and its iterator) is the reference's uninterrupted sampled
+    stream for rid 1, through the port's router and the reference's
+    alike; both legs ship and the decode replica prefills stitches only."""
+    jm, tm = models
+    for make, cls in ((_port_server(tm), ReplicaRouter),
+                      (_ref_server(jm), JRouter)):
+        servers = _servers(make)
+        router = cls(servers, roles={"prefill": [0], "decode": [1]})
+        router.start()
+        try:
+            h = router.submit(prompt, max_new_tokens=10)
+            assert list(h.result(timeout=T).token_ids) == greedy_ref
+            hs = router.submit(prompt, max_new_tokens=10, **SAMPLED)
+            assert list(hs.result(timeout=T).token_ids) == \
+                sampled_ref(1), cls
+            assert list(hs) == sampled_ref(1)
+            assert router.stats["kv_shipped"] == 2
+            assert router.stats["kv_ship_fallback"] == 0
+            assert servers[1].engine.stats["prefill_tokens"] == 2
+        finally:
+            router.stop(timeout=120)
 
 
 def test_roles_validate_and_place_as_the_reference(models):

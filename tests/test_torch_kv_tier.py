@@ -6,8 +6,10 @@ tests/test_kv_tier.py at its shapes (2 layers, hidden 64, block 8, chunk
 16, pool 8) with PADDLE_TPU_POOL_CHECKS=1: the streams token for token,
 the preemption, prefill, prefix and tier counters equal, the StepRecords'
 tier fields equal step for step, and every restored block's payload and
-scales the bytes that were swapped out. Also C5: the port's stats carry
-the reference's whole key schema. CPU, float32."""
+scales the bytes that were swapped out; sampled streams too, through
+the swap cycle (the per-(rid, position) keys make the stitch sample the
+exact continuation). Also C5: the port's stats carry the reference's
+whole key schema. CPU, float32."""
 import time
 
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.inference import llm_engine as jle
 from paddle_tpu.inference.llm_engine import LLMEngine as JEngine
 from paddle_tpu.models.llama import (LlamaConfig as JConfig,
@@ -24,6 +27,7 @@ from paddle_tpu.serving import ServerQueueFull as JServerQueueFull
 from paddle_tpu.serving.scheduler import AdmissionQueue as JAdmissionQueue
 
 from paddle_tpu_torch.bridge import load_reference_params
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.inference import LLMEngine, llm_engine as tle
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.profiler import FlightRecorder
@@ -88,6 +92,13 @@ def _pair(models, **over):
     jm, tm = models
     return JEngine(jm, **_kw(**over)), LLMEngine(tm, device="cpu",
                                                  **_kw(**over))
+
+
+def _seed_both(state):
+    """Both packages' global generators at one (seed, counter) state, so
+    engines made next draw the same base key at their first steps."""
+    jrandom.default_generator.set_state(state)
+    trandom.default_generator.set_state(state)
 
 
 def _toks(eng, prompts, n=10, **sampling):
@@ -227,10 +238,13 @@ def test_tier_constructs_beside_the_paths_it_composes_with(models):
 
 def test_swap_cycle_token_exact_and_reprefill_avoided(models, prompts):
     """Pool pressure preempts through the host tier; the restored streams
-    equal the full-pool engine's and the reference's, every counter
-    equals the reference's, the tiered run re-prefills fewer tokens than
-    the untiered one, and the pool drains clean."""
+    equal the full-pool engine's and the reference's, greedy AND sampled
+    (reference tests/test_kv_tier.py:103-113: engines seeded alike draw
+    one base key), every counter equals the reference's, the tiered run
+    re-prefills fewer tokens than the untiered one, and the pool drains
+    clean."""
     jm, tm = models
+    _seed_both((321, 0))
     j_full, full = _pair(models)
     greedy_ref = _toks(j_full, prompts)
     assert _toks(full, prompts) == greedy_ref
@@ -238,6 +252,7 @@ def test_swap_cycle_token_exact_and_reprefill_avoided(models, prompts):
     assert _toks(plain, prompts) == _toks(j_plain, prompts) == greedy_ref
     assert _counters(plain) == _counters(j_plain)
     assert plain.stats["preemptions"] >= 1          # pressure is real
+    _seed_both((321, 0))
     j_tier, tier = _pair(models, kv_pool_blocks=8, kv_host_swap=True)
     log = _watch_round_trips(tier)
     assert _toks(tier, prompts) == _toks(j_tier, prompts) == greedy_ref
@@ -255,10 +270,17 @@ def test_swap_cycle_token_exact_and_reprefill_avoided(models, prompts):
     re_plain = plain.stats["prefill_tokens"] - total_prompt
     re_tier = tier.stats["prefill_tokens"] - total_prompt
     assert 0 <= re_tier < re_plain
-    # the sampled half waits for the threefry port
-    with pytest.raises(NotImplementedError, match="A7"):
-        tier.add_request(prompts[0], max_new_tokens=4, temperature=0.8,
-                         top_p=0.9)
+    # the sampled half: the same rids on every engine, so the swapped and
+    # restored streams continue the full pool's token for token
+    sampled = dict(temperature=0.8, top_p=0.9)
+    sampled_ref = _toks(j_full, prompts, **sampled)
+    assert _toks(full, prompts, **sampled) == sampled_ref
+    swaps = tier.stats["kv_swap_in_blocks"]
+    assert _toks(tier, prompts, **sampled) == \
+        _toks(j_tier, prompts, **sampled) == sampled_ref
+    assert _counters(tier) == _counters(j_tier)
+    assert tier.stats["kv_swap_in_blocks"] > swaps
+    _clean(tier)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "int4"])

@@ -18,8 +18,10 @@ tests/test_serving.py's ``test_speculative_engine_serves_exact`` (the
 server's spec counters and gauge against the reference server's);
 ``speculative_k=1`` as the plain legacy engine bit for bit; a weight-only
 int4 model under the scan; fault C4 (drafting at a length past the
-history buffer) and a capacity at the rope table's end. CPU, float32, 2
-layers, hidden 64, vocab 96."""
+history buffer) and a capacity at the rope table's end; sampled streams
+under the coupled acceptance rule (a sampling slot beside a greedy one,
+and the sampled speculative stream equal to the plain sampled engine's and
+the reference's). CPU, float32, 2 layers, hidden 64, vocab 96."""
 import collections
 import copy
 import functools
@@ -31,6 +33,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.inference import llm_engine as jle
 from paddle_tpu.inference.llm_engine import LLMEngine as JEngine
 from paddle_tpu.models.llama import (LlamaConfig as JConfig,
@@ -40,6 +43,7 @@ from paddle_tpu.profiler import flight_recorder as jfr
 from paddle_tpu.serving import AsyncLLMServer as JServer
 
 from paddle_tpu_torch.bridge import load_reference_params
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.inference import llm_engine as tle
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -721,3 +725,68 @@ def test_capacity_at_the_rope_table_keeps_the_plain_stream(models, depth):
     assert top + k > cap            # windows reached past the rope table
     if depth == 2:
         assert top > cap            # the C4 path: drafts past the buffer
+
+
+# ---------------------------------------------------------------------------
+# sampled streams under the scan: the coupled acceptance rule
+# ---------------------------------------------------------------------------
+
+def _seed_both(state):
+    """Both packages' global generators at one (seed, counter) state."""
+    jrandom.default_generator.set_state(state)
+    trandom.default_generator.set_state(state)
+
+
+def _serve_rids(eng, requests):
+    rids = [eng.add_request(p, **kw) for p, kw in requests]
+    while eng.has_unfinished():
+        eng.step()
+    return [list(eng.finished_outputs[r].token_ids) for r in rids]
+
+
+def test_sampling_slot_decodes_beside_greedy(models):
+    """A temperature-1.0 slot decodes beside a greedy one under the scan
+    (reference tests/test_llm_engine.py:270): the greedy stream is the
+    plain engine's, and both are the reference speculative engine's
+    token for token."""
+    jm, tm = models
+    rng = np.random.default_rng(16)
+    pg = rng.integers(1, V, size=(7,)).astype(np.int32)
+    ps = rng.integers(1, V, size=(6,)).astype(np.int32)
+    reqs = [(pg, dict(max_new_tokens=6, temperature=0.0)),
+            (ps, dict(max_new_tokens=6, temperature=1.0))]
+    kw = _kw(4, max_batch=2)
+    _seed_both((4, 0))
+    want = _serve_rids(JEngine(jm, **kw), reqs)
+    _seed_both((4, 0))
+    got = _serve_rids(LLMEngine(tm, device="cpu", **kw), reqs)
+    assert got == want
+    assert got[0] == _plain_streams(tm, [(pg, 6, None)], spec_k=4)[0]
+    assert len(got[1]) == 6
+
+
+def test_spec_coupled_acceptance_sampled_token_exact(models):
+    """The coupled rule makes a SAMPLED speculative stream token-identical
+    to the plain sampled engine's (reference
+    tests/test_llm_engine.py:321), here also to the reference's plain
+    engine; acceptance is booked as the reference books it."""
+    jm, tm = models
+    rng = np.random.default_rng(20)
+    base = rng.integers(1, V, size=(6,)).astype(np.int32)
+    prompts = [np.tile(base, 3)[:15],
+               rng.integers(1, V, size=(9,)).astype(np.int32)]
+    sampling = dict(max_new_tokens=8, temperature=0.8, top_p=0.9)
+    _seed_both((321, 0))
+    want = _tokens(JEngine(jm, max_batch=2, max_seq_len=96,
+                           chunk_size=16).generate(prompts, **sampling))
+    _seed_both((321, 0))
+    plain = LLMEngine(tm, device="cpu", max_batch=2, max_seq_len=96,
+                      chunk_size=16)
+    assert _tokens(plain.generate(prompts, **sampling)) == want
+    _seed_both((321, 0))
+    spec = LLMEngine(tm, device="cpu", max_batch=2, max_seq_len=96,
+                     chunk_size=16, speculative_k=4)
+    assert _tokens(spec.generate(prompts, **sampling)) == want
+    assert spec.stats["spec_proposed_tokens"] > 0
+    assert spec.stats["spec_accepted_tokens"] == \
+        spec.stats["draft_tokens_accepted"]

@@ -10,6 +10,7 @@ from paddle_tpu.models.llama import (LlamaConfig as JConfig,
                                      LlamaForCausalLM as JLlama)
 
 from paddle_tpu_torch.bridge import load_reference_params
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            PagedKVCache, StaticKVCache)
 
@@ -113,9 +114,9 @@ def test_unported_options_raise(flag):
     """The fused projections are ported: a fused model holding the
     unfused one's weights, concatenated along the output dimension
     (``[q | k | v]``, ``[gate | up]``), gives its logits (float32, atol
-    1e-5: the same products, summed in one order), and its greedy
-    ``generate`` the same tokens. Sampling in ``generate`` still
-    raises."""
+    1e-5: the same products, summed in one order), and its greedy and
+    sampled ``generate`` the same tokens (sampled: both from one
+    ``default_generator`` state)."""
     plain = LlamaForCausalLM(LlamaConfig(**GQA), device="cpu")
     fused = LlamaForCausalLM(LlamaConfig(**GQA, **{flag: True}),
                              device="cpu")
@@ -136,5 +137,9 @@ def test_unported_options_raise(flag):
         np.testing.assert_array_equal(
             fused.generate(ids[:, :8], max_new_tokens=6).numpy(),
             plain.generate(ids[:, :8], max_new_tokens=6).numpy())
-    with pytest.raises(NotImplementedError, match="A7"):
-        fused.generate(torch.zeros(1, 3, dtype=torch.long), temperature=0.5)
+    sampled = []
+    for m in (fused, plain):
+        trandom.default_generator.set_state((2, 0))
+        sampled.append(m.generate(ids[:, :8], max_new_tokens=6,
+                                  temperature=0.5, top_k=20).numpy())
+    np.testing.assert_array_equal(*sampled)

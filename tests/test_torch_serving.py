@@ -7,7 +7,9 @@ Streams equal the port engine's own ``generate`` and the reference's
 ``AsyncLLMServer`` streams on the same weights (greedy, token-exact);
 cancellation frees pool blocks; deadlines expire queued and running
 requests; the queue pushes back; supervised crash recovery is token-exact
-under a scripted ``FaultInjector``. The reference's timing-dependent
+under a scripted ``FaultInjector``, greedy and sampled (the sampling base
+key survives the restart, so the per-(rid, position) keys continue each
+sampled stream). The reference's timing-dependent
 assertions get generous bounds here: the watchdog must flip health within
 1 s of a 0.3 s timeout (reference: 0.5 s), and a busy window's attributed
 share must reach 0.5 (reference: 0.9), since these tests share the CPU
@@ -486,6 +488,50 @@ def test_crash_recovery_token_exact(engines, config):
     assert f"paddle_tpu_serving_engine_restarts_total {server.restarts}" \
         in text
     assert "paddle_tpu_serving_faults_injected_total 1" in text
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(eng, "_debug_pool", True)
+        eng._check_pool_invariants()
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_crash_recovery_sampled_exact(models, config):
+    """SAMPLED streams resume token-exactly across a supervised restart
+    (reference tests/test_faults.py:202): token p of request r samples
+    from ``fold_in(fold_in(base, r), p)`` and ``reset()`` keeps the base
+    key, so the restart replays the same per-position keys. The crashed
+    run equals the same engine's uninjected run (a fresh server: rids
+    restart at 0) and the reference server's at the same
+    ``sampling_seed``."""
+    jm, tm = models
+    kw = {**CONFIGS[config], "sampling_seed": 5}
+    eng = _engine(tm, config, sampling_seed=5)
+    prompts = _prompts(5, (9, 5))
+
+    def run(server_cls, engine, fi):
+        server = server_cls(
+            engine, fault_injector=fi,
+            supervise=RestartPolicy(max_restarts=2, backoff_s=0.01))
+        with server:
+            hs = [server.submit(p, max_new_tokens=8, temperature=0.8,
+                                top_p=0.9) for p in prompts]
+            return [list(h.result(timeout=240).token_ids) for h in hs]
+
+    want = run(AsyncLLMServer, eng, FaultInjector())
+    fi = FaultInjector().crash_at_step(3)
+    got = run(AsyncLLMServer, eng, fi)
+    assert fi.fired and fi.fired[0][0] == "raise"
+    from paddle_tpu.serving import FaultInjector as JFaultInjector
+    from paddle_tpu.serving import RestartPolicy as JRestartPolicy
+
+    jserver = JServer(JEngine(jm, **_kw(**kw)),
+                      fault_injector=JFaultInjector(),
+                      supervise=JRestartPolicy(max_restarts=2,
+                                               backoff_s=0.01))
+    with jserver:
+        hs = [jserver.submit(p, max_new_tokens=8, temperature=0.8,
+                             top_p=0.9) for p in prompts]
+        jwant = [list(h.result(timeout=240).token_ids) for h in hs]
+    assert got == want == jwant
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(eng, "_debug_pool", True)
         eng._check_pool_invariants()

@@ -18,6 +18,8 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
+from paddle_tpu.core import random as jrandom
+from paddle_tpu.inference import LLMEngine as JEngine
 from paddle_tpu.jit.api import TrainStep as JTrainStep
 from paddle_tpu.models.llama import (LlamaConfig as JConfig,
                                      LlamaForCausalLM as JLlama)
@@ -26,6 +28,7 @@ from paddle_tpu.ops.kernels.fused_ce import fused_softmax_ce as jax_ce
 import paddle_tpu_torch.ops.kernels.flash_attention as tflash
 from paddle_tpu_torch.bridge import (load_reference_optimizer_state,
                                      load_reference_params)
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import functional as F
@@ -294,11 +297,12 @@ def test_optimizer_state_bridge_continues_the_reference_run():
 
 
 def test_refusals():
-    """What this port still refuses, each naming its ROADMAP item:
-    sampling with ``temperature > 0`` in ``generate`` and in the engine
-    (A7); greedy ``generate`` is ported and runs. Quantized KV
-    pools (kernel B4), refused before slice 5, now serve: an int8 engine
-    builds and a layer attends through a quantized paged cache."""
+    """Forms this port once refused and now serves. Quantized KV pools
+    (kernel B4, refused before slice 5): an int8 engine builds and a
+    layer attends through a quantized paged cache. Sampling (A7, refused
+    before it was ported): ``generate`` with ``temperature > 0`` and a
+    sampled request on an int8 pool are token for token the reference's
+    on bridged float32 weights."""
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.models.llama import PagedKVCache
     tm = LlamaForCausalLM(LlamaConfig(**dict(GQA, dtype="bfloat16")),
@@ -324,8 +328,18 @@ def test_refusals():
     assert cache.k[0].any() and cache.k_scale[0].all()   # written in place
     assert tm.generate(torch.from_numpy(ids), max_new_tokens=2).shape \
         == (1, 2)
-    with pytest.raises(NotImplementedError, match="generate"):
-        tm.generate(torch.from_numpy(ids), temperature=0.7)
-    eng = LLMEngine(tm, cache_impl="paged", max_seq_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.add_request(ids[0], max_new_tokens=4, temperature=0.7)
+    jm, fm = _pair(GQA)
+    jm.eval()
+    fm.eval()
+    jrandom.default_generator.set_state((6, 0))
+    trandom.default_generator.set_state((6, 0))
+    np.testing.assert_array_equal(
+        fm.generate(torch.from_numpy(ids), max_new_tokens=4,
+                    temperature=0.7).numpy(),
+        np.asarray(jm.generate(paddle.to_tensor(ids), max_new_tokens=4,
+                               temperature=0.7).numpy()))
+    kw = dict(cache_impl="paged", kv_cache_dtype="int8", max_seq_len=64,
+              block_size=16, chunk_size=16, sampling_seed=5)
+    outs = [e.generate([ids[0]], max_new_tokens=4, temperature=0.7)
+            for e in (LLMEngine(fm, device="cpu", **kw), JEngine(jm, **kw))]
+    assert list(outs[0][0].token_ids) == list(outs[1][0].token_ids)
